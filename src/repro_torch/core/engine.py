@@ -1,0 +1,442 @@
+"""BohmEngine: the two-phase batch pipeline, single-device port.
+
+The port of ``repro.core.engine``: ``run_batch`` runs plan -> wavefront
+execute -> watermark commit (three phase functions, as in the reference's
+phase graph), snapshot pins hold the GC watermark down, and read-only
+transactions resolve visibility through the hand-written CUDA kernels
+(``mvcc_resolve`` over the primary ring, ``mvcc_resolve_masked`` over the
+spill tier) with no CC phase and no writes to shared state.
+
+PyTorch runs eagerly, so there are no jits: the phase functions are plain
+functions on tensors, and work is enqueued on the current CUDA stream
+without host syncs except the wavefront's per-wave exit test and the
+diagnostic stats surfaces.
+
+Not ported yet (each raises ``NotImplementedError``): ``mesh=``,
+``n_shards > 1``, ``paged``, ``adaptive_k`` and a lifecycle ``auditor``
+(ROADMAP.md, queue 1). An enabled ``PhaseTracer`` times the phases
+(``repro_torch.obs``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.carry import store_from_reference
+from repro_torch.core.execute import (Store, commit, execute_plan,
+                                      init_store, store_from_base)
+from repro_torch.core.plan import MAX_BATCH_TXNS, Plan, cc_plan
+from repro_torch.core.txn import TxnBatch, Workload
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import NULL_AUDIT, MetricsRegistry, PhaseTracer
+from repro_torch.store import (INF_TS, gather_windows_sharded, gc_sharded,
+                               resolve_sharded, store_occupancy, to_global)
+from repro_torch.store.ring import i32
+
+
+@dataclasses.dataclass(frozen=True)
+class SnapshotHandle:
+    """An active reader registration; holds the GC watermark at <= ts."""
+    sid: int
+    ts: int
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"BohmEngine({what}) is not ported yet: repro_torch runs the "
+        "single-device dense-ring engine (ROADMAP.md, queue 1)")
+
+
+class BohmEngine:
+    def __init__(self, num_records: int, workload: Workload,
+                 mesh=None, ring_slots: int = 4,
+                 n_shards: Optional[int] = None,
+                 spill_buckets: Optional[int] = None,
+                 spill_slots: int = 8,
+                 adaptive_k: bool = False, paged: bool = False,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[PhaseTracer] = None,
+                 auditor=None, device: DeviceLike = None):
+        """Arguments as in ``repro.core.engine.BohmEngine`` (the options
+        of the unported paths — ``mesh``, ``n_shards > 1``, ``adaptive_k``,
+        ``paged``, an ``auditor`` — raise), plus
+        ``device``: default the GPU, which raises when there is none;
+        pass ``device="cpu"`` for the plain PyTorch path. ``spill_slots``
+        > 0 (default 8) attaches a spill pool of ``spill_buckets``
+        (default: one bucket per 4 records) x ``spill_slots`` slots."""
+        if mesh is not None:
+            raise _unported("mesh=")
+        if n_shards is not None and int(n_shards) != 1:
+            raise _unported("n_shards > 1")
+        if paged:
+            raise _unported("paged=True")
+        if adaptive_k:
+            raise _unported("adaptive_k=True")
+        if auditor is not None:
+            raise _unported("auditor=")
+        if num_records > (1 << 20):
+            raise ValueError("composite uint32 keys require R <= 2^20")
+        if ring_slots < 1:
+            raise ValueError("ring_slots must be >= 1")
+        self.device = resolve_device(device)
+        self.num_records = num_records
+        self.workload = workload
+        self.ring_slots = ring_slots
+        self.n_shards = 1
+        self.spill_slots = int(spill_slots)
+        self.spill_buckets = int(spill_buckets if spill_buckets is not None
+                                 else max(1, num_records // 4)
+                                 ) if self.spill_slots > 0 else 0
+        self.store = init_store(num_records, workload.payload_words,
+                                ring_slots=ring_slots,
+                                spill_buckets=self.spill_buckets,
+                                spill_slots=self.spill_slots,
+                                device=self.device)
+        self._ts_next = 1                  # host mirror of store.ts_counter
+        self._snapshots: Dict[int, SnapshotHandle] = {}
+        self._next_sid = 0
+        self.metrics = registry if registry is not None \
+            else MetricsRegistry()
+        self.tracer = tracer if tracer is not None \
+            else PhaseTracer(enabled=False)
+        self.auditor = NULL_AUDIT
+        self._declare_metrics()
+
+    _SPILL_KEYS = ("spill_admitted", "spill_dropped",
+                   "spill_overwrote_pinned")
+
+    def _declare_metrics(self) -> None:
+        """(Re)declare the engine's device counters (run at init, at
+        ``reset_store`` and at ``load_state``)."""
+        m = self.metrics
+        k_eff = self.store.versions.k_eff
+        scalar = torch.zeros((), dtype=torch.int32, device=self.device)
+        m.declare("engine/ring_overwrote_rec", k_eff)
+        m.declare("engine/ring_overwrote_dead_rec", k_eff)
+        for name in ("ring_overwrote_live", "ring_overwrote_dead",
+                     "paged_alloc_failed", "aborts", "waves",
+                     *self._SPILL_KEYS):
+            m.declare(f"engine/{name}", scalar)
+        m.set("engine/commits", 0)
+        m.set("engine/txns_committed", 0)
+
+    # -- update path -------------------------------------------------------
+    def run_batch(self, batch: TxnBatch
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One batch through the phase graph: plan -> exec -> commit."""
+        if batch.size > MAX_BATCH_TXNS:
+            raise ValueError("composite uint32 keys require T <= 2^12")
+        batch = batch.to(self.device)
+        tr = self.tracer
+        wm = i32(self.watermark(), self.device)
+        pins = self.pin_array()
+        with tr.span("plan_phase", txns=batch.size) as sp:
+            plan = sp.fence(plan_phase(batch, self.store.ts_counter))
+        with tr.span("exec_phase", txns=batch.size) as sp:
+            w_data, read_vals, exec_metrics = exec_phase(
+                plan, batch, self.store, workload=self.workload)
+            sp.fence(read_vals)
+        with tr.span("commit_phase", txns=batch.size) as sp:
+            self.store, ring_metrics = commit_phase(
+                plan, batch, self.store, w_data, wm, None, pins)
+            sp.fence(self.store.base)
+        metrics = dict(exec_metrics, **ring_metrics)
+        self.claim_ts_window(batch.size)
+        self.record_commit_metrics(metrics, n_txns=batch.size)
+        return read_vals, metrics
+
+    def run_stream(self, batches) -> Dict[str, torch.Tensor]:
+        """Run batches back to back; only the wavefront's exit tests join
+        the host. Returns the metrics of the final batch."""
+        metrics = None
+        for batch in batches:
+            _, metrics = self.run_batch(batch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return metrics
+
+    def snapshot(self) -> torch.Tensor:
+        return self.store.base
+
+    def reset_store(self, base: torch.Tensor,
+                    base_ts: Optional[torch.Tensor] = None) -> None:
+        """Reinitialise committed state (head cache + rings + spill) from
+        ``base``."""
+        self.store = store_from_base(
+            torch.as_tensor(base).to(self.device),
+            None if base_ts is None
+            else torch.as_tensor(base_ts).to(self.device),
+            self.ring_slots, spill_buckets=self.spill_buckets,
+            spill_slots=self.spill_slots)
+        self._ts_next = 1
+        self._snapshots.clear()
+        self._declare_metrics()
+
+    def load_state(self, arrays: Dict[str, np.ndarray], ts_next: int,
+                   pins: Iterable[int] = ()) -> List[SnapshotHandle]:
+        """Adopt committed state carried across from another engine (the
+        numpy dict of ``repro_torch.core.carry``): the store, the next
+        timestamp to assign and the registered snapshot pins. Device
+        counters restart at zero. Returns the new pins' handles."""
+        store = store_from_reference(arrays, self.device)
+        if _layout(store) != _layout(self.store):
+            raise ValueError("carried state does not match this engine's "
+                             f"configuration: {_layout(store)} vs "
+                             f"{_layout(self.store)}")
+        self.store = store
+        self._ts_next = int(ts_next)
+        self._snapshots.clear()
+        self._declare_metrics()
+        return [self.begin_snapshot(int(ts)) for ts in pins]
+
+    # -- snapshot-read path (zero CC bookkeeping) --------------------------
+    def current_ts(self) -> int:
+        """Snapshot timestamp that sees exactly the committed transactions:
+        the last assigned global ts."""
+        return self._ts_next - 1
+
+    def watermark(self) -> int:
+        """Low watermark: min active reader snapshot ts, else the next
+        unassigned ts."""
+        return min([s.ts for s in self._snapshots.values()]
+                   + [self._ts_next])
+
+    def claim_ts_window(self, n_txns: int) -> Tuple[int, int]:
+        """Reserve the next ``n_txns`` global timestamps and return the
+        half-open window ``(lo, lo + n_txns)``."""
+        lo = self._ts_next
+        self._ts_next += n_txns
+        return lo, lo + n_txns
+
+    def pin_array(self) -> torch.Tensor:
+        """Registered snapshot pin timestamps as a device vector, sorted
+        and INF_TS-padded to a power-of-two length."""
+        pins = sorted(s.ts for s in self._snapshots.values())
+        n = 1
+        while n < len(pins):
+            n *= 2
+        pins = pins + [INF_TS] * (n - len(pins))
+        return i32(pins, self.device)
+
+    def gc_sweep(self) -> int:
+        """Standalone precise GC at the current watermark (rings + spill).
+        Returns the number of versions reclaimed; synchronises on it."""
+        wm_host = self.watermark()
+        with self.tracer.span("gc_sweep", watermark=wm_host) as sp:
+            versions, evicted = gc_sharded(self.store.versions,
+                                           i32(wm_host, self.device))
+            self.store = dataclasses.replace(self.store, versions=versions)
+            evicted = int(evicted)
+            sp.note(reclaimed=evicted)
+        self.metrics.inc("engine/gc_sweeps")
+        self.metrics.inc("engine/gc_reclaimed", evicted)
+        return evicted
+
+    def begin_snapshot(self, ts: Optional[int] = None) -> SnapshotHandle:
+        """Register a reader at ``ts`` (default: now)."""
+        handle = SnapshotHandle(self._next_sid,
+                                self.current_ts() if ts is None
+                                else int(ts))
+        self._next_sid += 1
+        self._snapshots[handle.sid] = handle
+        return handle
+
+    def release_snapshot(self, handle: SnapshotHandle) -> None:
+        self._snapshots.pop(handle.sid, None)
+
+    def snapshot_windows(self, records) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+        """Gathered (begin, end, payload) candidate windows per record —
+        the ``mvcc_resolve`` kernel's input layout."""
+        return gather_windows_sharded(self.store.versions,
+                                      i32(records, self.device))
+
+    def snapshot_read(self, records, ts=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Resolve ``records`` [B] at snapshot ``ts`` through the kernels,
+        primary ring then spill pool. Returns (vals [B, D], found [B]);
+        found=False means the visible version was never written or was
+        lost, never a stale payload."""
+        if isinstance(ts, SnapshotHandle):
+            ts = ts.ts
+        if ts is None:
+            ts = self.current_ts()
+        records = i32(records, self.device)
+        ts_vec = torch.full((records.shape[0],), int(ts), dtype=torch.int32,
+                            device=self.device)
+        return resolve_sharded(self.store.versions, records, ts_vec)
+
+    def run_readonly_batch(self, batch: TxnBatch, ts=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      Dict[str, torch.Tensor]]:
+        """Execute read-only transactions against the snapshot at ``ts``:
+        no CC phase, no placeholder versions, no writes to shared state.
+        Returns (read_vals [T, Rd, D], found [T, Rd], metrics)."""
+        if isinstance(ts, SnapshotHandle):
+            ts = ts.ts
+        if ts is None:
+            ts = self.current_ts()
+        with self.tracer.span("read/resolve", txns=batch.size,
+                              ts=int(ts)) as sp:
+            vals, found, metrics = _readonly_resolve(
+                self.store.versions, batch.read_set.to(self.device),
+                i32(int(ts), self.device))
+            sp.fence(vals)
+        return vals, found, metrics
+
+    # -- K-ring pressure diagnostics ---------------------------------------
+    def record_commit_metrics(self, metrics: Dict[str, torch.Tensor],
+                              n_txns: int = 0) -> None:
+        """Fold a commit's metric outputs into the registry: every
+        accumulation is a lazy on-device add."""
+        m = self.metrics
+        for key in ("ring_overwrote_rec", "ring_overwrote_dead_rec",
+                    "ring_overwrote_live", "ring_overwrote_dead",
+                    "paged_alloc_failed", "aborts", "waves",
+                    *self._SPILL_KEYS):
+            if key in metrics:
+                m.accumulate(f"engine/{key}", metrics[key])
+        m.inc("engine/commits")
+        m.inc("engine/txns_committed", n_txns)
+        self.auditor.on_commit(metrics)
+
+    def overflow_by_record(self) -> torch.Tensor:
+        """[R] cumulative count of LIVE version evictions per record."""
+        return to_global(self.store.versions,
+                         self.metrics.peek("engine/ring_overwrote_rec"))
+
+    def overflow_stats(self, top_k: int = 8) -> Dict[str, object]:
+        """Host-side K-ring pressure summary: live evictions, the top-k
+        hottest records and power-of-two histograms of live and dead
+        per-record eviction counts. Diagnostic API — synchronises."""
+        counts = self.overflow_by_record().cpu()
+        dead = to_global(self.store.versions, self.metrics.peek(
+            "engine/ring_overwrote_dead_rec")).cpu()
+        k = min(top_k, self.num_records)
+        # stable descending sort: ties keep the lower record first, as
+        # XLA's top_k does
+        top_vals, top_recs = torch.sort(counts, descending=True,
+                                        stable=True)
+        edges = [0, 1, 2, 4, 8, 16, 32, 64]
+        return {
+            "total_overwrites": int(counts.sum()),
+            "records_affected": int((counts > 0).sum()),
+            "top_records": [(int(r), int(v)) for r, v in
+                            zip(top_recs[:k], top_vals[:k]) if v > 0],
+            "histogram": _bucket_histogram(counts, edges),
+            "dead_overwrites": int(dead.sum()),
+            "dead_histogram": _bucket_histogram(dead, edges),
+        }
+
+    def spill_stats(self) -> Dict[str, int]:
+        """Spill-tier summary: pool occupancy/capacity plus the cumulative
+        admitted / dropped / pinned-overwrite counters."""
+        spill = self.store.versions.spill
+        occupancy = 0 if spill is None else int((spill.rec >= 0).sum())
+        capacity = 0 if spill is None else (
+            self.n_shards * self.spill_buckets * self.spill_slots)
+        return dict({k: int(self.metrics.value(f"engine/{k}"))
+                     for k in self._SPILL_KEYS},
+                    spill_occupancy=occupancy, spill_capacity=capacity)
+
+
+def _layout(store: Store) -> Tuple:
+    """Shapes that fix an engine's configuration: heads, rings, spill."""
+    v = store.versions
+    return (tuple(store.base.shape), tuple(v.rings.begin.shape),
+            None if v.spill is None else tuple(v.spill.begin.shape))
+
+
+def _bucket_histogram(counts: torch.Tensor, edges: List[int]
+                      ) -> List[Tuple[str, int]]:
+    """[(bucket label, n_records)] for counts bucketed by [lo, hi)."""
+    out = []
+    for i, lo in enumerate(edges):
+        hi = edges[i + 1] if i + 1 < len(edges) else None
+        if hi is None:
+            n = int((counts >= lo).sum())
+            label = f"{lo}+"
+        else:
+            n = int(((counts >= lo) & (counts < hi)).sum())
+            label = f"{lo}" if hi == lo + 1 else f"{lo}-{hi - 1}"
+        out.append((label, n))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The phase graph: plan (CC) -> exec (wavefront) -> commit (barrier).
+# ---------------------------------------------------------------------------
+def plan_phase(batch: TxnBatch, ts_base) -> Plan:
+    """CC phase: timestamps + placeholder versions + read annotations."""
+    return cc_plan(batch, ts_base)
+
+
+def exec_phase(plan: Plan, batch: TxnBatch, store: Store, *,
+               workload: Workload):
+    """Execution wavefront only. Returns (w_data, read_vals, metrics)."""
+    return execute_plan(plan, batch, store, workload)
+
+
+def commit_phase(plan: Plan, batch: TxnBatch, store: Store,
+                 w_data: torch.Tensor, watermark=None, ts_window=None,
+                 pin_ts: Optional[torch.Tensor] = None):
+    """Watermark-driven commit of an executed batch."""
+    return commit(plan, batch, store, w_data, watermark,
+                  ts_window=ts_window, pin_ts=pin_ts)
+
+
+def _readonly_resolve(versions, read_set: torch.Tensor, ts: torch.Tensor):
+    """A read-only batch: gather candidate windows, resolve visibility
+    through the kernels, mask pads."""
+    T, Rd = read_set.shape
+    flat = read_set.reshape(-1).clamp(min=0)
+    ts_vec = ts.to(torch.int32).expand(flat.shape[0]).contiguous()
+    vals, found = resolve_sharded(versions, flat, ts_vec)
+    valid = read_set >= 0
+    vals = torch.where(valid[..., None], vals.reshape(T, Rd, -1), 0)
+    found = torch.where(valid, found.reshape(T, Rd), True)
+    occ = store_occupancy(versions)
+    n_valid = valid.sum().clamp(min=1)
+    metrics = {"found_frac": (found & valid).sum() / n_valid,
+               "ring_occ_max": occ.max()}
+    return vals, found, metrics
+
+
+# ---------------------------------------------------------------------------
+# Serial oracle (serializability ground truth): execute transactions one by
+# one in timestamp order against a single-version store.
+# ---------------------------------------------------------------------------
+def serial_oracle(store_base: torch.Tensor, batch: TxnBatch,
+                  workload: Workload
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final_base [R, D], read_vals [T, Rd, D])."""
+    R, D = store_base.shape
+    T, W = batch.write_set.shape
+    # a private copy with one sentinel row that absorbs pad writes
+    ext = torch.cat([store_base, store_base.new_zeros((1, D))])
+    reads = torch.zeros((T,) + tuple(batch.read_set.shape[1:]) + (D,),
+                        dtype=store_base.dtype, device=store_base.device)
+    for t in range(T):
+        read_set = batch.read_set[t]
+        vals = ext[read_set.clamp(min=0).long()]                 # [Rd, D]
+        vals = torch.where((read_set >= 0)[:, None], vals, 0)
+        write_vals, _ = workload.apply(batch.txn_type[t:t + 1], vals[None],
+                                       batch.args[t:t + 1])
+        rec = torch.where(batch.write_set[t] >= 0, batch.write_set[t],
+                          R).long()
+        # one write column at a time: a record named twice takes the
+        # later column's value (program order)
+        for w in range(W):
+            ext[rec[w:w + 1]] = write_vals[0, w:w + 1]
+        reads[t] = vals
+    return ext[:-1], reads
+
+
+def serial_oracle_prefix(store_base: torch.Tensor, batch: TxnBatch,
+                         workload: Workload, n_txns: int) -> torch.Tensor:
+    """Oracle state after only the first ``n_txns`` of ``batch``."""
+    final, _ = serial_oracle(store_base, batch.slice(n_txns), workload)
+    return final

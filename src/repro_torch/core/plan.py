@@ -1,0 +1,117 @@
+"""Bohm concurrency-control phase (paper §4.1), port of ``repro.core.plan``.
+
+The per-record sequential placeholder insert becomes one sort + segment
+pass:
+
+  1. every transaction t in the batch gets ts = ts_base + t;
+  2. the write-sets flatten to (record, ts) keys, stably sorted — within
+     a record, entries stay in ts order (and, for a transaction that
+     names a record twice, in program order);
+  3. a version's end_ts is its successor's begin_ts in the record segment
+     (else infinity);
+  4. reads resolve by a left binary search over the sorted keys: the
+     visible version is the latest in-batch write with key strictly below
+     the reader's, else the pre-batch head.
+
+Keys are int64 ``rec * T + t`` with pad 0xFFFFFFFF — the same values and
+order as the reference's uint32 keys, which torch cannot sort or search
+well. Record-partitioned planning and the batch footprints are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.store.ring import INF_TS, i32
+
+# composite (record, ts) keys need R * T < 2^32 (R <= 2^20 records,
+# checked in the engine) — the one home of the batch/epoch size limit
+MAX_BATCH_TXNS = 1 << 12
+
+PAD_KEY = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Output of the CC phase — everything execution needs, precomputed."""
+    # sorted placeholder versions (one per write-set entry, pads at end)
+    w_rec: torch.Tensor        # [Nw] record id (INT32_MAX for pads)
+    w_txn: torch.Tensor        # [Nw] local producer txn index
+    w_end_local: torch.Tensor  # [Nw] local ts of invalidating txn (or T)
+    w_valid: torch.Tensor      # [Nw] bool
+    w_key: torch.Tensor        # [Nw] int64 sorted (rec * T + t) keys
+    # per-transaction annotations
+    w_slot: torch.Tensor       # [T, W] slot of txn's writes in sorted array
+    r_dep_txn: torch.Tensor    # [T, Rd] producer txn of each read (-1=base)
+    r_dep_slot: torch.Tensor   # [T, Rd] version slot of each read (-1=base)
+    # commit info: batch-final versions become the new single-version heads
+    commit_mask: torch.Tensor  # [Nw] bool: head version after the batch
+    ts_base: torch.Tensor      # [] global timestamp of txn 0
+    # global version lifetimes — consumed by the persistent version ring
+    w_begin_ts: torch.Tensor   # [Nw] global begin ts (INF_TS for pads)
+    w_end_ts: torch.Tensor     # [Nw] global end ts (INF_TS = open)
+
+
+def _keys(rec: torch.Tensor, t: torch.Tensor, T: int) -> torch.Tensor:
+    """Composite (record, ts) ordering key, int64."""
+    return rec.to(torch.int64) * T + t.to(torch.int64)
+
+
+def cc_plan(batch, ts_base) -> Plan:
+    T, W = batch.write_set.shape
+    Rd = batch.read_set.shape[1]
+    Nw = T * W
+    dev = batch.write_set.device
+
+    flat_rec = batch.write_set.reshape(-1)                       # [Nw]
+    flat_t = torch.arange(T, dtype=torch.int32,
+                          device=dev).repeat_interleave(W)       # [Nw]
+    valid = flat_rec >= 0
+    keys = torch.where(valid, _keys(flat_rec.clamp(min=0), flat_t, T),
+                       PAD_KEY)
+
+    # stable: a txn whose write-set names the same record twice produces
+    # duplicate keys — program order (write column) breaks the tie
+    w_key, order = torch.sort(keys, stable=True)
+    w_rec = torch.where(valid, flat_rec, INF_TS)[order]
+    w_valid = valid[order]
+    w_txn = torch.where(w_valid, flat_t[order], -1)
+
+    # end timestamp: successor's begin within the same record segment
+    nxt_rec = torch.cat([w_rec[1:], i32([INF_TS], dev)])
+    nxt_txn = torch.cat([w_txn[1:], i32([T], dev)])
+    same = nxt_rec == w_rec
+    w_end_local = torch.where(same, nxt_txn, T)                 # T == "inf"
+    commit_mask = w_valid & ~same                               # seg-last
+
+    # inverse permutation: where did txn t's w-th write land?
+    inv = torch.empty(Nw, dtype=torch.int32, device=dev)
+    inv[order] = torch.arange(Nw, dtype=torch.int32, device=dev)
+    w_slot = torch.where(valid.reshape(T, W), inv.reshape(T, W), -1)
+
+    # read resolution: latest in-batch write strictly below the reader's
+    # (record, ts) key — an RMW reads its predecessor, not itself
+    r_rec = batch.read_set                                      # [T, Rd]
+    r_t = torch.arange(T, dtype=torch.int32, device=dev)[:, None].expand(
+        T, Rd)
+    r_valid = r_rec >= 0
+    r_keys = _keys(torch.where(r_valid, r_rec, 0), r_t, T)
+    pos = (torch.searchsorted(w_key, r_keys.reshape(-1), side="left")
+           - 1).to(torch.int32).reshape(T, Rd)
+    safe_pos = pos.clamp(min=0).long()
+    cand_rec = torch.where(pos >= 0, w_rec[safe_pos], -1)
+    hit = r_valid & (pos >= 0) & (cand_rec == r_rec)
+    r_dep_slot = torch.where(hit, pos, -1)
+    r_dep_txn = torch.where(hit, w_txn[safe_pos], -1)
+
+    ts_base = i32(ts_base, dev)
+    w_begin_ts = torch.where(w_valid, ts_base + w_txn, INF_TS)
+    w_end_ts = torch.where(w_valid & (w_end_local < T),
+                           ts_base + w_end_local, INF_TS)
+    return Plan(w_rec=w_rec, w_txn=w_txn, w_end_local=w_end_local,
+                w_valid=w_valid, w_key=w_key, w_slot=w_slot,
+                r_dep_txn=r_dep_txn, r_dep_slot=r_dep_slot,
+                commit_mask=commit_mask, ts_base=ts_base,
+                w_begin_ts=w_begin_ts, w_end_ts=w_end_ts)

@@ -1,0 +1,89 @@
+"""Package rules of the port: it imports neither ``jax`` nor ``repro``
+(nor do ``chip_smoke.py`` and ``benchmarks_torch/``), and its entry
+points never fall back to the CPU — without a GPU they raise unless the
+caller asks for the CPU."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)",
+                       re.MULTILINE)
+
+
+def _modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_package_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.core.engine" in mods
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [
+        *PKG.rglob("*.py"), *(ROOT / "benchmarks_torch").rglob("*.py"),
+        ROOT / "chip_smoke.py"]))
+def test_no_jax_or_repro_import_statement(path):
+    assert not FORBIDDEN.search((ROOT / path).read_text()), path
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    from repro_torch.configs.bohm_workloads import YCSB_LOW_10RMW, build
+    from repro_torch.core.engine import BohmEngine
+    from repro_torch.core.txn import make_batch
+    from repro_torch.core.workloads import make_ycsb
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BohmEngine(16, make_ycsb())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(YCSB_LOW_10RMW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batch([[0]], [[0]], [0], [[0]])
+    assert BohmEngine(16, make_ycsb(), device="cpu").device.type == "cpu"
+
+
+def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
+    """A tensor that is not on the CPU takes the kernel path or raises;
+    it never reaches the plain version."""
+    from repro_torch.kernels import mvcc_resolve as mod
+
+    def boom(*args):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(mod, "mvcc_resolve_plain", boom)
+    monkeypatch.setattr(mod, "mvcc_resolve_masked_plain", boom)
+    z = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    d = torch.zeros((4, 2, 3), dtype=torch.int32, device="meta")
+    t = torch.zeros((4,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        mod.mvcc_resolve(z, z, d, t)
+    with pytest.raises(ValueError, match="no kernel"):
+        mod.mvcc_resolve_masked(z, z, z, t, d, t)
+
+
+@pytest.mark.parametrize("kwargs", [dict(n_shards=2), dict(paged=True),
+                                    dict(adaptive_k=True),
+                                    dict(mesh=object()),
+                                    dict(auditor=object())])
+def test_unported_options_raise(kwargs):
+    from repro_torch.core.engine import BohmEngine
+    from repro_torch.core.workloads import make_ycsb
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BohmEngine(16, make_ycsb(), device="cpu", **kwargs)
