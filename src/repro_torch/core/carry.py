@@ -8,9 +8,12 @@ rebuilds one on a device, so state written by the JAX reference engine
 can be adopted by ``BohmEngine.load_state``. The layout is the
 reference's, leading shard axis included:
 
-    base [R, D], base_ts [R], ts_counter []
-    ring_begin / ring_end [1, R, K], ring_payload [1, R, K, D],
-    ring_head [1, R], k_eff [1, R]
+    base [R, D], base_ts [R], ts_counter [], k_eff [1, R]
+    the primary level, exactly one of
+      ring_begin / ring_end [1, R, K], ring_payload [1, R, K, D],
+      ring_head [1, R]                                   (dense rings)
+      page_begin / page_end [1, P, S], page_payload [1, P, S, D],
+      page_table [1, R, MaxP], page_head [1, R]          (paged slab)
     spill_begin / spill_end / spill_rec [1, B, S],
     spill_payload [1, B, S, D]          (absent when spill is off)
 """
@@ -22,11 +25,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.execute import Store
+from repro_torch.store.pages import PageSlab
 from repro_torch.store.ring import VersionRing
 from repro_torch.store.sharded import ShardedVersionStore
 from repro_torch.store.spill import SpillPool
 
 RING_KEYS = ("ring_begin", "ring_end", "ring_payload", "ring_head")
+PAGE_KEYS = ("page_begin", "page_end", "page_payload", "page_table",
+             "page_head")
 SPILL_KEYS = ("spill_begin", "spill_end", "spill_rec", "spill_payload")
 
 
@@ -41,15 +47,27 @@ def store_from_reference(arrays: Dict[str, np.ndarray], device):
     if np.min(arrays["k_eff"], initial=1) < 1:
         raise ValueError("k_eff must be >= 1 (ring slot arithmetic is mod "
                          "k_eff)")
-    rings = VersionRing(*(t(k) for k in RING_KEYS))
-    if rings.begin.dim() != 3 or rings.begin.shape[0] != 1:
-        raise ValueError("carried rings must be [1, R, K] (one shard)")
+    has_rings, has_pages = RING_KEYS[0] in arrays, PAGE_KEYS[0] in arrays
+    if has_rings == has_pages:
+        raise ValueError("carried state must hold exactly one primary "
+                         "level: the ring_* keys or the page_* keys")
+    rings = pages = None
+    if has_rings:
+        rings = VersionRing(*(t(k) for k in RING_KEYS))
+        if rings.begin.dim() != 3 or rings.begin.shape[0] != 1:
+            raise ValueError("carried rings must be [1, R, K] (one shard)")
+    else:
+        pages = PageSlab(*(t(k) for k in PAGE_KEYS))
+        if pages.begin.dim() != 3 or pages.page_table.dim() != 3 \
+                or pages.page_table.shape[0] != 1:
+            raise ValueError("carried pages must be [1, P, S] with a "
+                             "[1, R, MaxP] page table (one shard)")
     spill = (SpillPool(*(t(k) for k in SPILL_KEYS))
              if SPILL_KEYS[0] in arrays else None)
     base = t("base")
     versions = ShardedVersionStore(rings=rings, spill=spill,
                                    k_eff=t("k_eff"),
-                                   num_records=base.shape[0])
+                                   num_records=base.shape[0], pages=pages)
     return Store(base=base, base_ts=t("base_ts"),
                  ts_counter=t("ts_counter").reshape(()), versions=versions)
 
@@ -59,8 +77,13 @@ def store_to_numpy(store) -> Dict[str, np.ndarray]:
     v = store.versions
     out = {"base": store.base, "base_ts": store.base_ts,
            "ts_counter": store.ts_counter, "k_eff": v.k_eff}
-    out.update(zip(RING_KEYS, (v.rings.begin, v.rings.end, v.rings.payload,
-                               v.rings.head)))
+    if v.rings is not None:
+        out.update(zip(RING_KEYS, (v.rings.begin, v.rings.end,
+                                   v.rings.payload, v.rings.head)))
+    else:
+        out.update(zip(PAGE_KEYS, (v.pages.begin, v.pages.end,
+                                   v.pages.payload, v.pages.page_table,
+                                   v.pages.head)))
     if v.spill is not None:
         out.update(zip(SPILL_KEYS, (v.spill.begin, v.spill.end, v.spill.rec,
                                     v.spill.payload)))

@@ -4,8 +4,12 @@ The port of ``repro.core.engine``: ``run_batch`` runs plan -> wavefront
 execute -> watermark commit (three phase functions, as in the reference's
 phase graph), snapshot pins hold the GC watermark down, and read-only
 transactions resolve visibility through the hand-written CUDA kernels
-(``mvcc_resolve`` over the primary ring, ``mvcc_resolve_masked`` over the
-spill tier) with no CC phase and no writes to shared state.
+(``mvcc_resolve`` over the dense primary ring or ``mvcc_resolve_paged``
+over the page slab, ``mvcc_resolve_masked`` over the spill tier) with no
+CC phase and no writes to shared state. With ``adaptive_k`` each
+``gc_sweep`` also runs the host-side ``reassign_k`` policy, which moves
+primary capacity from cold records to hot ones (at page granularity for
+the paged store).
 
 PyTorch runs eagerly, so there are no jits: the phase functions are plain
 functions on tensors, and work is enqueued on the current CUDA stream
@@ -13,9 +17,8 @@ without host syncs except the wavefront's per-wave exit test and the
 diagnostic stats surfaces.
 
 Not ported yet (each raises ``NotImplementedError``): ``mesh=``,
-``n_shards > 1``, ``paged``, ``adaptive_k`` and a lifecycle ``auditor``
-(ROADMAP.md, queue 1). An enabled ``PhaseTracer`` times the phases
-(``repro_torch.obs``).
+``n_shards > 1`` and a lifecycle ``auditor`` (ROADMAP.md, queue 1). An
+enabled ``PhaseTracer`` times the phases (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -32,8 +35,10 @@ from repro_torch.core.plan import MAX_BATCH_TXNS, Plan, cc_plan
 from repro_torch.core.txn import TxnBatch, Workload
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import NULL_AUDIT, MetricsRegistry, PhaseTracer
-from repro_torch.store import (INF_TS, gather_windows_sharded, gc_sharded,
-                               resolve_sharded, store_occupancy, to_global)
+from repro_torch.store import (INF_TS, decay_pressure, from_global,
+                               gather_windows_sharded, gc_sharded,
+                               reassign_k, reassign_stats, resolve_sharded,
+                               store_occupancy, to_global)
 from repro_torch.store.ring import i32
 
 
@@ -47,7 +52,7 @@ class SnapshotHandle:
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"BohmEngine({what}) is not ported yet: repro_torch runs the "
-        "single-device dense-ring engine (ROADMAP.md, queue 1)")
+        "single-device, single-shard engine (ROADMAP.md, queue 1)")
 
 
 class BohmEngine:
@@ -56,25 +61,39 @@ class BohmEngine:
                  n_shards: Optional[int] = None,
                  spill_buckets: Optional[int] = None,
                  spill_slots: int = 8,
-                 adaptive_k: bool = False, paged: bool = False,
+                 adaptive_k: bool = False, k_min: int = 1,
+                 k_max: Optional[int] = None,
+                 paged: bool = False, page_slots: int = 4,
+                 pages_per_shard: Optional[int] = None,
+                 pressure_decay: Optional[float] = None,
+                 k_quantum: Optional[int] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[PhaseTracer] = None,
                  auditor=None, device: DeviceLike = None):
         """Arguments as in ``repro.core.engine.BohmEngine`` (the options
-        of the unported paths — ``mesh``, ``n_shards > 1``, ``adaptive_k``,
-        ``paged``, an ``auditor`` — raise), plus
-        ``device``: default the GPU, which raises when there is none;
-        pass ``device="cpu"`` for the plain PyTorch path. ``spill_slots``
-        > 0 (default 8) attaches a spill pool of ``spill_buckets``
-        (default: one bucket per 4 records) x ``spill_slots`` slots."""
+        of the unported paths — ``mesh``, ``n_shards > 1``, an
+        ``auditor`` — raise), plus ``device``: default the GPU, which
+        raises when there is none; pass ``device="cpu"`` for the plain
+        PyTorch path.
+
+        ``spill_slots`` > 0 (default 8) attaches a spill pool of
+        ``spill_buckets`` (default: one bucket per 4 records) x
+        ``spill_slots`` slots. ``adaptive_k=True`` allocates rings at
+        ``k_max`` physical slots (default 2x ``ring_slots``), caps every
+        record at ``ring_slots`` effective slots, and lets ``gc_sweep``
+        move capacity between records within the budget R x
+        ``ring_slots``. ``paged=True`` swaps the dense rings for the page
+        slab: ``pages_per_shard`` pages (default ``ceil(ring_slots /
+        page_slots)`` per record) of ``page_slots`` slots, reads through
+        the ``mvcc_resolve_paged`` kernel; adaptive paged stores need
+        ``ring_slots`` and ``k_max`` to be page multiples.
+        ``pressure_decay`` (sweeps) applies an EWMA half-life to the
+        policy's pressure input; ``k_quantum`` overrides the policy
+        quantum (default ``page_slots`` when paged, else 1)."""
         if mesh is not None:
             raise _unported("mesh=")
         if n_shards is not None and int(n_shards) != 1:
             raise _unported("n_shards > 1")
-        if paged:
-            raise _unported("paged=True")
-        if adaptive_k:
-            raise _unported("adaptive_k=True")
         if auditor is not None:
             raise _unported("auditor=")
         if num_records > (1 << 20):
@@ -85,16 +104,47 @@ class BohmEngine:
         self.num_records = num_records
         self.workload = workload
         self.ring_slots = ring_slots
+        self.adaptive_k = bool(adaptive_k)
+        self.k_min = int(k_min)
+        self.k_max = int(k_max if k_max is not None
+                         else (2 * ring_slots if adaptive_k
+                               else ring_slots))
+        if self.k_max < ring_slots:
+            raise ValueError("k_max must be >= ring_slots")
+        if not 1 <= self.k_min <= ring_slots:
+            raise ValueError("k_min must be in [1, ring_slots] (k_eff "
+                             "starts at ring_slots)")
+        self.paged = bool(paged)
+        self.page_slots = int(page_slots) if self.paged else 0
+        self.k_quantum = int(k_quantum) if k_quantum is not None else (
+            self.page_slots if self.paged else 1)
+        if self.adaptive_k and self.k_quantum > 1:
+            if ring_slots % self.k_quantum or self.k_max % self.k_quantum:
+                raise ValueError(
+                    "page-quantized adaptive K requires ring_slots and "
+                    "k_max to be multiples of the quantum (page_slots)")
+        self.pressure_decay = (float(pressure_decay)
+                               if pressure_decay is not None else None)
         self.n_shards = 1
+        self.pages_per_shard = 0
+        if self.paged:
+            # default: every record can physically reach its initial
+            # k_eff — ceil(ring_slots / S) pages each
+            self.pages_per_shard = int(
+                pages_per_shard if pages_per_shard is not None
+                else num_records * -(-ring_slots // self.page_slots))
         self.spill_slots = int(spill_slots)
         self.spill_buckets = int(spill_buckets if spill_buckets is not None
                                  else max(1, num_records // 4)
                                  ) if self.spill_slots > 0 else 0
         self.store = init_store(num_records, workload.payload_words,
-                                ring_slots=ring_slots,
+                                ring_slots=self.k_max,
                                 spill_buckets=self.spill_buckets,
                                 spill_slots=self.spill_slots,
-                                device=self.device)
+                                k_init=ring_slots, paged=self.paged,
+                                page_slots=self.page_slots or 4,
+                                pages_per_shard=self.pages_per_shard
+                                or None, device=self.device)
         self._ts_next = 1                  # host mirror of store.ts_counter
         self._snapshots: Dict[int, SnapshotHandle] = {}
         self._next_sid = 0
@@ -104,6 +154,19 @@ class BohmEngine:
             else PhaseTracer(enabled=False)
         self.auditor = NULL_AUDIT
         self._declare_metrics()
+        self._reset_policy()
+
+    def _reset_policy(self) -> None:
+        """Restart the adaptive-K policy's host state (at init,
+        ``reset_store`` and ``load_state``): the hysteresis mask (a record
+        donates only after two consecutive idle sweeps), the commits since
+        the last sweep, and the EWMA pressure state (the decayed
+        accumulator and the cumulative histogram at the last sweep)."""
+        R = self.num_records
+        self._stable_idle = np.zeros((R,), bool)
+        self._commits_since_sweep = 0
+        self._pressure_ewma = np.zeros((R,), np.float64)
+        self._overflow_at_sweep = np.zeros((R,), np.int64)
 
     _SPILL_KEYS = ("spill_admitted", "spill_dropped",
                    "spill_overwrote_pinned")
@@ -163,24 +226,30 @@ class BohmEngine:
 
     def reset_store(self, base: torch.Tensor,
                     base_ts: Optional[torch.Tensor] = None) -> None:
-        """Reinitialise committed state (head cache + rings + spill) from
-        ``base``."""
+        """Reinitialise committed state (head cache + primary + spill)
+        from ``base``; the device counters and the policy's host state
+        restart too."""
         self.store = store_from_base(
             torch.as_tensor(base).to(self.device),
             None if base_ts is None
             else torch.as_tensor(base_ts).to(self.device),
-            self.ring_slots, spill_buckets=self.spill_buckets,
-            spill_slots=self.spill_slots)
+            self.k_max, spill_buckets=self.spill_buckets,
+            spill_slots=self.spill_slots, k_init=self.ring_slots,
+            paged=self.paged, page_slots=self.page_slots or 4,
+            pages_per_shard=self.pages_per_shard or None)
         self._ts_next = 1
         self._snapshots.clear()
         self._declare_metrics()
+        self._reset_policy()
 
     def load_state(self, arrays: Dict[str, np.ndarray], ts_next: int,
                    pins: Iterable[int] = ()) -> List[SnapshotHandle]:
         """Adopt committed state carried across from another engine (the
         numpy dict of ``repro_torch.core.carry``): the store, the next
-        timestamp to assign and the registered snapshot pins. Device
-        counters restart at zero. Returns the new pins' handles."""
+        timestamp to assign and the registered snapshot pins. The state's
+        layout (dense or paged, its shapes) must be this engine's. Device
+        counters and the adaptive-K policy's host state restart, as in
+        ``reset_store``. Returns the new pins' handles."""
         store = store_from_reference(arrays, self.device)
         if _layout(store) != _layout(self.store):
             raise ValueError("carried state does not match this engine's "
@@ -190,6 +259,7 @@ class BohmEngine:
         self._ts_next = int(ts_next)
         self._snapshots.clear()
         self._declare_metrics()
+        self._reset_policy()
         return [self.begin_snapshot(int(ts)) for ts in pins]
 
     # -- snapshot-read path (zero CC bookkeeping) --------------------------
@@ -222,18 +292,85 @@ class BohmEngine:
         return i32(pins, self.device)
 
     def gc_sweep(self) -> int:
-        """Standalone precise GC at the current watermark (rings + spill).
-        Returns the number of versions reclaimed; synchronises on it."""
+        """Standalone precise GC at the current watermark (primary +
+        spill). With ``adaptive_k`` the sweep is also the policy boundary:
+        when commits landed since the last sweep, the accumulated
+        live-eviction histogram drives one ``reassign_k`` pass. The pass
+        is a fixpoint, so consecutive sweeps with no commits in between
+        leave the store byte-identical. Returns the number of versions
+        reclaimed; synchronises on it."""
         wm_host = self.watermark()
         with self.tracer.span("gc_sweep", watermark=wm_host) as sp:
             versions, evicted = gc_sharded(self.store.versions,
                                            i32(wm_host, self.device))
+            if self.adaptive_k and self._commits_since_sweep > 0:
+                versions = self._run_policy(versions)
             self.store = dataclasses.replace(self.store, versions=versions)
             evicted = int(evicted)
             sp.note(reclaimed=evicted)
         self.metrics.inc("engine/gc_sweeps")
         self.metrics.inc("engine/gc_reclaimed", evicted)
         return evicted
+
+    def _run_policy(self, versions):
+        """One adaptive-K ``reassign_k`` pass at the sweep boundary, on the
+        host (its own trace span). The policy's three [R] inputs — the
+        live-eviction histogram, ``k_eff`` and the occupancy after the
+        sweep — cross to the host in one transfer."""
+        with self.tracer.span("reassign_k") as sp:
+            host = torch.stack([
+                to_global(versions,
+                          self.metrics.peek("engine/ring_overwrote_rec")),
+                to_global(versions, versions.k_eff),
+                store_occupancy(versions)]).cpu().numpy()
+            cumulative = host[0].astype(np.int64)
+            k_glob, occ = host[1], host[2]
+            if self.pressure_decay is None:
+                pressure = cumulative
+            else:
+                # EWMA over per-sweep deltas: a cooled record's pressure
+                # halves every ``pressure_decay`` sweeps and truncates to
+                # zero — it becomes a donor and its capacity flows on
+                self._pressure_ewma = decay_pressure(
+                    self._pressure_ewma,
+                    cumulative - self._overflow_at_sweep,
+                    self.pressure_decay)
+                self._overflow_at_sweep = cumulative
+                pressure = self._pressure_ewma
+            idle = occ <= 1
+            new_k = reassign_k(pressure, k_glob, k_min=self.k_min,
+                               k_max=self.k_max, k_base=self.ring_slots,
+                               occupancy=occ,
+                               stable_idle=idle & self._stable_idle,
+                               budget=self.num_records * self.ring_slots,
+                               quantum=self.k_quantum)
+            self._stable_idle = idle
+            self._commits_since_sweep = 0
+            moved = reassign_stats(k_glob, new_k, self.k_quantum)
+            sp.note(**moved)
+            self.metrics.inc("engine/k_slots_granted",
+                             moved["slots_granted"])
+            self.metrics.inc("engine/k_slots_reclaimed",
+                             moved["slots_reclaimed"])
+            k_sh = from_global(versions, i32(new_k, self.device),
+                               pad_value=self.k_min)
+            # insertion cursors must stay inside the (possibly shrunk)
+            # effective window; grown records keep their cursor as-is
+            if versions.rings is not None:
+                prim = dataclasses.replace(
+                    versions.rings, head=versions.rings.head % k_sh)
+                versions = dataclasses.replace(versions, rings=prim,
+                                               k_eff=k_sh)
+            else:
+                prim = dataclasses.replace(
+                    versions.pages, head=versions.pages.head % k_sh)
+                versions = dataclasses.replace(versions, pages=prim,
+                                               k_eff=k_sh)
+        return versions
+
+    def k_by_record(self) -> torch.Tensor:
+        """[R] effective primary capacity per record (adaptive K)."""
+        return to_global(self.store.versions, self.store.versions.k_eff)
 
     def begin_snapshot(self, ts: Optional[int] = None) -> SnapshotHandle:
         """Register a reader at ``ts`` (default: now)."""
@@ -257,7 +394,7 @@ class BohmEngine:
     def snapshot_read(self, records, ts=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Resolve ``records`` [B] at snapshot ``ts`` through the kernels,
-        primary ring then spill pool. Returns (vals [B, D], found [B]);
+        primary level then spill pool. Returns (vals [B, D], found [B]);
         found=False means the visible version was never written or was
         lost, never a stale payload."""
         if isinstance(ts, SnapshotHandle):
@@ -301,6 +438,7 @@ class BohmEngine:
                 m.accumulate(f"engine/{key}", metrics[key])
         m.inc("engine/commits")
         m.inc("engine/txns_committed", n_txns)
+        self._commits_since_sweep += 1
         self.auditor.on_commit(metrics)
 
     def overflow_by_record(self) -> torch.Tensor:
@@ -342,11 +480,60 @@ class BohmEngine:
                      for k in self._SPILL_KEYS},
                     spill_occupancy=occupancy, spill_capacity=capacity)
 
+    def storage_stats(self) -> Dict[str, object]:
+        """Physical storage summary: how many version slots the primary
+        level allocates and how full they are, against the
+        dense-equivalent footprint R x ``k_max``. ``physical_slots``
+        counts allocated slot capacity (dense: R x k_max; paged: the whole
+        slab, free pages included — ``mapped_slots`` is the in-use
+        subset); ``physical_version_words`` prices it at (begin, end,
+        payload) words per slot plus the page tables. Synchronises."""
+        D = self.workload.payload_words
+        versions = self.store.versions
+        dense_slots = self.num_records * self.k_max
+        stats: Dict[str, object] = {
+            "layout": "paged" if self.paged else "dense",
+            "num_records": self.num_records,
+            "k_max": self.k_max,
+            "dense_equiv_slots": dense_slots,
+            "dense_equiv_words": dense_slots * (2 + D),
+            "slot_occupancy": int(store_occupancy(versions).sum()),
+        }
+        if self.paged:
+            pages = versions.pages
+            mapped = int((pages.page_table >= 0).sum())
+            total = self.n_shards * self.pages_per_shard
+            stats.update({
+                "page_slots": self.page_slots,
+                "pages_total": total,
+                "pages_mapped": mapped,
+                "pages_free": total - mapped,
+                "physical_slots": total * self.page_slots,
+                "mapped_slots": mapped * self.page_slots,
+                # slab + page tables; tables cost one i32 per entry
+                "physical_version_words": (
+                    total * self.page_slots * (2 + D)
+                    + self.n_shards * versions.records_per_shard
+                    * pages.max_pages),
+                "alloc_failed": int(
+                    self.metrics.value("engine/paged_alloc_failed")),
+            })
+        else:
+            stats.update({
+                "physical_slots": dense_slots,
+                "physical_version_words": dense_slots * (2 + D),
+            })
+        return stats
+
 
 def _layout(store: Store) -> Tuple:
-    """Shapes that fix an engine's configuration: heads, rings, spill."""
+    """Shapes that fix an engine's configuration: heads, the primary
+    level (dense rings or page slab + table), capacities, spill."""
     v = store.versions
-    return (tuple(store.base.shape), tuple(v.rings.begin.shape),
+    prim = (("rings", tuple(v.rings.payload.shape)) if v.rings is not None
+            else ("pages", tuple(v.pages.payload.shape),
+                  tuple(v.pages.page_table.shape)))
+    return (tuple(store.base.shape), prim, tuple(v.k_eff.shape),
             None if v.spill is None else tuple(v.spill.begin.shape))
 
 
@@ -389,8 +576,8 @@ def commit_phase(plan: Plan, batch: TxnBatch, store: Store,
 
 
 def _readonly_resolve(versions, read_set: torch.Tensor, ts: torch.Tensor):
-    """A read-only batch: gather candidate windows, resolve visibility
-    through the kernels, mask pads."""
+    """A read-only batch: resolve visibility through the kernels (primary
+    level, then spill), mask pads."""
     T, Rd = read_set.shape
     flat = read_set.reshape(-1).clamp(min=0)
     ts_vec = ts.to(torch.int32).expand(flat.shape[0]).contiguous()

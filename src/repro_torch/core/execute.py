@@ -28,7 +28,7 @@ from repro_torch.store.ring import i32, isum, scatter_set
 class Store:
     """Committed state: single-version heads + the persistent version
     store (``base`` caches each record's head version; ``versions`` holds
-    the cross-batch rings and the spill tier)."""
+    the cross-batch rings or page slab and the spill tier)."""
     base: torch.Tensor         # [R, D] head-version payloads
     base_ts: torch.Tensor      # [R] begin ts of the head version
     ts_counter: torch.Tensor   # [] next timestamp to assign
@@ -37,18 +37,26 @@ class Store:
 
 def init_store(num_records: int, payload_words: int, init_value: int = 0,
                ring_slots: int = 4, spill_buckets: int = 0,
-               spill_slots: int = 0, device=None) -> Store:
+               spill_slots: int = 0, k_init: Optional[int] = None,
+               paged: bool = False, page_slots: int = 4,
+               pages_per_shard: Optional[int] = None, device=None) -> Store:
     base = torch.full((num_records, payload_words), init_value,
                       dtype=torch.int32, device=device)
     return store_from_base(base, None, ring_slots, spill_buckets,
-                           spill_slots)
+                           spill_slots, k_init=k_init, paged=paged,
+                           page_slots=page_slots,
+                           pages_per_shard=pages_per_shard)
 
 
 def store_from_base(base: torch.Tensor,
                     base_ts: Optional[torch.Tensor] = None,
                     ring_slots: int = 4, spill_buckets: int = 0,
-                    spill_slots: int = 0) -> Store:
-    """Store whose initial state (head + ring slot 0) is ``base``."""
+                    spill_slots: int = 0, k_init: Optional[int] = None,
+                    paged: bool = False, page_slots: int = 4,
+                    pages_per_shard: Optional[int] = None) -> Store:
+    """Store whose initial state (head + ring slot 0, or each record's
+    initial page) is ``base``; the version-store options are those of
+    ``init_sharded_store``."""
     base = base.to(torch.int32)
     dev = base.device
     base_ts = (torch.zeros((base.shape[0],), dtype=torch.int32, device=dev)
@@ -57,7 +65,9 @@ def store_from_base(base: torch.Tensor,
     return Store(base=base, base_ts=base_ts, ts_counter=i32(1, dev),
                  versions=init_sharded_store(
                      base, base_ts, ring_slots, spill_buckets=spill_buckets,
-                     spill_slots=spill_slots))
+                     spill_slots=spill_slots, k_init=k_init, paged=paged,
+                     page_slots=page_slots,
+                     pages_per_shard=pages_per_shard))
 
 
 def execute_plan(plan: Plan, batch: TxnBatch, store: Store,

@@ -1,8 +1,9 @@
 // MVCC version-visibility resolution + payload select, for sm_90a.
 //
-// Replaces the two Pallas TPU kernels of src/repro/kernels/mvcc_resolve.py:
+// Replaces the three Pallas TPU kernels of src/repro/kernels/mvcc_resolve.py:
 //   * mvcc_resolve        (_resolve_kernel, pallas_call at :100)
 //   * mvcc_resolve_masked (_resolve_masked_kernel, pallas_call at :169)
+//   * mvcc_resolve_paged  (_resolve_paged_kernel, pallas_call at :248)
 //
 // Per read i (paper §4.1.3): slot k is visible when
 //     begin[i,k] <= ts[i] < end[i,k]   (&& rec[i,k] == want[i], masked)
@@ -34,6 +35,24 @@
 // index test; nothing is padded or copied. Fusing the window gather
 // (ring/spill rows indexed by record) into the kernel is later work: the
 // interface keeps the Pallas kernels' pre-gathered windows.
+//
+// The paged kernel reads its windows in place. Read i's candidates are
+// the S slots of every mapped page in its page-table row page_rows[i, :]
+// (-1 = unmapped) of the slab begin/end [P, S], data [P, S, D]. The
+// Pallas kernel maps the whole slab into VMEM as one grid-invariant block
+// and gathers from there; at the engine's size the slab is 2M pages x 2
+// slots x 10 words = 160 MB, far beyond shared memory, so here the lane
+// group loads its MaxP page ids and reads those pages' begin/end straight
+// from global memory, skipping unmapped entries (Pallas reads page 0 for
+// them and masks afterwards; this kernel loads nothing). What bounds it:
+// the page ids, the begin/end of each distinct mapped page (S x 8 bytes;
+// a zipfian batch reads hot pages again, and L2 serves the repeats), ts,
+// the selected slot's payload and the outputs — again HBM bytes, about
+// 0.5 MB at the engine's shape (B = 10240, MaxP = 8, S = 2, D = 8, most
+// records mapping one page), so a launch costs more than the bytes. Slab
+// offsets are 64-bit ((pid * S + s) * D + d exceeds 2^31 at 2^28 slots);
+// a page id outside [0, P) is treated as unmapped, so a corrupt table can
+// never read outside the slab.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -90,6 +109,53 @@ resolve_kernel(const int* __restrict__ begin, const int* __restrict__ end,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+resolve_paged_kernel(const int* __restrict__ page_rows,
+                     const int* __restrict__ begin,
+                     const int* __restrict__ end, const T* __restrict__ data,
+                     const int* __restrict__ ts, T* __restrict__ vals,
+                     bool* __restrict__ found, long long n_reads,
+                     int max_pages, int n_pages, int S, int D,
+                     int lanes_log2) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long i = tid >> lanes_log2;
+  const int lane = static_cast<int>(tid & ((1 << lanes_log2) - 1));
+  if (i >= n_reads) return;  // ragged edge of the last block
+
+  const int t = ts[i];
+  const int* row = page_rows + i * max_pages;
+
+  int best = INT_MIN;
+  for (int p = 0; p < max_pages; ++p) {
+    const int pid = row[p];
+    if (pid < 0 || pid >= n_pages) continue;  // unmapped: nothing loaded
+    const long long slot0 = static_cast<long long>(pid) * S;
+    for (int s = 0; s < S; ++s) {
+      const int b = begin[slot0 + s];
+      if (b <= t && t < end[slot0 + s] && b > best) best = b;
+    }
+  }
+  if (lane == 0) found[i] = best > INT_MIN;
+
+  T* v_row = vals + i * static_cast<long long>(D);
+  for (int d = lane; d < D; d += (1 << lanes_log2)) {
+    T acc = T(0);
+    for (int p = 0; p < max_pages; ++p) {
+      const int pid = row[p];
+      if (pid < 0 || pid >= n_pages) continue;
+      const long long slot0 = static_cast<long long>(pid) * S;
+      for (int s = 0; s < S; ++s) {
+        const int b = begin[slot0 + s];
+        if (b == best && b <= t && t < end[slot0 + s])
+          acc = add_wrap(acc, data[(slot0 + s) * D + d]);
+      }
+    }
+    v_row[d] = acc;
+  }
+}
+
 int lanes_log2_for(int D) {
   int l = 0;
   while ((1 << l) < D && l < 5) ++l;
@@ -106,6 +172,21 @@ int launch(const int* begin, const int* end, const int* rec, const int* want,
   resolve_kernel<T, MASKED><<<static_cast<unsigned>(blocks), kThreads, 0,
                               stream>>>(begin, end, rec, want, data, ts, vals,
                                         found, n_reads, K, D, ll);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_paged(const int* page_rows, const int* begin, const int* end,
+                 const T* data, const int* ts, T* vals, bool* found,
+                 long long n_reads, int max_pages, int n_pages, int S, int D,
+                 cudaStream_t stream) {
+  const int ll = lanes_log2_for(D);
+  const long long threads = n_reads << ll;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  resolve_paged_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            stream>>>(page_rows, begin, end, data, ts, vals,
+                                      found, n_reads, max_pages, n_pages, S,
+                                      D, ll);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,6 +226,26 @@ int mvcc_resolve_masked_f32(const int* begin, const int* end, const int* rec,
                             int D, void* stream) {
   return launch<float, true>(begin, end, rec, want, data, ts, vals, found,
                              n_reads, K, D, static_cast<cudaStream_t>(stream));
+}
+
+int mvcc_resolve_paged_i32(const int* page_rows, const int* begin,
+                           const int* end, const int* data, const int* ts,
+                           int* vals, bool* found, long long n_reads,
+                           int max_pages, int n_pages, int S, int D,
+                           void* stream) {
+  return launch_paged<int>(page_rows, begin, end, data, ts, vals, found,
+                           n_reads, max_pages, n_pages, S, D,
+                           static_cast<cudaStream_t>(stream));
+}
+
+int mvcc_resolve_paged_f32(const int* page_rows, const int* begin,
+                           const int* end, const float* data, const int* ts,
+                           float* vals, bool* found, long long n_reads,
+                           int max_pages, int n_pages, int S, int D,
+                           void* stream) {
+  return launch_paged<float>(page_rows, begin, end, data, ts, vals, found,
+                             n_reads, max_pages, n_pages, S, D,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,9 +8,12 @@ CPU tensor takes the plain PyTorch version.
 from repro_torch.kernels.mvcc_resolve import (LAUNCHES, mvcc_resolve,
                                               mvcc_resolve_masked,
                                               mvcc_resolve_masked_plain,
+                                              mvcc_resolve_paged,
+                                              mvcc_resolve_paged_plain,
                                               mvcc_resolve_plain,
                                               reset_launches)
 
 __all__ = ["LAUNCHES", "mvcc_resolve", "mvcc_resolve_masked",
-           "mvcc_resolve_masked_plain", "mvcc_resolve_plain",
+           "mvcc_resolve_masked_plain", "mvcc_resolve_paged",
+           "mvcc_resolve_paged_plain", "mvcc_resolve_plain",
            "reset_launches"]

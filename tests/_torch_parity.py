@@ -55,9 +55,14 @@ def ref_store_arrays(store) -> dict:
     """Flatten a reference ``Store`` into the port's carry dict."""
     v = store.versions
     out = {"base": store.base, "base_ts": store.base_ts,
-           "ts_counter": store.ts_counter, "k_eff": v.k_eff,
-           "ring_begin": v.rings.begin, "ring_end": v.rings.end,
-           "ring_payload": v.rings.payload, "ring_head": v.rings.head}
+           "ts_counter": store.ts_counter, "k_eff": v.k_eff}
+    if v.rings is not None:
+        out.update(ring_begin=v.rings.begin, ring_end=v.rings.end,
+                   ring_payload=v.rings.payload, ring_head=v.rings.head)
+    else:
+        out.update(page_begin=v.pages.begin, page_end=v.pages.end,
+                   page_payload=v.pages.payload,
+                   page_table=v.pages.page_table, page_head=v.pages.head)
     if v.spill is not None:
         out.update(spill_begin=v.spill.begin, spill_end=v.spill.end,
                    spill_rec=v.spill.rec, spill_payload=v.spill.payload)

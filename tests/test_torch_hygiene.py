@@ -69,6 +69,7 @@ def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
 
     monkeypatch.setattr(mod, "mvcc_resolve_plain", boom)
     monkeypatch.setattr(mod, "mvcc_resolve_masked_plain", boom)
+    monkeypatch.setattr(mod, "mvcc_resolve_paged_plain", boom)
     z = torch.zeros((4, 2), dtype=torch.int32, device="meta")
     d = torch.zeros((4, 2, 3), dtype=torch.int32, device="meta")
     t = torch.zeros((4,), dtype=torch.int32, device="meta")
@@ -76,13 +77,18 @@ def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
         mod.mvcc_resolve(z, z, d, t)
     with pytest.raises(ValueError, match="no kernel"):
         mod.mvcc_resolve_masked(z, z, z, t, d, t)
+    with pytest.raises(ValueError, match="no kernel"):
+        mod.mvcc_resolve_paged(z, z, z, d, t)
 
 
-@pytest.mark.parametrize("kwargs", [dict(n_shards=2), dict(paged=True),
-                                    dict(adaptive_k=True),
+@pytest.mark.parametrize("kwargs", [dict(n_shards=2),
+                                    dict(paged=True, n_shards=4),
+                                    dict(adaptive_k=True, mesh=object()),
                                     dict(mesh=object()),
                                     dict(auditor=object())])
 def test_unported_options_raise(kwargs):
+    """Unported options raise, also beside the ported paged and
+    adaptive-K options."""
     from repro_torch.core.engine import BohmEngine
     from repro_torch.core.workloads import make_ycsb
     with pytest.raises(NotImplementedError, match="ROADMAP"):

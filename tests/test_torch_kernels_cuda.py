@@ -27,13 +27,19 @@ def cuda(monkeypatch):
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
     plain = {"resolve": mod.mvcc_resolve_plain,
-             "masked": mod.mvcc_resolve_masked_plain}
+             "masked": mod.mvcc_resolve_masked_plain,
+             "paged": mod.mvcc_resolve_paged_plain}
 
-    def boom(*args):
-        raise AssertionError("a CUDA call reached the plain version")
+    def cpu_only(fn):
+        def run(*args):
+            if any(x.is_cuda for x in args):
+                raise AssertionError("a CUDA call reached the plain version")
+            return fn(*args)
+        return run
 
-    monkeypatch.setattr(mod, "mvcc_resolve_plain", boom)
-    monkeypatch.setattr(mod, "mvcc_resolve_masked_plain", boom)
+    for name in ("mvcc_resolve_plain", "mvcc_resolve_masked_plain",
+                 "mvcc_resolve_paged_plain"):
+        monkeypatch.setattr(mod, name, cpu_only(getattr(mod, name)))
     return plain
 
 
@@ -98,3 +104,84 @@ def test_kernel_rejects_non_contiguous(cuda):
                                                       masked=False))
     with pytest.raises(ValueError, match="contiguous"):
         mod.mvcc_resolve(begin, end, data[:, :, ::2], ts)
+
+
+# ---------------------------------------------------------------------------
+# mvcc_resolve_paged: page-table rows into a page slab
+# ---------------------------------------------------------------------------
+PAGED_SHAPES = [(23, 3, 4, 37, 5), (5, 1, 1, 1, 1), (64, 2, 8, 129, 8),
+                (4099, 3, 5, 1000, 33), (200_000, 2, 8, 10240, 8)]
+
+
+def _paged_inputs(seed, P, S, max_pages, B, D, dtype, unmapped=0.5):
+    """A consistent slab (every begin distinct, so one slot is selected
+    per read and float32 sums are exact) and page rows with unmapped
+    entries; rows repeat no page where P is small enough to draw them
+    without replacement."""
+    rng = np.random.default_rng(seed)
+    begin = rng.permutation(P * S * 2)[:P * S].reshape(P, S).astype(
+        np.int32)
+    end = begin + rng.integers(1, 30, (P, S)).astype(np.int32)
+    data = rng.integers(-1000, 1000, (P, S, D)).astype(dtype)
+    if P <= 5000:
+        rows = np.argsort(rng.random((B, P)), axis=1)[:, :max_pages]
+    else:
+        rows = rng.integers(0, P, (B, max_pages))
+    rows = rows.astype(np.int32)
+    # ts near a version of the row's first page: most reads find one
+    ts = begin[rows[:, 0], 0] + rng.integers(0, 10, B).astype(np.int32)
+    rows[rng.random((B, max_pages)) < unmapped] = -1
+    return [torch.from_numpy(a) for a in (rows, begin, end, data, ts)]
+
+
+@pytest.mark.parametrize("P,S,max_pages,b,d", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_resolve_paged_kernel_matches_plain(cuda, P, S, max_pages, b, d,
+                                            dtype):
+    _run("mvcc_resolve_paged", mod.mvcc_resolve_paged, cuda["paged"],
+         _paged_inputs(P + b, P, S, max_pages, b, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_resolve_paged_unmapped_and_single_page(cuda, dtype):
+    rows, begin, end, data, ts = _paged_inputs(9, 23, 3, 4, 37, 5, dtype)
+    rows[[0, 5, 36]] = -1                       # all-unmapped rows
+    _run("mvcc_resolve_paged", mod.mvcc_resolve_paged, cuda["paged"],
+         [rows, begin, end, data, ts])
+    vals, found = mod.mvcc_resolve_paged(*(x.cuda() for x in (
+        rows, begin, end, data, ts)))
+    assert not found[[0, 5, 36]].any() and (vals[[0, 5, 36]] == 0).all()
+    # a fully mapped single-page table: the dense select over that page
+    one = (torch.arange(37, dtype=torch.int32) % 23)[:, None].contiguous()
+    _run("mvcc_resolve_paged", mod.mvcc_resolve_paged, cuda["paged"],
+         [one, begin, end, data, ts])
+    v1, f1 = mod.mvcc_resolve_paged(*(x.cuda() for x in (one, begin, end,
+                                                         data, ts)))
+    vd, fd = mod.mvcc_resolve(*(x.cuda() for x in (
+        begin[one[:, 0].long()], end[one[:, 0].long()],
+        data[one[:, 0].long()], ts)))
+    assert torch.equal(v1, vd) and torch.equal(f1, fd)
+
+
+def test_resolve_paged_kernel_sums_tied_begins(cuda):
+    begin = torch.tensor([[3, 5], [5, 1], [7, 9]], dtype=torch.int32)
+    end = torch.full((3, 2), INF, dtype=torch.int32)
+    data = torch.arange(12, dtype=torch.int32).reshape(3, 2, 2) + 1
+    rows = torch.tensor([[0, 1, -1], [2, -1, 0]], dtype=torch.int32)
+    ts = torch.tensor([6, 8], dtype=torch.int32)
+    _run("mvcc_resolve_paged", mod.mvcc_resolve_paged, cuda["paged"],
+         [rows, begin, end, data, ts])
+
+
+def test_resolve_paged_rejects_non_contiguous_and_mixed_devices(cuda):
+    rows, begin, end, data, ts = _paged_inputs(3, 40, 2, 4, 16, 6,
+                                               np.int32)
+    g = [x.cuda() for x in (rows, begin, end, data, ts)]
+    with pytest.raises(ValueError, match="contiguous"):
+        mod.mvcc_resolve_paged(g[0], g[1], g[2], g[3][:, :, ::2], g[4])
+    with pytest.raises(ValueError, match="contiguous"):
+        mod.mvcc_resolve_paged(g[0].t().contiguous().t(), *g[1:])
+    with pytest.raises(ValueError, match="one device"):
+        mod.mvcc_resolve_paged(rows, *g[1:])
+    with pytest.raises(ValueError, match="one device"):
+        mod.mvcc_resolve_paged(*g[:4], ts)
