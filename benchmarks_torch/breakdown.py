@@ -12,15 +12,16 @@ engine's ``PhaseTracer(enabled=True, annotate=True)`` opens a
 ends, so every kernel a phase launches runs inside its range.
 
 Prints per range (batch, plan_phase, exec_phase, commit_phase, readonly):
-host wall ms, device kernel ms, kernel launches and the device busy
-share (kernel time over wall time), the unprofiled batch wall time of
-the same configuration for comparison, and the kernels with the most
-device time. Needs a GPU; exits non-zero without one or when the
+host wall ms, device kernel ms, kernel launches, host synchronisations
+and the device busy share (kernel time over wall time), the unprofiled
+batch wall time of the same configuration for comparison, and the
+kernels with the most device time. Needs a GPU; exits non-zero without one or when the
 profiler records no device activity.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import statistics
@@ -42,6 +43,64 @@ from repro_torch.obs import PhaseTracer  # noqa: E402
 
 PHASES = ("plan_phase", "exec_phase", "commit_phase")
 RANGES = ("batch", *PHASES, "readonly")
+
+
+def range_table(prof, ranges, other_ranges=()):
+    """Per profiled range (a ``record_function`` or tracer span name):
+    calls, host wall ms, device kernel ms, kernel launches, host
+    synchronisations and the busy share, each per call; prints them and
+    the kernels with the most device time. ``other_ranges`` are annotation names to keep out of
+    the kernel list. Returns None when the profiler saw no device
+    activity."""
+    events = list(prof.events())
+    # device activity minus the GPU-side copies of our own ranges
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in (*ranges, *other_ranges)]
+    if not kernels:
+        print("breakdown: the profiler recorded no device activity; "
+              "device time not measured", file=sys.stderr)
+        return None
+    # host waits on the device: CUDA runtime synchronise calls (a
+    # blocking copy from pageable memory makes one, as does a span's fence)
+    syncs = [e for e in events if e.device_type == DeviceType.CPU
+             and e.name.startswith("cuda") and "Synchronize" in e.name]
+    rows = {}
+    for name in ranges:
+        spans = sorted((e.time_range for e in events
+                        if e.device_type == DeviceType.CPU
+                        and e.name == name), key=lambda r: r.start)
+        starts = [s.start for s in spans]
+
+        def within(evs):
+            # spans of one name do not overlap: test the last one that
+            # starts at or before the event
+            out = []
+            for e in evs:
+                i = bisect.bisect_right(starts, e.time_range.start) - 1
+                if i >= 0 and e.time_range.start <= spans[i].end:
+                    out.append(e)
+            return out
+        inside = within(kernels)
+        host = sum(s.elapsed_us() for s in spans) / 1e3
+        dev = sum(k.time_range.elapsed_us() for k in inside) / 1e3
+        n = max(len(spans), 1)
+        n_sync = len(within(syncs)) / n
+        rows[name] = {"calls": len(spans), "wall_ms": host / n,
+                      "device_ms": dev / n, "launches": len(inside) / n,
+                      "syncs": n_sync, "busy": dev / host if host else None}
+        print(f"{name:18s} calls {len(spans):3d}  wall {host / n:9.3f} ms  "
+              f"device {dev / n:8.3f} ms  launches {len(inside) / n:8.1f}"
+              f"  syncs {n_sync:6.1f}"
+              f"  busy {100 * dev / host if host else 0:5.1f} %")
+    per_kernel = collections.Counter()
+    for k in kernels:
+        per_kernel[k.name[:90]] += k.time_range.elapsed_us()
+    total = sum(per_kernel.values())
+    print("top kernels by device time over the profiled window:")
+    for name, us in per_kernel.most_common(12):
+        print(f"  {us / 1e3:8.3f} ms  {100 * us / total:5.1f} %  {name}")
+    return rows
 
 
 def main() -> int:
@@ -89,37 +148,9 @@ def main() -> int:
             eng.run_readonly_batch(scan, pin)
             torch.cuda.synchronize()
 
-    events = list(prof.events())
-    # device activity minus the GPU-side copies of our own ranges
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.name not in (*RANGES, "read/resolve")]
-    if not kernels:
-        print("breakdown: the profiler recorded no device activity; "
-              "device time not measured", file=sys.stderr)
+    rows = range_table(prof, RANGES, ("read/resolve",))
+    if rows is None:
         return 1
-    rows = {}
-    for name in RANGES:
-        spans = [e.time_range for e in events
-                 if e.device_type == DeviceType.CPU and e.name == name]
-        inside = [k for k in kernels if any(
-            s.start <= k.time_range.start <= s.end for s in spans)]
-        host = sum(s.elapsed_us() for s in spans) / 1e3
-        dev = sum(k.time_range.elapsed_us() for k in inside) / 1e3
-        n = max(len(spans), 1)
-        rows[name] = {"calls": len(spans), "wall_ms": host / n,
-                      "device_ms": dev / n, "launches": len(inside) / n,
-                      "busy": dev / host if host else None}
-        print(f"{name:13s} calls {len(spans)}  wall {host / n:9.3f} ms  "
-              f"device {dev / n:8.3f} ms  launches {len(inside) / n:8.1f}"
-              f"  busy {100 * dev / host if host else 0:5.1f} %")
-    per_kernel = collections.Counter()
-    for k in kernels:
-        per_kernel[k.name[:90]] += k.time_range.elapsed_us()
-    total = sum(per_kernel.values())
-    print("top kernels by device time over the profiled window:")
-    for name, us in per_kernel.most_common(12):
-        print(f"  {us / 1e3:8.3f} ms  {100 * us / total:5.1f} %  {name}")
     med = statistics.median(wall)
     print(f"unprofiled batch wall ms {[round(x, 3) for x in wall]} "
           f"(median {med:.3f}); device busy share of an unprofiled batch "

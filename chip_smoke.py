@@ -6,13 +6,21 @@ Needs one NVIDIA GPU (H100, sm_90a) and ``nvcc``; imports neither JAX nor
 the JAX package. Phases, each of which must pass:
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. build: the CUDA kernels are compiled from ``src/repro_torch/kernels/
-   csrc`` into ``build/repro_torch/`` (nvcc);
-3. kernels: each kernel (``mvcc_resolve``, ``mvcc_resolve_masked``,
-   ``mvcc_resolve_paged``) equals its plain PyTorch version on the card
-   at its path's shapes and at an odd float32 shape, and is timed
-   against it with CUDA events (device time per call, median of 21
-   rounds of 20 back-to-back calls);
+2. build: the CUDA sources ``src/repro_torch/kernels/csrc/*.cu`` are
+   compiled into ``build/repro_torch/`` (one nvcc each, all started
+   together);
+3. kernels: each resolve kernel (``mvcc_resolve``,
+   ``mvcc_resolve_masked``, ``mvcc_resolve_paged``) equals its plain
+   PyTorch version on the card at its path's shapes and at an odd
+   float32 shape, and is timed against it with CUDA events (device time
+   per call, median of 21 rounds of 20 back-to-back calls); each
+   attention kernel (``decode_attention``, ``flash_attention_causal``)
+   agrees with its plain version in float32 (1e-5) and bfloat16 (2e-2
+   decode, 3e-2 prefill) at the reference tests' shapes, the serving
+   path's shapes and an odd shape, ignores a poisoned cache tail, and is
+   timed beside its plain version, its bound and one
+   ``scaled_dot_product_attention(enable_gqa=True)`` call (the
+   yardstick; the port never calls it);
 4. main path: ``build(YCSB_HIGH_10RMW, device="cuda")`` — 1,000,000
    records, 8-word payloads, batches of 1024 zipfian (theta=0.9) 10-RMW
    transactions, spill tier on. Batch 1 must equal the serial oracle;
@@ -39,20 +47,40 @@ the JAX package. Phases, each of which must pass:
    overflow histogram and spill arrays while no page allocation failed
    (else: found paged reads equal the twin's), and a CPU replay of the
    paged engine must be byte-equal, page table included;
-7. attention yardstick: ``scaled_dot_product_attention`` timed at the
-   reference tests' decode and prefill shapes (fp32, bf16) beside the
-   bound of the two attention kernels not ported yet.
+7. serving path: ``ServeEngine`` (the reference's defaults: 8 slots,
+   pages of 16, 512 pages, 64 a sequence, bf16 KV, 1024 rids,
+   ``state_shards=2``) over smollm-360m at its published widths and
+   depth (32 layers, d_model 960, 15/5 heads, d_ff 2560, vocab 49152),
+   bf16 weights from a seeded ``torch.Generator`` on the card. 16
+   requests of 128-512-token prompts (page multiples), 32 new tokens
+   each: 12 submitted and served, a progress view pinned, then 4 more
+   (one repeating an earlier prompt, so the prefix cache hits and
+   ``_logits_at`` runs). Every request must finish with 32 tokens and
+   finite logits, every rid's ``lookup`` and ``progress_view`` must read
+   done with 32 generated, the pinned view must be unchanged after the
+   second wave, ``prefix_hits >= 1``, ``pages_recycled > 0``, and
+   ``decode_attention``, ``flash_attention_causal``, ``mvcc_resolve``
+   and ``mvcc_resolve_masked`` must all have launched. Prints prefill
+   ms per prompt, decode-step ms, generated tokens/s, the state-store
+   batch's ms per step and peak memory;
+8. serving replay: the same engine at full width with depth cut to 4
+   layers, float32 weights and KV, 4 requests of 64-128 tokens and 8 new
+   tokens, on the card and on the CPU (plain versions): equal tokens,
+   last logits within 1e-3 of their largest magnitude, byte-equal
+   lookups and state-store arrays.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -65,17 +93,31 @@ from repro_torch.core.carry import store_to_numpy  # noqa: E402
 from repro_torch.core.engine import BohmEngine, serial_oracle  # noqa: E402
 from repro_torch.core.workloads import (gen_scan_batch,  # noqa: E402
                                         gen_ycsb_batch, make_ycsb)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mvcc_resolve as kmod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models.layers import flatten, unflatten  # noqa: E402
+from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.obs import PhaseTracer  # noqa: E402
+from repro_torch.serving import STATE_DONE, ServeEngine  # noqa: E402
+from repro_torch.serving import engine as serve_mod  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SOURCE = "src/repro_torch/kernels/csrc/mvcc_resolve.cu"
+SOURCES = ("mvcc_resolve", "decode_attention", "flash_attention")
 REPLACES = {"mvcc_resolve": "src/repro/kernels/mvcc_resolve.py:81",
             "mvcc_resolve_masked": "src/repro/kernels/mvcc_resolve.py:143",
-            "mvcc_resolve_paged": "src/repro/kernels/mvcc_resolve.py:221"}
+            "mvcc_resolve_paged": "src/repro/kernels/mvcc_resolve.py:221",
+            "decode_attention": "src/repro/kernels/decode_attention.py:63",
+            "flash_attention_causal":
+                "src/repro/kernels/flash_attention.py:77"}
+ATT_SOURCE = {"decode_attention":
+              "src/repro_torch/kernels/csrc/decode_attention.cu",
+              "flash_attention_causal":
+              "src/repro_torch/kernels/csrc/flash_attention.cu"}
 N_BATCHES, PIN_AFTER, N_SCANS, OPS = 9, 3, 1024, 10
 PHASES = ("plan_phase", "exec_phase", "commit_phase")
 # the paged path: YCSB_HIGH_10RMW's data scale with benchmarks/paged.py's
@@ -487,55 +529,323 @@ def check_replay(gpu, cpu):
 
 
 # ---------------------------------------------------------------------------
-# the attention kernels not ported yet: bound and library yardstick
+# the attention kernels: against their plain versions, bound and yardstick
 # ---------------------------------------------------------------------------
-def _sdpa(q, k, v, causal):
+# decode (B, KvH, G, Dh, T) and prefill (B, S, KvH, G, Dh): the reference
+# tests' sweeps (tests/test_kernels.py:52-55, :106-109), the serving
+# path's shapes (8 slots and one prefix hit over MaxP * page = 1024
+# positions; prompts of 128-512) and an odd one (T, S not multiples of a
+# tile or block)
+DECODE_CASES = [((1, 1, 1, 64, 64), "tests"), ((3, 2, 4, 64, 257), "tests"),
+                ((2, 5, 3, 128, 1024), "tests"),
+                ((4, 8, 1, 128, 96), "tests"),
+                ((8, 5, 3, 64, 1024), "serving"),
+                ((1, 5, 3, 64, 1024), "serving"),
+                ((5, 3, 7, 40, 1000), "odd")]
+FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
+               ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
+               ((1, 128, 5, 3, 64), "serving"),
+               ((1, 384, 5, 3, 64), "serving"),
+               ((1, 512, 5, 3, 64), "serving"), ((1, 300, 5, 3, 64), "odd")]
+# the kernels line carries each kernel at its busiest serving shape, bf16
+ROW_CASE = {"decode_attention": (8, 5, 3, 64, 1024),
+            "flash_attention_causal": (1, 512, 5, 3, 64)}
+ATT_TOL = {("decode_attention", torch.float32): 1e-5,
+           ("decode_attention", torch.bfloat16): 2e-2,
+           ("flash_attention_causal", torch.float32): 1e-5,
+           ("flash_attention_causal", torch.bfloat16): 3e-2}
+PEAK = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
+
+
+def _sdpa(q, k, v, mask, causal):
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
 
 
-def attention_yardstick():
-    """``scaled_dot_product_attention`` (GQA, one call) at the reference
-    tests' shapes: decode B=2, KvH=5, G=3, Dh=128, T=1024
-    (tests/test_kernels.py:52) and causal prefill B=1, S=512, KvH=4, G=2,
-    Dh=128 (:112), fp32 and bf16, beside each kernel's bound: its inputs
-    and output moved once, against 4 flops per (query, key, Dh) pair (QK
-    and PV; causal prefill counts the S(S+1)/2 pairs on and below the
-    diagonal) at the type's peak."""
-    out = []
-    for kind, (B, KvH, G, Dh, T) in (("decode_attention", (2, 5, 3, 128,
-                                                           1024)),
-                                     ("flash_attention_causal",
-                                      (1, 4, 2, 128, 512))):
-        H = KvH * G
-        q_len = 1 if kind == "decode_attention" else T
-        pairs = B * H * (T if q_len == 1 else T * (T + 1) // 2)
-        for dtype, rate in ((torch.float32, FP32_OPS_PER_S),
-                            (torch.bfloat16, BF16_OPS_PER_S)):
-            g = torch.Generator(device="cuda").manual_seed(H + T)
-            q = torch.randn((B, H, q_len, Dh), generator=g, device="cuda",
-                            dtype=dtype)
-            k = torch.randn((B, KvH, T, Dh), generator=g, device="cuda",
-                            dtype=dtype)
-            v = torch.randn((B, KvH, T, Dh), generator=g, device="cuda",
-                            dtype=dtype)
-            causal = q_len > 1
-            o = _sdpa(q, k, v, causal)
-            torch.cuda.synchronize()
-            if not torch.isfinite(o.float()).all():
-                raise AssertionError(f"sdpa {kind} {dtype}: not finite")
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
-                * q.element_size()
-            flops = 4 * pairs * Dh
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
-            ms = _device_ms(_sdpa, (q, k, v, causal))
-            out.append({"kernel": kind, "dtype": str(dtype)[6:],
-                        "shape": [B, KvH, G, Dh, T], "library_ms": ms,
-                        "bound_ms": bound_ms,
-                        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-                        >= flops / rate else "operations",
-                        "bytes": nbytes, "flops": flops})
-    return out
+def _attention_case(name, shape, label, dtype, device="cuda"):
+    """Inputs on the card, the bytes and flops this run's data needs, and
+    the SDPA arguments in its [B, H, L, Dh] layout (made contiguous
+    outside the timed call). Decode counts only the K/V rows below each
+    sequence's kv_len; prefill counts the causal (query, key <= query)
+    pairs."""
+    g_ = torch.Generator(device=device).manual_seed(sum(shape))
+    kw = dict(generator=g_, device=device)
+
+    def randn(*size):
+        return torch.randn(size, **kw).to(dtype)
+
+    esize = torch.tensor([], dtype=dtype).element_size()
+    if name == "decode_attention":
+        b, kvh, g, dh, t = shape
+        q, k, v = randn(b, kvh, g, dh), randn(b, t, kvh, dh), \
+            randn(b, t, kvh, dh)
+        lo, hi = (129, 545) if label == "serving" else (1, t + 1)
+        kl = torch.randint(lo, min(hi, t + 1), (b,), **kw,
+                           dtype=torch.int32)
+        keys = int(kl.sum())
+        nbytes = (2 * q.numel() + 2 * keys * kvh * dh) * esize + 4 * b
+        flops = 4 * keys * kvh * g * dh
+        mask = (torch.arange(t, device=device)[None, :]
+                < kl[:, None])[:, None, None, :]
+        sdpa = (q.reshape(b, kvh * g, 1, dh), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), mask, False)
+        return [q, k, v, kl], nbytes, flops, sdpa
+    b, s, kvh, g, dh = shape
+    q, k, v = randn(b, s, kvh, g, dh), randn(b, s, kvh, dh), \
+        randn(b, s, kvh, dh)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    flops = 4 * b * kvh * g * dh * s * (s + 1) // 2
+    sdpa = (q.reshape(b, s, kvh * g, dh).transpose(1, 2).contiguous(),
+            k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+            None, True)
+    return [q, k, v], nbytes, flops, sdpa
+
+
+def attention_phase(device="cuda"):
+    """Each attention kernel against its plain version on the same card
+    inputs at every case and dtype, timed beside the plain version, its
+    bound and one SDPA call; the decode kernel also against a poisoned
+    cache tail. Returns the kernels line's rows (serving shape, bf16)."""
+    rows = {}
+    cases = [("decode_attention", c) for c in DECODE_CASES] + \
+        [("flash_attention_causal", c) for c in FLASH_CASES]
+    for name, (shape, label) in cases:
+        kernel = getattr(ops, name)
+        plain = getattr(ops, name + "_plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            args, nbytes, flops, sdpa = _attention_case(name, shape, label,
+                                                        dtype, device)
+            out = kernel(*args)
+            ref = plain(*args)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = ATT_TOL[(name, dtype)]
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                       atol=tol)
+            if name == "decode_attention":
+                q, k, v, kl = args
+                k2, v2 = k.clone(), v.clone()
+                for i, n in enumerate(kl.tolist()):
+                    k2[i, n:] = 1e9
+                    v2[i, n:] = -1e9
+                if not torch.equal(kernel(q, k2, v2, kl), out):
+                    raise AssertionError(f"{name} {shape}: a poisoned tail "
+                                         "beyond kv_len changed the output")
+            lib = _sdpa(*sdpa)
+            if not torch.isfinite(lib.float()).all():
+                raise AssertionError(f"sdpa {name} {shape}: not finite")
+            ms = _device_ms(kernel, args, rounds=11, reps=10)
+            plain_ms = _device_ms(plain, args, rounds=11, reps=10)
+            lib_ms = _device_ms(_sdpa, sdpa, rounds=11, reps=10)
+            host_ms = _host_ms(kernel, args, reps=50)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK[dtype]
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"kernel {name} {label} {list(shape)} {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3g} (tol {tol}); device: kernel "
+                f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, sdpa "
+                f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+                f"({bound_by}: {nbytes} B, {flops} flop), "
+                f"{100 * bound_ms / ms:.1f} % of bound; host per kernel "
+                f"call {host_ms * 1e3:.1f} us")
+            if tuple(shape) == ROW_CASE[name] and dtype == torch.bfloat16:
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": ATT_SOURCE[name], "replaces": REPLACES[name],
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "shape": list(shape), "dtype": "bfloat16",
+                    "bytes": nbytes, "flops": flops, "host_ms": host_ms}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the serving path: ServeEngine over smollm-360m at full width
+# ---------------------------------------------------------------------------
+SERVE_ARCH, SERVE_NEW, WAVE1 = "smollm-360m", 32, 12
+# 15 distinct prompts, page multiples from 128 to 512 tokens; rid 13
+# repeats rid 0's prompt (a prefix hit). The prefix cache keeps every
+# aligned prompt's pages (296 of the 512), so the decode pages fit.
+SERVE_LENS = (128, 192, 256, 320, 384, 448, 512) * 2 + (256,)
+REPLAY_LAYERS, REPLAY_LENS, REPLAY_NEW = 4, (64, 80, 96, 128), 8
+STEP_FNS = ("_paged_decode_step", "_paged_prefill", "_logits_at")
+
+
+def serving_prompts(vocab_size: int):
+    """The serving path's 16 prompts, in submission order: SERVE_LENS
+    drawn from seed 0, with rid 0's prompt repeated at rid WAVE1 + 1.
+    ``benchmarks_torch/serve_breakdown.py`` serves the same traffic."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, vocab_size, n).astype(np.int32)
+               for n in SERVE_LENS]
+    prompts.insert(WAVE1 + 1, prompts[0].copy())
+    return prompts
+
+
+class LogitsWatch:
+    """Wraps the serving engine's three step functions while open: counts
+    non-finite logits (of active slots, for decode) on the device, with
+    no host sync, and keeps the last decode step's logits and active
+    mask."""
+
+    def __enter__(self):
+        self.nonfinite, self.last = [], None
+        self._saved = {n: getattr(serve_mod, n) for n in STEP_FNS}
+        decode, prefill, logits_at = (self._saved[n] for n in STEP_FNS)
+
+        def watched_decode(*args, **kw):
+            logits = decode(*args, **kw)
+            active = args[6]
+            self.nonfinite.append(
+                (~torch.isfinite(logits) & active[:, None]).sum())
+            self.last = (logits, active)
+            return logits
+
+        def watched_prefill(*args, **kw):
+            kv, logits = prefill(*args, **kw)
+            self.nonfinite.append((~torch.isfinite(logits)).sum())
+            return kv, logits
+
+        def watched_logits_at(*args, **kw):
+            logits = logits_at(*args, **kw)
+            self.nonfinite.append((~torch.isfinite(logits)).sum())
+            return logits
+
+        for n, fn in zip(STEP_FNS, (watched_decode, watched_prefill,
+                                    watched_logits_at)):
+            setattr(serve_mod, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(serve_mod, n, fn)
+        return False
+
+    def count(self) -> int:
+        return int(torch.stack(self.nonfinite).sum())
+
+
+def _views_equal(a, b, what):
+    for key in a:
+        np.testing.assert_array_equal(np.asarray(a[key]), np.asarray(b[key]),
+                                      err_msg=f"{what}: {key}")
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive_serving(cfg, device="cuda"):
+    """The serving path (see the module doc) with ``cfg``'s model on
+    ``device``. Returns the timings and counts to print."""
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, tracer=PhaseTracer(enabled=True),
+                      device=device)
+    prompts = serving_prompts(cfg.vocab_size)
+    n_req = len(prompts)
+    with LogitsWatch() as watch:
+        t0 = time.perf_counter()
+        for rid in range(WAVE1):
+            eng.submit(rid, prompts[rid], SERVE_NEW)
+        eng.run()
+        _sync(device)
+        wave1_s = time.perf_counter() - t0
+        pin = eng.begin_state_snapshot()
+        view_pin = eng.progress_view(pin)
+        t0 = time.perf_counter()
+        for rid in range(WAVE1, n_req):
+            eng.submit(rid, prompts[rid], SERVE_NEW)
+        done = eng.run()
+        _sync(device)
+        wave2_s = time.perf_counter() - t0
+    if watch.count():
+        raise AssertionError(f"{watch.count()} non-finite logits")
+    gens = {r.rid: r.generated for r in done}
+    if sorted(gens) != list(range(n_req)) or any(
+            len(g) != SERVE_NEW for g in gens.values()):
+        raise AssertionError(f"requests did not all finish with {SERVE_NEW} "
+                             f"tokens: { {k: len(g) for k, g in gens.items()} }")
+    rids = np.arange(n_req)
+    for view in (eng.progress_view(), eng.lookup(rids)):
+        ok = ((view["status"][:n_req] == STATE_DONE)
+              & (view["n_generated"][:n_req] == SERVE_NEW)
+              & view["known"][:n_req])
+        if not ok.all():
+            raise AssertionError("a state lookup disagrees with the served "
+                                 "requests")
+        last = np.array([gens[r][-1] for r in rids])
+        np.testing.assert_array_equal(view["last_token"][:n_req], last)
+    pinned = eng.progress_view(pin)
+    _views_equal(view_pin, pinned, "pinned progress view")
+    if not (pinned["known"][:WAVE1].all()
+            and not pinned["known"][WAVE1:].any()):
+        raise AssertionError("the pinned view does not show wave 1 exactly")
+    eng.release_state_snapshot(pin)
+    stats = dict(eng.sched.stats)
+    if stats["prefix_hits"] < 1 or stats["pages_recycled"] <= 0:
+        raise AssertionError(f"scheduler stats {stats}")
+    spans = eng.tracer.span_durations()
+    return {"init_s": init_s, "wave_s": (wave1_s, wave2_s),
+            "tokens": n_req * SERVE_NEW, "stats": stats,
+            "health": eng.sched.health(), "steps": eng.steps,
+            "prefill_lens": [len(p) for i, p in enumerate(prompts)
+                             if i != WAVE1 + 1],
+            "spans_ms": {k: [x * 1e3 for x in v] for k, v in spans.items()},
+            "state_ts": eng.state.current_ts()}
+
+
+def drive_replay(device, cfg, params):
+    """The float32 replay's traffic on ``device``: 4 requests, 8 new
+    tokens each; returns what the comparison needs."""
+    eng = ServeEngine(cfg, params, kv_dtype=torch.float32, device=device)
+    rng = np.random.default_rng(1)
+    for rid, n in enumerate(REPLAY_LENS):
+        eng.submit(rid, rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                   REPLAY_NEW)
+    with LogitsWatch() as watch:
+        done = eng.run()
+    logits, active = watch.last
+    return {"tokens": {r.rid: r.generated for r in done},
+            "last": logits[active].float().cpu().numpy(),
+            "nonfinite": watch.count(),
+            "lookup": eng.lookup(np.arange(len(REPLAY_LENS) + 2)),
+            "view": eng.progress_view(),
+            "state": store_to_numpy(eng.state.store)}
+
+
+def serving_replay(cfg, device="cuda"):
+    """``cfg`` with depth cut to REPLAY_LAYERS, float32 (TF32 off): the
+    run on ``device`` against the CPU's (plain versions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, num_layers=REPLAY_LAYERS, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device)
+    params_cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    gpu = drive_replay(device, cfg, params)
+    cpu = drive_replay("cpu", cfg, params_cpu)
+    if gpu["tokens"] != cpu["tokens"]:
+        raise AssertionError(f"replay tokens differ: {gpu['tokens']} vs "
+                             f"{cpu['tokens']}")
+    if gpu["nonfinite"] or cpu["nonfinite"]:
+        raise AssertionError("replay: non-finite logits")
+    rel = float(np.abs(gpu["last"] - cpu["last"]).max()
+                / np.abs(cpu["last"]).max())
+    if rel > 1e-3:
+        raise AssertionError(f"replay last logits differ by {rel:.3g} of "
+                             "their largest magnitude (limit 1e-3)")
+    _views_equal(cpu["lookup"], gpu["lookup"], "replay lookup")
+    _views_equal(cpu["view"], gpu["view"], "replay progress_view")
+    assert set(gpu["state"]) == set(cpu["state"])
+    for name in gpu["state"]:
+        np.testing.assert_array_equal(gpu["state"][name], cpu["state"][name],
+                                      err_msg=f"replay state {name}")
+    return rel, gpu["tokens"]
 
 
 def main() -> int:
@@ -551,12 +861,20 @@ def main() -> int:
         f"count {torch.cuda.device_count()}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    path, nvcc_out = _build.build("mvcc_resolve")
-    log(f"build: {path} in {time.perf_counter() - t0:.2f} s")
-    for line in nvcc_out.strip().splitlines():
-        log(f"  nvcc: {line}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
+        built = list(pool.map(_build.build, SOURCES))
+    log(f"build: {len(SOURCES)} sources in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, (path, nvcc_out) in zip(SOURCES, built):
+        log(f"  {name}: {path}")
+        for line in nvcc_out.strip().splitlines():
+            if "ptxas info" in line and "Used" in line or "spill" in line:
+                log(f"    nvcc: {line.strip()}")
 
     rows = kernel_phase()
+    t0 = time.perf_counter()
+    rows.update(attention_phase())
+    log(f"attention kernels: {time.perf_counter() - t0:.1f} s")
 
     kmod.reset_launches()                  # counts start at 0 for the path
     torch.cuda.reset_peak_memory_stats()
@@ -642,8 +960,51 @@ def main() -> int:
         f"spill, storage_stats and k_by_record "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    for row in attention_yardstick():
-        log("attention yardstick: " + json.dumps(row))
+    # -- the serving path, counted from zero ------------------------------
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    srv = drive_serving(get_config(SERVE_ARCH))
+    launches = dict(ops.LAUNCHES)
+    for name in ("decode_attention", "flash_attention_causal",
+                 "mvcc_resolve", "mvcc_resolve_masked"):
+        if launches[name] <= 0:
+            raise AssertionError(f"serving path launched {name} no time")
+    for name in ("decode_attention", "flash_attention_causal"):
+        rows[name]["launches"] = launches[name]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sp = srv["spans_ms"]
+    dec, flush = sp["serve/decode"], sp["serve/state_flush"]
+    wall = sum(srv["wave_s"])
+    log(f"serving path: {SERVE_ARCH} full width, bf16, ServeEngine "
+        f"defaults; params init {srv['init_s']:.2f} s; launches {launches}; "
+        f"scheduler stats {srv['stats']}; health {srv['health']}; "
+        f"decode steps {srv['steps']}; state store ts {srv['state_ts']}")
+    prefill = [(n, round(x, 3)) for n, x in zip(srv["prefill_lens"],
+                                                 sp["serve/prefill"])]
+    log(f"serving path: prefill ms per prompt (tokens, ms) {prefill}; "
+        f"prefix-hit _logits_at ms "
+        f"{[round(x, 3) for x in sp.get('serve/logits_at', [])]}")
+    dec_ms, flush_ms = statistics.median(dec), statistics.median(flush)
+    log(f"serving path: decode step ms median {dec_ms:.3f} "
+        f"(min {min(dec):.3f}, max {max(dec):.3f}, {len(dec)} steps); state "
+        f"store batch (_flush_state) ms per step median {flush_ms:.3f} = "
+        f"{100 * flush_ms / (dec_ms + flush_ms):.1f}"
+        f" % of decode + flush; of it plan/exec/commit medians "
+        f"{[round(statistics.median(sp[k]), 3) for k in PHASES]} ms; "
+        f"read/resolve ms {[round(x, 3) for x in sp.get('read/resolve', [])]}")
+    log(f"serving path: {srv['tokens']} tokens generated in {wall:.3f} s "
+        f"(waves {srv['wave_s'][0]:.3f} + {srv['wave_s'][1]:.3f} s, "
+        f"traced) = {srv['tokens'] / wall:.1f} tokens/s; peak device "
+        f"memory {peak:.3f} GiB; all 16 requests done with "
+        f"{SERVE_NEW} tokens, lookups and progress views consistent, pinned "
+        f"view stable, logits finite")
+
+    t0 = time.perf_counter()
+    rel, tokens = serving_replay(get_config(SERVE_ARCH))
+    log(f"serving replay ({REPLAY_LAYERS} of 32 layers, float32): card == "
+        f"cpu tokens {tokens}; last logits within {rel:.3g} of their "
+        f"largest magnitude; lookups, progress view and state-store arrays "
+        f"byte-equal ({time.perf_counter() - t0:.1f} s)")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

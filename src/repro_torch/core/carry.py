@@ -6,16 +6,17 @@ flattens a ``Store`` into named numpy arrays and ``store_from_reference``
 rebuilds one on a device, so state written by the JAX reference engine
 (flattened the same way with ``np.asarray``) or by another port engine
 can be adopted by ``BohmEngine.load_state``. The layout is the
-reference's, leading shard axis included:
+reference's, leading shard axis included (n shards of Rl = ceil(R / n)
+records each):
 
-    base [R, D], base_ts [R], ts_counter [], k_eff [1, R]
+    base [R, D], base_ts [R], ts_counter [], k_eff [n, Rl]
     the primary level, exactly one of
-      ring_begin / ring_end [1, R, K], ring_payload [1, R, K, D],
-      ring_head [1, R]                                   (dense rings)
-      page_begin / page_end [1, P, S], page_payload [1, P, S, D],
-      page_table [1, R, MaxP], page_head [1, R]          (paged slab)
-    spill_begin / spill_end / spill_rec [1, B, S],
-    spill_payload [1, B, S, D]          (absent when spill is off)
+      ring_begin / ring_end [n, Rl, K], ring_payload [n, Rl, K, D],
+      ring_head [n, Rl]                                  (dense rings)
+      page_begin / page_end [n, P, S], page_payload [n, P, S, D],
+      page_table [n, Rl, MaxP], page_head [n, Rl]        (paged slab)
+    spill_begin / spill_end / spill_rec [n, B, S],
+    spill_payload [n, B, S, D]          (absent when spill is off)
 """
 from __future__ import annotations
 
@@ -54,14 +55,13 @@ def store_from_reference(arrays: Dict[str, np.ndarray], device):
     rings = pages = None
     if has_rings:
         rings = VersionRing(*(t(k) for k in RING_KEYS))
-        if rings.begin.dim() != 3 or rings.begin.shape[0] != 1:
-            raise ValueError("carried rings must be [1, R, K] (one shard)")
+        if rings.begin.dim() != 3:
+            raise ValueError("carried rings must be [n, Rl, K]")
     else:
         pages = PageSlab(*(t(k) for k in PAGE_KEYS))
-        if pages.begin.dim() != 3 or pages.page_table.dim() != 3 \
-                or pages.page_table.shape[0] != 1:
-            raise ValueError("carried pages must be [1, P, S] with a "
-                             "[1, R, MaxP] page table (one shard)")
+        if pages.begin.dim() != 3 or pages.page_table.dim() != 3:
+            raise ValueError("carried pages must be [n, P, S] with an "
+                             "[n, Rl, MaxP] page table")
     spill = (SpillPool(*(t(k) for k in SPILL_KEYS))
              if SPILL_KEYS[0] in arrays else None)
     base = t("base")

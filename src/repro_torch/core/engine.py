@@ -16,9 +16,13 @@ functions on tensors, and work is enqueued on the current CUDA stream
 without host syncs except the wavefront's per-wave exit test and the
 diagnostic stats surfaces.
 
-Not ported yet (each raises ``NotImplementedError``): ``mesh=``,
-``n_shards > 1`` and a lifecycle ``auditor`` (ROADMAP.md, queue 1). An
-enabled ``PhaseTracer`` times the phases (``repro_torch.obs``).
+``n_shards > 1`` partitions the store into logical shards on the one
+device (global record ``r`` at shard ``r % n``, local ``r // n``), as
+the reference's no-mesh substrate does.
+
+Not ported yet (each raises ``NotImplementedError``): ``mesh=`` and a
+lifecycle ``auditor`` (ROADMAP.md, queue 1). An enabled ``PhaseTracer``
+times the phases (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ class SnapshotHandle:
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"BohmEngine({what}) is not ported yet: repro_torch runs the "
-        "single-device, single-shard engine (ROADMAP.md, queue 1)")
+        "single-device engine with logical shards (ROADMAP.md, queue 1)")
 
 
 class BohmEngine:
@@ -71,29 +75,29 @@ class BohmEngine:
                  tracer: Optional[PhaseTracer] = None,
                  auditor=None, device: DeviceLike = None):
         """Arguments as in ``repro.core.engine.BohmEngine`` (the options
-        of the unported paths — ``mesh``, ``n_shards > 1``, an
-        ``auditor`` — raise), plus ``device``: default the GPU, which
+        of the unported paths — ``mesh``, an ``auditor`` — raise), plus
+        ``device``: default the GPU, which
         raises when there is none; pass ``device="cpu"`` for the plain
         PyTorch path.
 
-        ``spill_slots`` > 0 (default 8) attaches a spill pool of
-        ``spill_buckets`` (default: one bucket per 4 records) x
-        ``spill_slots`` slots. ``adaptive_k=True`` allocates rings at
-        ``k_max`` physical slots (default 2x ``ring_slots``), caps every
-        record at ``ring_slots`` effective slots, and lets ``gc_sweep``
-        move capacity between records within the budget R x
-        ``ring_slots``. ``paged=True`` swaps the dense rings for the page
-        slab: ``pages_per_shard`` pages (default ``ceil(ring_slots /
-        page_slots)`` per record) of ``page_slots`` slots, reads through
-        the ``mvcc_resolve_paged`` kernel; adaptive paged stores need
+        ``n_shards`` (default 1) logical shards each hold ``ceil(R /
+        n_shards)`` records. ``spill_slots`` > 0 (default 8) attaches a
+        spill pool per shard of ``spill_buckets`` (default: one bucket per
+        4 records of a shard) x ``spill_slots`` slots.
+        ``adaptive_k=True`` allocates rings at ``k_max`` physical slots
+        (default 2x ``ring_slots``), caps every record at ``ring_slots``
+        effective slots, and lets ``gc_sweep`` move capacity between
+        records within the budget R x ``ring_slots``. ``paged=True``
+        swaps the dense rings for the page slab: ``pages_per_shard``
+        pages (default ``ceil(ring_slots / page_slots)`` per record of a
+        shard) of ``page_slots`` slots, reads through the
+        ``mvcc_resolve_paged`` kernel; adaptive paged stores need
         ``ring_slots`` and ``k_max`` to be page multiples.
         ``pressure_decay`` (sweeps) applies an EWMA half-life to the
         policy's pressure input; ``k_quantum`` overrides the policy
         quantum (default ``page_slots`` when paged, else 1)."""
         if mesh is not None:
             raise _unported("mesh=")
-        if n_shards is not None and int(n_shards) != 1:
-            raise _unported("n_shards > 1")
         if auditor is not None:
             raise _unported("auditor=")
         if num_records > (1 << 20):
@@ -125,20 +129,24 @@ class BohmEngine:
                     "k_max to be multiples of the quantum (page_slots)")
         self.pressure_decay = (float(pressure_decay)
                                if pressure_decay is not None else None)
-        self.n_shards = 1
+        self.n_shards = int(n_shards) if n_shards is not None else 1
+        if self.n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        records_local = -(-num_records // self.n_shards)
         self.pages_per_shard = 0
         if self.paged:
             # default: every record can physically reach its initial
             # k_eff — ceil(ring_slots / S) pages each
             self.pages_per_shard = int(
                 pages_per_shard if pages_per_shard is not None
-                else num_records * -(-ring_slots // self.page_slots))
+                else records_local * -(-ring_slots // self.page_slots))
         self.spill_slots = int(spill_slots)
         self.spill_buckets = int(spill_buckets if spill_buckets is not None
-                                 else max(1, num_records // 4)
+                                 else max(1, records_local // 4)
                                  ) if self.spill_slots > 0 else 0
         self.store = init_store(num_records, workload.payload_words,
                                 ring_slots=self.k_max,
+                                n_shards=self.n_shards,
                                 spill_buckets=self.spill_buckets,
                                 spill_slots=self.spill_slots,
                                 k_init=ring_slots, paged=self.paged,
@@ -233,7 +241,8 @@ class BohmEngine:
             torch.as_tensor(base).to(self.device),
             None if base_ts is None
             else torch.as_tensor(base_ts).to(self.device),
-            self.k_max, spill_buckets=self.spill_buckets,
+            self.k_max, n_shards=self.n_shards,
+            spill_buckets=self.spill_buckets,
             spill_slots=self.spill_slots, k_init=self.ring_slots,
             paged=self.paged, page_slots=self.page_slots or 4,
             pages_per_shard=self.pages_per_shard or None)

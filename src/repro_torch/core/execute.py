@@ -36,13 +36,13 @@ class Store:
 
 
 def init_store(num_records: int, payload_words: int, init_value: int = 0,
-               ring_slots: int = 4, spill_buckets: int = 0,
+               ring_slots: int = 4, n_shards: int = 1, spill_buckets: int = 0,
                spill_slots: int = 0, k_init: Optional[int] = None,
                paged: bool = False, page_slots: int = 4,
                pages_per_shard: Optional[int] = None, device=None) -> Store:
     base = torch.full((num_records, payload_words), init_value,
                       dtype=torch.int32, device=device)
-    return store_from_base(base, None, ring_slots, spill_buckets,
+    return store_from_base(base, None, ring_slots, n_shards, spill_buckets,
                            spill_slots, k_init=k_init, paged=paged,
                            page_slots=page_slots,
                            pages_per_shard=pages_per_shard)
@@ -50,9 +50,10 @@ def init_store(num_records: int, payload_words: int, init_value: int = 0,
 
 def store_from_base(base: torch.Tensor,
                     base_ts: Optional[torch.Tensor] = None,
-                    ring_slots: int = 4, spill_buckets: int = 0,
-                    spill_slots: int = 0, k_init: Optional[int] = None,
-                    paged: bool = False, page_slots: int = 4,
+                    ring_slots: int = 4, n_shards: int = 1,
+                    spill_buckets: int = 0, spill_slots: int = 0,
+                    k_init: Optional[int] = None, paged: bool = False,
+                    page_slots: int = 4,
                     pages_per_shard: Optional[int] = None) -> Store:
     """Store whose initial state (head + ring slot 0, or each record's
     initial page) is ``base``; the version-store options are those of
@@ -64,7 +65,8 @@ def store_from_base(base: torch.Tensor,
                                                   dtype=torch.int32))
     return Store(base=base, base_ts=base_ts, ts_counter=i32(1, dev),
                  versions=init_sharded_store(
-                     base, base_ts, ring_slots, spill_buckets=spill_buckets,
+                     base, base_ts, ring_slots, n_shards,
+                     spill_buckets=spill_buckets,
                      spill_slots=spill_slots, k_init=k_init, paged=paged,
                      page_slots=page_slots,
                      pages_per_shard=pages_per_shard))

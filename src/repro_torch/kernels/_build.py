@@ -3,9 +3,13 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<hash>/lib<name>.so``
 at the repository root (listed in ``.gitignore``), keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused. Nothing is built at import time: ``load`` builds on first
-use.
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source rebuilds and an unchanged one is reused. Nothing is built at
+import time: ``load`` builds on first use.
+
+``LAUNCHES`` counts the launches of every kernel since the last
+``reset_launches()``; each wrapper adds one where it launches its kernel
+and nowhere else.
 """
 from __future__ import annotations
 
@@ -17,12 +21,24 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: launches of each CUDA kernel since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {
+    "mvcc_resolve": 0, "mvcc_resolve_masked": 0, "mvcc_resolve_paged": 0,
+    "decode_attention": 0, "flash_attention_causal": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def nvcc() -> str:
@@ -40,6 +56,7 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_ROOT / f"{name}-{key[:16]}" / f"lib{name}.so"
 
@@ -70,3 +87,20 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
     return lib
+
+
+def call(name: str, fn_name: str, argtypes, args, device) -> None:
+    """Call ``fn_name`` of ``csrc/<name>.cu``'s library with ``args`` then
+    the current stream of ``device``: declares the C signature
+    (``argtypes``, the stream pointer appended) on first use and raises
+    when the function reports a launch error (a nonzero cudaError_t)."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed "
+                           f"(cudaError {err})")

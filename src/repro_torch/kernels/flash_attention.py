@@ -1,0 +1,86 @@
+"""Causal grouped-query flash attention (prefill): the CUDA kernel and its
+plain PyTorch version.
+
+The port of ``repro.kernels.flash_attention`` (the Pallas kernel
+``flash_attention_causal``):
+
+    q    [B, S, KvH, G, Dh]   f32 or bf16 (query head h = kvh * G + g)
+    k, v [B, S, KvH, Dh]      q's dtype
+    out  [B, S, KvH, G, Dh]   q's dtype
+
+query position i attends to keys 0..i. Computed as the Pallas kernel
+computes it: q upcast to float32 and scaled by ``Dh^-0.5``, a float32
+online softmax over key blocks, blocks strictly above the diagonal
+skipped, the triangular mask on the diagonal, ``m_safe`` and the output
+``acc / max(l, 1e-30)`` in q's dtype. Unlike the Pallas wrapper, which
+asserts ``S % block == 0``, both versions take any S.
+
+The wrapper takes the plain version only for CPU tensors. For CUDA
+tensors it launches the kernel (``csrc/flash_attention.cu``, built on
+first use by ``_build``) or raises; each launch adds one to
+``LAUNCHES["flash_attention_causal"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels.decode_attention import (_SUFFIX,
+                                                  check_attention_inputs,
+                                                  check_kernel_limits,
+                                                  online_softmax_step)
+
+
+def flash_attention_causal_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, block_q: int = 256,
+                                 block_k: int = 256) -> torch.Tensor:
+    """The Pallas kernel's arithmetic in PyTorch, q block by q block and
+    key block by key block (the CPU path and the kernel's oracle)."""
+    b, s, kvh, g, dh = q.shape
+    qf = q.float() * dh ** -0.5
+    kf, vf = k.float(), v.float()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, block_q):
+        q1 = min(s, q0 + block_q)
+        qb = qf[:, q0:q1]
+        q_pos = torch.arange(q0, q1, device=q.device)
+        m = torch.full((b, q1 - q0, kvh, g), -torch.inf, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, q1 - q0, kvh, g, dh), device=q.device)
+        for k0 in range(0, q1, block_k):          # causal block skip
+            k1 = min(s, k0 + block_k)
+            sc = torch.einsum("bqhgd,bkhd->bqhgk", qb, kf[:, k0:k1])
+            k_pos = torch.arange(k0, k1, device=q.device)
+            mask = (k_pos[None, :] <= q_pos[:, None])[None, :, None, None]
+            m, l, acc = online_softmax_step(sc, mask, vf[:, k0:k1], m, l,
+                                            acc, "bqhgk,bkhd->bqhgd")
+        out[:, q0:q1] = acc / l.clamp(min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention over one sequence per batch row (see the
+    module doc)."""
+    check_attention_inputs("flash_attention_causal", q, k, v, 5)
+    b, s, kvh, g, dh = q.shape
+    if tuple(k.shape) != (b, s, kvh, dh):
+        raise ValueError(f"flash_attention_causal: q {tuple(q.shape)} does "
+                         f"not match k {tuple(k.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_causal_plain(q, k, v)
+    check_kernel_limits("flash_attention_causal", (q, k, v), g, dh)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.call("flash_attention",
+                f"flash_attention_causal_{_SUFFIX[q.dtype]}",
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_float],
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, kvh, g, dh, dh ** -0.5], q.device)
+    LAUNCHES["flash_attention_causal"] += 1
+    return out

@@ -36,24 +36,21 @@ use by ``_build``) or raise; each launch adds one to ``LAUNCHES[name]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import LAUNCHES, reset_launches
 
 NEG_INF = -2 ** 31
 
-#: launches of each CUDA kernel since the last ``reset_launches()``
-LAUNCHES: Dict[str, int] = {"mvcc_resolve": 0, "mvcc_resolve_masked": 0,
-                            "mvcc_resolve_paged": 0}
-
 _SUFFIX = {torch.int32: "i32", torch.float32: "f32"}
 
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+__all__ = ["LAUNCHES", "reset_launches", "mvcc_resolve",
+           "mvcc_resolve_masked", "mvcc_resolve_paged",
+           "mvcc_resolve_plain", "mvcc_resolve_masked_plain",
+           "mvcc_resolve_paged_plain"]
 
 
 # ---------------------------------------------------------------------------
@@ -144,19 +141,11 @@ def _launch(name: str, inputs, data: torch.Tensor, B: int, dims
     found = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return vals, found
-    fn = getattr(_build.load("mvcc_resolve"),
-                 f"{name}_{_SUFFIX[data.dtype]}")
-    if fn.argtypes is None:         # first use: declare the C signature
-        fn.argtypes = ([ctypes.c_void_p] * (len(inputs) + 2)
-                       + [ctypes.c_longlong] + [ctypes.c_int] * len(dims)
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(x.data_ptr() for x in inputs), vals.data_ptr(),
-                 found.data_ptr(), B, *dims, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+    _build.call("mvcc_resolve", f"{name}_{_SUFFIX[data.dtype]}",
+                [ctypes.c_void_p] * (len(inputs) + 2) + [ctypes.c_longlong]
+                + [ctypes.c_int] * len(dims),
+                [*(x.data_ptr() for x in inputs), vals.data_ptr(),
+                 found.data_ptr(), B, *dims], dev)
     LAUNCHES[name] += 1
     return vals, found
 

@@ -1,18 +1,20 @@
 """repro_torch.obs — the telemetry plane (port, first slice).
 
 ``MetricsRegistry`` is ported in full. ``PhaseTracer`` keeps the
-reference's span interface: disabled (the default) its spans are no-ops
-with zero host syncs; enabled it records each span's synchronised wall
-time (``span_durations``) and, with ``annotate=True``, opens a
+reference's span and instant interface: disabled (the default) its spans
+and instants are no-ops with zero host syncs; enabled it records each
+span's synchronised wall time (``span_durations``), each instant's name,
+host time and fields (``instants``) and, with ``annotate=True``, opens a
 ``torch.profiler.record_function`` range per span. ``NULL_AUDIT`` is the
-inert lifecycle auditor. The tracer's event ring, anomaly detector and
+inert lifecycle auditor; ``scheduler_health`` is the serving plane's
+host-only gauge dict. The tracer's event ring, anomaly detector and
 Chrome-trace export, the flight recorder, the lifecycle auditor and the
 health monitor are later slices (ROADMAP.md, queue 1 slice E).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -88,6 +90,7 @@ class PhaseTracer:
         self.enabled = enabled
         self.annotate = annotate
         self._durations: Dict[str, List[float]] = {}
+        self._instants: List[Tuple[str, float, Dict]] = []
 
     def span(self, name: str, **fields):
         """Context manager for one phase span; the disabled tracer returns
@@ -96,12 +99,23 @@ class PhaseTracer:
             return NULL_SPAN
         return _Span(self, name)
 
+    def instant(self, name: str, **fields) -> None:
+        """A point event (admission, GC and planning decisions): recorded
+        with its host time and fields when enabled, nothing otherwise."""
+        if self.enabled:
+            self._instants.append((name, time.perf_counter(), fields))
+
     def span_durations(self) -> Dict[str, List[float]]:
         """Per-name wall durations (seconds) of the closed spans."""
         return {k: list(v) for k, v in self._durations.items()}
 
+    def instants(self) -> List[Tuple[str, float, Dict]]:
+        """The recorded instants as (name, host seconds, fields)."""
+        return list(self._instants)
+
     def clear(self) -> None:
         self._durations.clear()
+        self._instants.clear()
 
 
 class _NullAudit:
@@ -118,5 +132,32 @@ class _NullAudit:
 
 NULL_AUDIT = _NullAudit()
 
+
+def scheduler_health(sched) -> Dict[str, object]:
+    """Serving-plane gauges for a ``repro_torch.serving.BohmScheduler``
+    (duck-typed): slot and page occupancy, queue depth, the Condition-3
+    pending-free backlog and the prefix-cache footprint, plus the
+    cumulative serving counters. Host-only state — never synchronises."""
+    pending = sum(len(p) for _, p in sched.pending_free)
+    return {
+        "active_slots": sched.num_active,
+        "slots": sched.slots,
+        "slot_fill": round(sched.num_active / max(sched.slots, 1), 6),
+        "queue_depth": len(sched.queue),
+        "free_pages": len(sched.free_pages),
+        "pages_total": sched.num_pages,
+        "page_fill": round(
+            1.0 - len(sched.free_pages) / max(sched.num_pages, 1), 6),
+        "pending_free_pages": pending,
+        "cached_pages": len(sched.cached_pages),
+        "prefix_cache_entries": len(sched.prefix_cache),
+        "ts_counter": sched.ts_counter,
+        "admitted": sched.stats["admitted"],
+        "completed": sched.stats["completed"],
+        "prefix_hits": sched.stats["prefix_hits"],
+        "pages_recycled": sched.stats["pages_recycled"],
+    }
+
+
 __all__ = ["MetricsRegistry", "MetricsView", "NULL_AUDIT", "NULL_SPAN",
-           "PhaseTracer"]
+           "PhaseTracer", "scheduler_health"]

@@ -1,22 +1,35 @@
-"""Record-partitioned version store, ``n_shards == 1`` subset.
+"""Record-partitioned version store: logical shards on one device.
 
-The port of ``repro.store.sharded``. The store keeps the reference's
-stacked layout — a primary level of dense rings [n, Rl, K] OR a paged
-slab [n, P, S] + page table [n, Rl, MaxP] (``repro_torch.store.pages``),
-spill pools [n, B, S], ``k_eff`` [n, Rl] — with a leading shard axis of
-size 1, so state carries across from a reference engine unchanged
-(``repro_torch.core.carry``). With one shard every path short-circuits
-to the single-primary code, exactly as the reference's ``n_shards == 1``
-fast path does.
+The port of ``repro.store.sharded``. Global record ``r`` is owned by
+shard ``r % n`` at local index ``r // n``; the store keeps the
+reference's stacked layout — a primary level of dense rings [n, Rl, K]
+OR a paged slab [n, P, S] + page table [n, Rl, MaxP]
+(``repro_torch.store.pages``), spill pools [n, B, S], ``k_eff``
+[n, Rl] — with ``Rl = ceil(R / n)`` (records past ``R`` are
+hash-padding: empty rings, no pages, never read or written), so state
+carries across from a reference engine unchanged
+(``repro_torch.core.carry``).
 
-Snapshot reads are two-level: the primary goes through ``mvcc_resolve``
-(dense: pre-gathered ring windows) or ``mvcc_resolve_paged`` (paged: the
-reads' page-table rows, the slab read in place), then the record's spill
-bucket goes through ``mvcc_resolve_masked``; at most one level holds the
-visible version, so combining is a select.
+The reference's no-mesh substrate ``vmap``s the per-shard commit over
+the shard axis; here it is a loop over shards whose results are stacked
+(the per-shard arithmetic is the same, so the state is byte-equal).
+At ``n_shards == 1`` ``commit_sharded`` and ``resolve_sharded`` keep
+the reference's fast path, for two reasons. The loop would stack a copy
+of the whole store every batch, where the fast path adds a shard axis
+to a view. And the reference clamps a negative record id to 0 only on
+that path (the loop's ownership test wraps it to the last record), which
+the parity tests hold the port to.
 
-Not ported yet (each raises ``NotImplementedError``): ``n_shards > 1``
-logical shards and the ``mesh=`` substrate (ROADMAP.md, queue 1).
+Snapshot reads are two-level per shard: the primary goes through
+``mvcc_resolve`` (dense: pre-gathered ring windows) or
+``mvcc_resolve_paged`` (paged: the reads' page-table rows, the slab read
+in place), then the record's spill bucket goes through
+``mvcc_resolve_masked``; at most one level holds the visible version, so
+combining is a select. Each read has one owning shard; the shards'
+results merge by ownership (foreign shards contribute zeros).
+
+Not ported yet (raises ``NotImplementedError``): the ``mesh=`` substrate
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -26,10 +39,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.store.pages import (PageSlab, commit_paged,
-                                     gather_windows_paged, gc_pages,
-                                     init_page_slab, paged_occupancy,
-                                     slab_fill_fraction)
+from repro_torch.store.pages import (PageSlab, commit_paged, gc_pages,
+                                     init_page_slab, mask_gathered_windows,
+                                     paged_occupancy, slab_fill_fraction)
 from repro_torch.store.ring import (INF_TS, VersionRing, commit_versions,
                                     gather_windows, gc_ring, i32,
                                     ring_occupancy)
@@ -37,14 +49,16 @@ from repro_torch.store.spill import (SpillPool, gc_spill, init_spill_pool,
                                      spill_buckets_for, spill_commit,
                                      spill_fill_fraction, spill_occupancy)
 
+PAD_KEY = 0xFFFFFFFF      # the plan's pad key (repro_torch.core.plan)
+
 _EVICT_KEYS = ("evict_rec", "evict_begin", "evict_end", "evict_payload",
                "evict_valid")
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: repro_torch runs one shard "
-        "(ROADMAP.md, queue 1)")
+        f"{what} is not ported yet: repro_torch runs logical shards on "
+        "one device (ROADMAP.md, queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +121,20 @@ def _with_primary(store: ShardedVersionStore, prim) -> ShardedVersionStore:
 def _ring0(store: ShardedVersionStore):
     """The squeezed single primary (ring or slab) of an n_shards == 1
     store."""
-    return _map(lambda x: x[0], _primary(store))
+    return _take_shard(store, 0)
+
+
+def _take_shard(store: ShardedVersionStore, s: int):
+    """Shard ``s``'s primary (ring or slab), the shard axis dropped."""
+    return _map(lambda x: x[s], _primary(store))
+
+
+def _stack(parts):
+    """Stack per-shard dataclasses (rings, slabs, pools) along a new
+    leading shard axis."""
+    first = parts[0]
+    return type(first)(*(torch.stack([getattr(p, f.name) for p in parts])
+                         for f in dataclasses.fields(first)))
 
 
 def _take_spill(store: ShardedVersionStore, s: int) -> Optional[SpillPool]:
@@ -132,49 +159,66 @@ def init_sharded_store(base: torch.Tensor,
     ``paged=True`` replaces the dense [R, K] ring with a page slab of
     ``pages_per_shard`` pages of ``page_slots`` slots and page tables of
     ``ceil(num_slots / page_slots)`` entries; every record starts with
-    exactly its initial page."""
-    if int(n_shards) != 1:
-        raise _unported("n_shards > 1")
+    exactly its initial page. Global record ``r`` lands at
+    ``[r % n_shards, r // n_shards]``."""
     R, D = base.shape
     dev = base.device
     if base_ts is None:
         base_ts = torch.zeros((R,), dtype=torch.int32, device=dev)
-    base_ts = base_ts.to(torch.int32)
+    n = int(n_shards)
+    if n < 1:
+        raise ValueError("n_shards must be >= 1")
+    Rl = -(-R // n)
+    pad = Rl * n - R
+    basep = torch.cat([base, base.new_zeros((pad, D))])
+    tsp = torch.cat([base_ts.to(torch.int32),
+                     torch.zeros((pad,), dtype=torch.int32, device=dev)])
+    base_sh = basep.reshape(Rl, n, D).movedim(0, 1)          # [n, Rl, D]
+    ts_sh = tsp.reshape(Rl, n).T                             # [n, Rl]
+    real = global_record_ids(n, Rl, dev) < R                 # [n, Rl]
     rings = pages = None
     if paged:
         max_pages = -(-int(num_slots) // int(page_slots))
         if pages_per_shard is None:
             # per-record ceiling, NOT the pooled slot budget: every record
             # needs ceil(k / S) whole pages to physically reach its k_eff
-            pages_per_shard = R * -(-int(k_init or num_slots)
-                                    // int(page_slots))
-        real = torch.ones((R,), dtype=torch.bool, device=dev)
-        pages = _map(lambda x: x[None],
-                     init_page_slab(base, base_ts, real, pages_per_shard,
-                                    page_slots, max_pages))
+            pages_per_shard = Rl * -(-int(k_init or num_slots)
+                                     // int(page_slots))
+        pages = _stack([init_page_slab(base_sh[s], ts_sh[s], real[s],
+                                       pages_per_shard, page_slots,
+                                       max_pages) for s in range(n)])
     else:
-        begin = torch.full((1, R, num_slots), INF_TS, dtype=torch.int32,
+        begin = torch.full((n, Rl, num_slots), INF_TS, dtype=torch.int32,
                            device=dev)
-        begin[0, :, 0] = base_ts
-        end = torch.full((1, R, num_slots), INF_TS, dtype=torch.int32,
+        begin[:, :, 0] = torch.where(real, ts_sh, INF_TS)
+        end = torch.full((n, Rl, num_slots), INF_TS, dtype=torch.int32,
                          device=dev)
-        payload = torch.zeros((1, R, num_slots, D), dtype=base.dtype,
+        payload = torch.zeros((n, Rl, num_slots, D), dtype=base.dtype,
                               device=dev)
-        payload[0, :, 0, :] = base
-        head = torch.full((1, R), 1 % num_slots, dtype=torch.int32,
+        payload[:, :, 0, :] = torch.where(real[..., None], base_sh, 0)
+        head = torch.full((n, Rl), 1 % num_slots, dtype=torch.int32,
                           device=dev)
         rings = VersionRing(begin=begin, end=end, payload=payload,
                             head=head)
     spill = None
     if int(spill_buckets) > 0 and int(spill_slots) > 0:
-        spill = _map(lambda x: x[None],
-                     init_spill_pool(spill_buckets, spill_slots, D,
-                                     base.dtype, dev))
+        pool = init_spill_pool(spill_buckets, spill_slots, D, base.dtype,
+                               dev)
+        spill = _map(lambda x: x[None].repeat((n,) + (1,) * x.dim()), pool)
     k0 = num_slots if k_init is None else min(int(k_init), num_slots)
     return ShardedVersionStore(
         rings=rings, spill=spill,
-        k_eff=torch.full((1, R), k0, dtype=torch.int32, device=dev),
+        k_eff=torch.full((n, Rl), k0, dtype=torch.int32, device=dev),
         num_records=R, pages=pages)
+
+
+def global_record_ids(n_shards: int, records_per_shard: int,
+                      device=None) -> torch.Tensor:
+    """[n, Rl] global record id at each sharded position."""
+    local = torch.arange(records_per_shard, dtype=torch.int32,
+                         device=device)[None, :]
+    shard = torch.arange(n_shards, dtype=torch.int32, device=device)[:, None]
+    return local * n_shards + shard
 
 
 def unshard(store: ShardedVersionStore) -> VersionRing:
@@ -211,7 +255,8 @@ def _occupancy(store: ShardedVersionStore) -> torch.Tensor:
     """[n, Rl] live version count per record."""
     if store.rings is not None:
         return ring_occupancy(store.rings)
-    return paged_occupancy(_ring0(store))[None]
+    return torch.stack([paged_occupancy(_take_shard(store, s))
+                        for s in range(store.n_shards)])
 
 
 def store_occupancy(store: ShardedVersionStore) -> torch.Tensor:
@@ -231,22 +276,38 @@ def store_health(store: ShardedVersionStore) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {
         "k_eff_slots": store.k_eff.sum(-1, dtype=torch.int32),
         "live_versions": _occupancy(store).sum(-1, dtype=torch.int32)}
+    shards = range(store.n_shards)
     if store.pages is not None:
         mapped = (store.pages.page_table >= 0).sum((1, 2),
                                                    dtype=torch.int32)
         out["pages_mapped"] = mapped
         out["pages_free"] = store.pages.num_pages - mapped
-        out["slab_fill"] = slab_fill_fraction(_ring0(store))[None]
+        out["slab_fill"] = torch.stack([
+            slab_fill_fraction(_take_shard(store, s)) for s in shards])
     if store.spill is not None:
-        pool = _take_spill(store, 0)
-        out["spill_occupancy"] = spill_occupancy(pool)[None]
-        out["spill_fill"] = spill_fill_fraction(pool)[None]
+        pools = [_take_spill(store, s) for s in shards]
+        out["spill_occupancy"] = torch.stack([spill_occupancy(p)
+                                              for p in pools])
+        out["spill_fill"] = torch.stack([spill_fill_fraction(p)
+                                         for p in pools])
     return out
 
 
 # ---------------------------------------------------------------------------
-# Commit: ring maintenance (GC + insert) then the spill tier.
+# Commit: per-shard ring maintenance (GC + insert) then the spill tier.
 # ---------------------------------------------------------------------------
+def _mask_to_shard(n: int, shard: int, w_rec, w_key, w_valid):
+    """Project global placeholder arrays onto one shard: foreign records
+    become pads (key 0xFFFFFFFF sorts last, valid=False drops the write),
+    owned records map to their shard-local index. rec -> rec // n is
+    monotone over the records a shard owns, so the key order holds."""
+    owned = w_valid & ((w_rec % n) == shard)
+    rec_l = torch.where(owned, torch.div(w_rec, n, rounding_mode="floor"),
+                        INF_TS).to(w_rec.dtype)
+    key_l = torch.where(owned, w_key, PAD_KEY)
+    return rec_l, key_l, owned
+
+
 def _commit_one_shard(ring_s, spill_s: Optional[SpillPool],
                       k_eff_s: torch.Tensor, rec_l, key_l, owned,
                       w_begin_ts, w_end_ts, w_data, watermark, ts_window,
@@ -282,20 +343,67 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
                    pin_ts: Optional[torch.Tensor] = None
                    ) -> Tuple[ShardedVersionStore, Dict[str, torch.Tensor]]:
     """Commit ALL batch versions into the primary (and live evictees
-    into the spill pool). ``ring_overwrote_rec`` /
-    ``ring_overwrote_dead_rec`` keep the per-shard [n, Rl] layout, as in
-    the reference; a paged store adds the allocator's counters."""
+    into the spill pool). Each shard commits only the records it owns;
+    the metrics aggregate to the single-primary contract, except
+    ``ring_overwrote_rec`` / ``ring_overwrote_dead_rec``, which keep the
+    per-shard [n, Rl] layout as in the reference; a paged store adds the
+    allocator's counters."""
     if mesh is not None:
         raise _unported("the mesh= substrate")
-    ring, spill0, metrics = _commit_one_shard(
-        _ring0(store), _take_spill(store, 0), store.k_eff[0], w_rec, w_key,
-        w_valid, w_begin_ts, w_end_ts, w_data, watermark, ts_window, pin_ts)
+    n = store.n_shards
+    if n == 1:
+        ring, spill0, metrics = _commit_one_shard(
+            _ring0(store), _take_spill(store, 0), store.k_eff[0], w_rec,
+            w_key, w_valid, w_begin_ts, w_end_ts, w_data, watermark,
+            ts_window, pin_ts)
+        for k in ("ring_overwrote_rec", "ring_overwrote_dead_rec"):
+            metrics[k] = metrics[k][None]
+        new_spill = None if spill0 is None else _map(lambda x: x[None],
+                                                     spill0)
+        return dataclasses.replace(
+            _with_primary(store, _map(lambda x: x[None], ring)),
+            spill=new_spill), metrics
+
+    prims, spills, per = [], [], []
+    for s in range(n):
+        rec_l, key_l, owned = _mask_to_shard(n, s, w_rec, w_key, w_valid)
+        prim_s, spill_s, m = _commit_one_shard(
+            _take_shard(store, s), _take_spill(store, s), store.k_eff[s],
+            rec_l, key_l, owned, w_begin_ts, w_end_ts, w_data, watermark,
+            ts_window, pin_ts)
+        prims.append(prim_s)
+        spills.append(spill_s)
+        per.append(m)
+
+    def total(key):
+        return torch.stack([m[key] for m in per]).sum(dtype=torch.int32)
+
+    metrics = {k: total(k) for k in ("ring_evicted",
+                                     "ring_overflow_dropped",
+                                     "ring_overwrote_live",
+                                     "ring_overwrote_dead")}
     for k in ("ring_overwrote_rec", "ring_overwrote_dead_rec"):
-        metrics[k] = metrics[k][None]
-    new_spill = None if spill0 is None else _map(lambda x: x[None], spill0)
-    return dataclasses.replace(
-        _with_primary(store, _map(lambda x: x[None], ring)),
-        spill=new_spill), metrics
+        metrics[k] = torch.stack([m[k] for m in per])          # [n, Rl]
+    metrics["ring_occ_max"] = torch.stack(
+        [m["ring_occ_max"] for m in per]).max()
+    # per-shard means weight hash-padding records with 0 occupancy;
+    # renormalise to the real record count
+    metrics["ring_occ_mean"] = torch.stack(
+        [m["ring_occ_mean"] for m in per]).sum() \
+        * store.records_per_shard / store.num_records
+    if store.paged:
+        for k in ("paged_alloc_failed", "paged_pages_allocated",
+                  "paged_pages_free"):
+            metrics[k] = total(k)
+    new_spill = None
+    if store.spill is not None:
+        for k in ("spill_freed", "spill_admitted", "spill_dropped",
+                  "spill_overwrote", "spill_overwrote_pinned",
+                  "spill_occupancy"):
+            metrics[k] = total(k)
+        new_spill = _stack(spills)
+    return dataclasses.replace(_with_primary(store, _stack(prims)),
+                               spill=new_spill), metrics
 
 
 def gc_sharded(store: ShardedVersionStore, watermark
@@ -306,8 +414,10 @@ def gc_sharded(store: ShardedVersionStore, watermark
     if store.rings is not None:
         prim, evicted = gc_ring(store.rings, watermark)
     else:
-        slab, evicted = gc_pages(_ring0(store), watermark, store.k_eff[0])
-        prim = _map(lambda x: x[None], slab)
+        swept = [gc_pages(_take_shard(store, s), watermark, store.k_eff[s])
+                 for s in range(store.n_shards)]
+        prim = _stack([slab for slab, _ in swept])
+        evicted = torch.stack([e for _, e in swept]).sum(dtype=torch.int32)
     spill = store.spill
     if spill is not None:
         spill, freed = gc_spill(spill, watermark)
@@ -328,10 +438,19 @@ def gather_windows_sharded(store: ShardedVersionStore,
     a paged store they are materialised through the page table (K =
     MaxP * S, unmapped pages give empty slots) — a diagnostic path; reads
     go through ``mvcc_resolve_paged``."""
-    prim = _ring0(store)
-    if isinstance(prim, PageSlab):
-        return gather_windows_paged(prim, records)
-    return gather_windows(prim, records)
+    n = store.n_shards
+    rec = records.to(torch.int32).clamp(min=0).long()
+    shard = rec % n
+    loc = torch.div(rec, n, rounding_mode="floor")
+    if store.paged:
+        p = store.pages
+        pt = p.page_table[shard, loc]                          # [B, MaxP]
+        safe = pt.clamp(min=0).long()
+        sh = shard[:, None]
+        return mask_gathered_windows(pt, p.begin[sh, safe], p.end[sh, safe],
+                                     p.payload[sh, safe])
+    r = store.rings
+    return r.begin[shard, loc], r.end[shard, loc], r.payload[shard, loc]
 
 
 def _resolve_two_level(prim_s, spill_s: Optional[SpillPool],
@@ -363,10 +482,27 @@ def resolve_sharded(store: ShardedVersionStore, records: torch.Tensor,
                     ts: torch.Tensor, mesh=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve ``records`` [B] at snapshot timestamps ``ts`` [B] through
-    the kernels, primary level then spill. Returns (vals [B, D], found
-    [B])."""
+    the kernels, primary level then spill, once per shard; results merge
+    by ownership. Returns (vals [B, D], found [B])."""
     if mesh is not None:
         raise _unported("the mesh= substrate")
-    local = records.to(torch.int32).clamp(min=0).contiguous()
-    return _resolve_two_level(_ring0(store), _take_spill(store, 0), local,
-                              ts.to(torch.int32).contiguous())
+    n = store.n_shards
+    records = records.to(torch.int32)
+    ts = ts.to(torch.int32).contiguous()
+    if n == 1:
+        return _resolve_two_level(_ring0(store), _take_spill(store, 0),
+                                  records.clamp(min=0).contiguous(), ts)
+    vals = found = None
+    for s in range(n):
+        owned = (records % n) == s
+        local = torch.where(owned, torch.div(records, n,
+                                             rounding_mode="floor"), 0)
+        v_s, f_s = _resolve_two_level(_take_shard(store, s),
+                                      _take_spill(store, s),
+                                      local.contiguous(), ts)
+        v_s = torch.where(owned[:, None], v_s, 0)
+        f_s = owned & f_s
+        # each read has exactly one owner: the sum is a select
+        vals = v_s if vals is None else vals + v_s
+        found = f_s if found is None else found | f_s
+    return vals, found

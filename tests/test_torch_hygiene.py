@@ -59,6 +59,20 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     assert BohmEngine(16, make_ycsb(), device="cpu").device.type == "cpu"
 
 
+def test_serve_engine_raises_without_gpu(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = reduced_config("smollm-360m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params, device="cuda")
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
 def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
     """A tensor that is not on the CPU takes the kernel path or raises;
     it never reaches the plain version."""
@@ -81,14 +95,53 @@ def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
         mod.mvcc_resolve_paged(z, z, z, d, t)
 
 
+def test_attention_non_cpu_tensor_never_reaches_plain(monkeypatch):
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+
+    def boom(*args, **kw):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(dmod, "decode_attention_plain", boom)
+    monkeypatch.setattr(fmod, "flash_attention_causal_plain", boom)
+    q = torch.zeros((2, 1, 3, 8), device="meta")
+    k = torch.zeros((2, 5, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        dmod.decode_attention(q, k, k, torch.zeros(
+            (2,), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        fmod.flash_attention_causal(torch.zeros((1, 5, 1, 3, 8),
+                                                device="meta"),
+                                    k[:1], k[:1])
+
+
 @pytest.mark.parametrize("kwargs", [dict(n_shards=2),
-                                    dict(paged=True, n_shards=4),
-                                    dict(adaptive_k=True, mesh=object()),
+                                    dict(paged=True, n_shards=4)])
+def test_logical_shard_options_run(kwargs):
+    """``n_shards > 1`` (logical shards on one device), dense and paged,
+    builds and runs a batch on the CPU."""
+    from repro_torch.core.engine import BohmEngine
+    from repro_torch.core.txn import make_batch
+    from repro_torch.core.workloads import make_ycsb
+    eng = BohmEngine(16, make_ycsb(payload_words=2, ops=2), device="cpu",
+                     **kwargs)
+    assert eng.n_shards == kwargs["n_shards"]
+    batch = make_batch([[1, 2], [2, 3]], [[1, 2], [2, 3]], [0, 0],
+                       [[5], [7]], device="cpu")
+    vals, _ = eng.run_batch(batch)
+    assert tuple(vals.shape) == (2, 2, 2)
+    got, found = eng.snapshot_read(torch.arange(16, dtype=torch.int32))
+    assert bool(found.all())
+    assert torch.equal(got, eng.snapshot())
+
+
+@pytest.mark.parametrize("kwargs", [dict(adaptive_k=True, mesh=object()),
                                     dict(mesh=object()),
+                                    dict(n_shards=2, mesh=object()),
                                     dict(auditor=object())])
 def test_unported_options_raise(kwargs):
-    """Unported options raise, also beside the ported paged and
-    adaptive-K options."""
+    """Unported options raise, also beside the ported paged, adaptive-K
+    and logical-shard options."""
     from repro_torch.core.engine import BohmEngine
     from repro_torch.core.workloads import make_ycsb
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -3,10 +3,13 @@
 Skips with a reason where ``torch.cuda.is_available()`` is False; runs on
 a machine with an NVIDIA GPU (``python -m pytest -q -m cuda
 tests/test_torch_kernels_cuda.py``). It imports no JAX: the machine with
-the card has none. Results must be exact (int32 exactly; float32 with
-rtol=0, since one slot — or an integer-valued tie-sum — is selected per
-read). Each CUDA call must launch its kernel exactly once and never reach
-the plain version.
+the card has none. The resolve kernels must be exact (int32 exactly;
+float32 with rtol=0, since one slot — or an integer-valued tie-sum — is
+selected per read). The attention kernels sum in another order than
+their plain versions: float32 to 1e-5, bfloat16 to 2e-2 (decode) and
+3e-2 (prefill), one bf16 rounding of outputs of order 1, as the Pallas
+tests. Each CUDA call must launch its kernel exactly once and never
+reach the plain version.
 """
 import numpy as np
 import pytest
@@ -185,3 +188,140 @@ def test_resolve_paged_rejects_non_contiguous_and_mixed_devices(cuda):
         mod.mvcc_resolve_paged(rows, *g[1:])
     with pytest.raises(ValueError, match="one device"):
         mod.mvcc_resolve_paged(*g[:4], ts)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention / flash_attention_causal
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import decode_attention as dmod  # noqa: E402
+from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+
+# (b, kvh, g, dh, t): tests/test_kernels.py's sweep, the serving shapes
+# (8 slots and 1 prefix hit over MaxP * page = 1024) and odd ones
+DECODE_SHAPES = [(1, 1, 1, 64, 64), (3, 2, 4, 64, 257), (2, 5, 3, 128, 1024),
+                 (4, 8, 1, 128, 96), (8, 5, 3, 64, 1024), (1, 5, 3, 64, 1024),
+                 (5, 3, 7, 40, 1000), (2, 2, 32, 128, 33)]
+# (b, s, kvh, g, dh): tests/test_kernels.py's sweep, the serving prefill
+# shapes and ragged lengths
+FLASH_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 2, 3, 64), (1, 512, 4, 2, 128),
+                (2, 128, 2, 1, 64), (1, 128, 5, 3, 64), (1, 384, 5, 3, 64),
+                (1, 512, 5, 3, 64), (1, 300, 5, 3, 64), (2, 77, 2, 4, 32),
+                (1, 1, 3, 32, 128)]
+ATT_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def attn_cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    plain = {"decode": dmod.decode_attention_plain,
+             "flash": fmod.flash_attention_causal_plain}
+
+    def cpu_only(fn):
+        def run(*args, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in args):
+                raise AssertionError("a CUDA call reached the plain version")
+            return fn(*args, **kw)
+        return run
+
+    monkeypatch.setattr(dmod, "decode_attention_plain",
+                        cpu_only(plain["decode"]))
+    monkeypatch.setattr(fmod, "flash_attention_causal_plain",
+                        cpu_only(plain["flash"]))
+    return plain
+
+
+def _randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype)
+
+
+def _attn_check(name, fn, expect, gpu_args, tol):
+    before = mod.LAUNCHES[name]
+    out = fn(*gpu_args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[name] == before + 1
+    assert out.is_cuda and out.dtype == expect.dtype
+    assert out.shape == expect.shape
+    torch.testing.assert_close(out.cpu().float(), expect.float(), rtol=tol,
+                               atol=tol)
+    return out
+
+
+@pytest.mark.parametrize("b,kvh,g,dh,t", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_decode_attention_kernel_matches_plain(attn_cuda, b, kvh, g, dh, t,
+                                               dtype):
+    rng = np.random.default_rng(b * 37 + t)
+    q = _randn(rng, (b, kvh, g, dh), dtype)
+    k = _randn(rng, (b, t, kvh, dh), dtype)
+    v = _randn(rng, (b, t, kvh, dh), dtype)
+    kl = torch.from_numpy(rng.integers(1, t + 1, b).astype(np.int32))
+    expect = attn_cuda["decode"](q, k, v, kl)
+    _attn_check("decode_attention", dmod.decode_attention, expect,
+                [x.cuda() for x in (q, k, v, kl)],
+                1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_decode_attention_kernel_edges(attn_cuda, dtype):
+    """Poisoned tail, kv_len = 0 rows (zeros), a scalar kv_len and
+    kv_len beyond T (clamped, as the Pallas grid ends at T)."""
+    rng = np.random.default_rng(5)
+    b, kvh, g, dh, t = 4, 2, 3, 64, 130
+    q = _randn(rng, (b, kvh, g, dh), dtype).cuda()
+    k = _randn(rng, (b, t, kvh, dh), dtype).cuda()
+    v = _randn(rng, (b, t, kvh, dh), dtype).cuda()
+    kl = torch.tensor([40, 0, 129, 0], dtype=torch.int32, device="cuda")
+    o1 = dmod.decode_attention(q, k, v, kl)
+    assert torch.isfinite(o1.float()).all()
+    assert (o1[1] == 0).all() and (o1[3] == 0).all()
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate((40, 0, 129, 0)):
+        k2[i, n:] = 1e9
+        v2[i, n:] = -1e9
+    assert torch.equal(dmod.decode_attention(q, k2, v2, kl), o1)
+    expect = attn_cuda["decode"](q.cpu(), k.cpu(), v.cpu(), kl.cpu())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o1.cpu().float(), expect.float(), rtol=tol,
+                               atol=tol)
+    scalar = dmod.decode_attention(q, k, v, 77)
+    assert torch.equal(scalar, dmod.decode_attention(
+        q, k, v, torch.full((b,), 77, dtype=torch.int32, device="cuda")))
+    beyond = dmod.decode_attention(q, k, v, t + 50)
+    assert torch.equal(beyond, dmod.decode_attention(q, k, v, t))
+
+
+@pytest.mark.parametrize("b,s,kvh,g,dh", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_flash_attention_kernel_matches_plain(attn_cuda, b, s, kvh, g, dh,
+                                              dtype):
+    rng = np.random.default_rng(s + b)
+    q = _randn(rng, (b, s, kvh, g, dh), dtype)
+    k = _randn(rng, (b, s, kvh, dh), dtype)
+    v = _randn(rng, (b, s, kvh, dh), dtype)
+    expect = attn_cuda["flash"](q, k, v)
+    _attn_check("flash_attention_causal", fmod.flash_attention_causal,
+                expect, [x.cuda() for x in (q, k, v)],
+                1e-5 if dtype == torch.float32 else 3e-2)
+
+
+def test_attention_kernels_reject_bad_inputs(attn_cuda):
+    q = torch.zeros((2, 5, 3, 64), device="cuda")
+    k = torch.zeros((2, 8, 5, 64), device="cuda")
+    kl = torch.ones((2,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        dmod.decode_attention(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), k, kl)
+    with pytest.raises(ValueError, match="G <= 32"):
+        dmod.decode_attention(torch.zeros((2, 1, 33, 64), device="cuda"),
+                              torch.zeros((2, 8, 1, 64), device="cuda"),
+                              torch.zeros((2, 8, 1, 64), device="cuda"), kl)
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        fmod.flash_attention_causal(
+            torch.zeros((1, 4, 1, 1, 256), device="cuda"),
+            torch.zeros((1, 4, 1, 256), device="cuda"),
+            torch.zeros((1, 4, 1, 256), device="cuda"))
+    with pytest.raises(ValueError, match="one device"):
+        dmod.decode_attention(q, k.cpu(), k, kl)
