@@ -17,10 +17,13 @@ the JAX package. Phases, each of which must pass:
    attention kernel (``decode_attention``, ``flash_attention_causal``)
    agrees with its plain version in float32 (1e-5) and bfloat16 (2e-2
    decode, 3e-2 prefill) at the reference tests' shapes, the serving
-   path's shapes and an odd shape, ignores a poisoned cache tail, and is
-   timed beside its plain version, its bound and one
+   path's shapes and odd shapes, gives the same bits on a second call,
+   ignores a poisoned cache tail (decode), and is timed beside its plain
+   version, its bound and one
    ``scaled_dot_product_attention(enable_gqa=True)`` call (the
-   yardstick; the port never calls it);
+   yardstick; the port never calls it); each case logs the kernel it
+   launched (flash: ``wgmma`` for bf16 with Dh % 16 == 0, else
+   ``cuda_cores``; decode: ``split_cluster``);
 4. main path: ``build(YCSB_HIGH_10RMW, device="cuda")`` — 1,000,000
    records, 8-word payloads, batches of 1024 zipfian (theta=0.9) 10-RMW
    transactions, spill tier on. Batch 1 must equal the serial oracle;
@@ -60,12 +63,16 @@ the JAX package. Phases, each of which must pass:
    done with 32 generated, the pinned view must be unchanged after the
    second wave, ``prefix_hits >= 1``, ``pages_recycled > 0``, and
    ``decode_attention``, ``flash_attention_causal``, ``mvcc_resolve``
-   and ``mvcc_resolve_masked`` must all have launched. Prints prefill
+   and ``mvcc_resolve_masked`` must all have launched: flash through its
+   tensor-core kernel once a layer for every prefill and never through
+   the CUDA-core one, decode once a layer for every decode step and
+   prefix hit. Prints prefill
    ms per prompt, decode-step ms, generated tokens/s, the state-store
    batch's ms per step and peak memory;
 8. serving replay: the same engine at full width with depth cut to 4
    layers, float32 weights and KV, 4 requests of 64-128 tokens and 8 new
-   tokens, on the card and on the CPU (plain versions): equal tokens,
+   tokens, on the card and on the CPU (plain versions); on the card
+   every prefill takes flash's CUDA-core (float32) kernel: equal tokens,
    last logits within 1e-3 of their largest magnitude, byte-equal
    lookups and state-store arrays.
 
@@ -546,7 +553,8 @@ FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
                ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
                ((1, 128, 5, 3, 64), "serving"),
                ((1, 384, 5, 3, 64), "serving"),
-               ((1, 512, 5, 3, 64), "serving"), ((1, 300, 5, 3, 64), "odd")]
+               ((1, 512, 5, 3, 64), "serving"), ((1, 300, 5, 3, 64), "odd"),
+               ((2, 77, 2, 4, 40), "odd")]
 # the kernels line carries each kernel at its busiest serving shape, bf16
 ROW_CASE = {"decode_attention": (8, 5, 3, 64, 1024),
             "flash_attention_causal": (1, 512, 5, 3, 64)}
@@ -601,6 +609,19 @@ def _attention_case(name, shape, label, dtype, device="cuda"):
     return [q, k, v], nbytes, flops, sdpa
 
 
+def _variant(name, before):
+    """The kernel one call of ``name`` launched, from the launch counts
+    before it: flash's route (``wgmma`` / ``cuda_cores``), decode's one
+    kernel (``split_cluster``)."""
+    moved = {k for k, n in ops.LAUNCHES.items() if n != before[k]}
+    if name == "decode_attention":
+        assert moved == {name}, moved
+        return "split_cluster"
+    routes = [k.split("/")[1] for k in moved if k.startswith(name + "/")]
+    assert name in moved and len(routes) == 1, moved
+    return routes[0]
+
+
 def attention_phase(device="cuda"):
     """Each attention kernel against its plain version on the same card
     inputs at every case and dtype, timed beside the plain version, its
@@ -615,7 +636,12 @@ def attention_phase(device="cuda"):
         for dtype in (torch.float32, torch.bfloat16):
             args, nbytes, flops, sdpa = _attention_case(name, shape, label,
                                                         dtype, device)
+            before = dict(ops.LAUNCHES)
             out = kernel(*args)
+            variant = _variant(name, before)
+            if not torch.equal(kernel(*args), out):
+                raise AssertionError(f"{name} {shape} {dtype}: two calls on "
+                                     "the same inputs differ")
             ref = plain(*args)
             err = (out.float() - ref.float()).abs().max().item()
             tol = ATT_TOL[(name, dtype)]
@@ -641,8 +667,9 @@ def attention_phase(device="cuda"):
             t_ops = flops / PEAK[dtype]
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            log(f"kernel {name} {label} {list(shape)} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3g} (tol {tol}); device: kernel "
+            log(f"kernel {name} {label} {list(shape)} {str(dtype)[6:]} "
+                f"[{variant}]: max_abs_err {err:.3g} (tol {tol}), repeat "
+                f"bit-equal; device: kernel "
                 f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, sdpa "
                 f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
                 f"({bound_by}: {nbytes} B, {flops} flop), "
@@ -656,6 +683,7 @@ def attention_phase(device="cuda"):
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms,
                     "shape": list(shape), "dtype": "bfloat16",
+                    "variant": variant,
                     "bytes": nbytes, "flops": flops, "host_ms": host_ms}
     return rows
 
@@ -827,7 +855,14 @@ def serving_replay(cfg, device="cuda"):
     params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
                          device)
     params_cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    before = dict(ops.LAUNCHES)
     gpu = drive_replay(device, cfg, params)
+    routes = {r: ops.LAUNCHES[f"flash_attention_causal/{r}"]
+              - before[f"flash_attention_causal/{r}"]
+              for r in ("wgmma", "cuda_cores")}
+    if routes["wgmma"] or routes["cuda_cores"] <= 0:
+        raise AssertionError(f"float32 replay flash routes {routes}: "
+                             "expected the CUDA-core kernel only")
     cpu = drive_replay("cpu", cfg, params_cpu)
     if gpu["tokens"] != cpu["tokens"]:
         raise AssertionError(f"replay tokens differ: {gpu['tokens']} vs "
@@ -845,7 +880,20 @@ def serving_replay(cfg, device="cuda"):
     for name in gpu["state"]:
         np.testing.assert_array_equal(gpu["state"][name], cpu["state"][name],
                                       err_msg=f"replay state {name}")
-    return rel, gpu["tokens"]
+    return rel, gpu["tokens"], routes
+
+
+def ptxas_summary(nvcc_out: str):
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
+    name (namespace prefix cut), spills and registers."""
+    lines = nvcc_out.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and i + 2 < len(lines):
+            fn = line.split("Function properties for", 1)[1].strip()
+            fn = fn[fn.find("_cu_") + 13:].lstrip("0123456789") \
+                if "_cu_" in fn else fn
+            used = lines[i + 2].split(":", 1)[-1].strip()
+            yield f"{fn[:90]} | {lines[i + 1].strip()} | {used}"
 
 
 def main() -> int:
@@ -867,9 +915,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name, (path, nvcc_out) in zip(SOURCES, built):
         log(f"  {name}: {path}")
-        for line in nvcc_out.strip().splitlines():
-            if "ptxas info" in line and "Used" in line or "spill" in line:
-                log(f"    nvcc: {line.strip()}")
+        for line in ptxas_summary(nvcc_out):
+            log(f"    ptxas: {line}")
 
     rows = kernel_phase()
     t0 = time.perf_counter()
@@ -973,6 +1020,20 @@ def main() -> int:
         rows[name]["launches"] = launches[name]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sp = srv["spans_ms"]
+    # every bf16 prefill through the tensor-core flash kernel, every
+    # decode step and prefix hit through decode_attention, once a layer
+    layers = get_config(SERVE_ARCH).num_layers
+    n_prefill, n_decode = len(sp["serve/prefill"]), len(sp["serve/decode"])
+    n_hit = len(sp.get("serve/logits_at", []))
+    want = {"flash_attention_causal/wgmma": layers * n_prefill,
+            "flash_attention_causal/cuda_cores": 0,
+            "decode_attention": layers * (n_decode + n_hit)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"serving path launches {got}, expected {want}")
+    log(f"serving path: kernel variants {got} = {layers} layers x "
+        f"({n_prefill} prefills; {n_decode} decode steps + {n_hit} prefix "
+        f"hits)")
     dec, flush = sp["serve/decode"], sp["serve/state_flush"]
     wall = sum(srv["wave_s"])
     log(f"serving path: {SERVE_ARCH} full width, bf16, ServeEngine "
@@ -1000,9 +1061,10 @@ def main() -> int:
         f"view stable, logits finite")
 
     t0 = time.perf_counter()
-    rel, tokens = serving_replay(get_config(SERVE_ARCH))
+    rel, tokens, routes = serving_replay(get_config(SERVE_ARCH))
     log(f"serving replay ({REPLAY_LAYERS} of 32 layers, float32): card == "
-        f"cpu tokens {tokens}; last logits within {rel:.3g} of their "
+        f"cpu tokens {tokens}; flash routes {routes}; last logits within "
+        f"{rel:.3g} of their "
         f"largest magnitude; lookups, progress view and state-store arrays "
         f"byte-equal ({time.perf_counter() - t0:.1f} s)")
 

@@ -33,7 +33,14 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: launches of each CUDA kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {
     "mvcc_resolve": 0, "mvcc_resolve_masked": 0, "mvcc_resolve_paged": 0,
-    "decode_attention": 0, "flash_attention_causal": 0}
+    "decode_attention": 0, "flash_attention_causal": 0,
+    # which of flash_attention_causal's two kernels each launch took
+    "flash_attention_causal/wgmma": 0,
+    "flash_attention_causal/cuda_cores": 0}
+
+#: a launch function's return at or above this is a failed TMA tensor-map
+#: encoding (csrc/hopper.cuh's kEncodeError + the CUresult it returned)
+ENCODE_ERROR = 100000
 
 
 def reset_launches() -> None:
@@ -101,6 +108,9 @@ def call(name: str, fn_name: str, argtypes, args, device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{fn_name}: TMA tensor-map encoding failed "
+                           f"(CUresult {err - ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed "
                            f"(cudaError {err})")

@@ -1,8 +1,8 @@
-// Shared body of the two attention kernels (decode_attention.cu,
-// flash_attention.cu): one thread block owns a set of query rows of one
-// (batch, kv-head) pair and streams that head's keys and values through
-// shared memory in tiles of kTileT positions, carrying a float32 online
-// softmax per row, exactly as the Pallas kernels do:
+// The CUDA-core body of flash_attention.cu's float32 kernel (also bf16
+// when Dh is not a multiple of 16): one thread block owns a set of query
+// rows of one (batch, kv-head) pair and streams that head's keys and
+// values through shared memory in tiles of kTileT positions, carrying a
+// float32 online softmax per row, exactly as the Pallas kernels do:
 //
 //   q      = q * Dh^-0.5 (in float32)
 //   s      = q . k                      masked positions at -inf
@@ -18,7 +18,9 @@
 // visible key are never loaded: the tile loop stops at the block's last
 // visible key, and an index test masks the rest of the last tile and,
 // for causal rows, the diagonal. (Pallas also walks the fully masked
-// tiles; there corr = 1 and p = 0, so the result is the same.)
+// tiles; there corr = 1 and p = 0, so the result is the same.) The
+// tensor-core flash kernel and the decode kernel keep these semantics
+// with their own bodies (flash_attention.cu, decode_attention.cu).
 //
 // Work split: the block's warps take the rows round-robin (row = warp +
 // n_warps * r for r < RPW, so a warp holds RPW rows). In a tile, lane t
@@ -29,12 +31,10 @@
 // shared memory for the whole loop; K rows are padded to Dh + 1 floats so
 // that 32 lanes reading 32 keys hit 32 banks.
 //
-// What bounds it on an H100: for decode, bytes (each K/V element is used
-// by G <= 32 rows, far below the card's ~20 flops per byte of float32
-// CUDA-core rate); for prefill at the serving shapes, operations (each
-// K/V tile is reused by up to 64 rows). This first kernel computes on the
-// CUDA cores in float32, not with wgmma, and loads with plain coalesced
-// loads, not TMA: both are later work (ROADMAP.md).
+// What bounds it on an H100: operations (each K/V tile is reused by up to
+// 64 rows). It computes them on the CUDA cores in float32 with plain
+// coalesced loads, far from the card's rates; the float32 route's
+// redesign is later work (ROADMAP.md).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -16,9 +16,23 @@ skipped, the triangular mask on the diagonal, ``m_safe`` and the output
 asserts ``S % block == 0``, both versions take any S.
 
 The wrapper takes the plain version only for CPU tensors. For CUDA
-tensors it launches the kernel (``csrc/flash_attention.cu``, built on
-first use by ``_build``) or raises; each launch adds one to
-``LAUNCHES["flash_attention_causal"]``.
+tensors it launches one of two hand-written kernels of
+``csrc/flash_attention.cu`` (built on first use by ``_build``) or raises;
+``flash_route`` picks it:
+
+* ``"wgmma"`` — bf16 with Dh a multiple of 16 and 16-byte aligned
+  tensors: the tensor cores (wgmma, TMA loads into a ring of tiles, the
+  softmax in registers), P rounded to bf16 for the P.V product;
+* ``"cuda_cores"`` — float32 (TF32 would not hold its 1e-5 tolerance) and
+  bf16 with any other Dh: the float32 CUDA-core kernel of
+  ``csrc/attention.cuh``.
+
+Both replace the Pallas kernel; the choice is by dtype and shape, never a
+fallback after a failure. Each launch adds one to
+``LAUNCHES["flash_attention_causal"]`` and one to the route's own count,
+``LAUNCHES["flash_attention_causal/<route>"]``. What bounds the kernels
+on the H100 (operations, at the serving shapes) and what each design
+does about it is in the source's header note.
 """
 from __future__ import annotations
 
@@ -61,6 +75,18 @@ def flash_attention_causal_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor | None = None) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with
+    ``Dh % 16 == 0`` and 16-byte aligned tensors (TMA and the 16-byte Q
+    loads need it), else ``"cuda_cores"``."""
+    tensors = (q, k, v) if out is None else (q, k, v, out)
+    aligned = all(x.data_ptr() % 16 == 0 for x in tensors)
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0 and aligned:
+        return "wgmma"
+    return "cuda_cores"
+
+
 def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention over one sequence per batch row (see the
@@ -76,11 +102,15 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.call("flash_attention",
-                f"flash_attention_causal_{_SUFFIX[q.dtype]}",
+    route = flash_route(q, k, v, out)
+    fn_name = f"flash_attention_causal_{_SUFFIX[q.dtype]}"
+    if route == "wgmma":
+        fn_name += "_wgmma"
+    _build.call("flash_attention", fn_name,
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_float],
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, s, kvh, g, dh, dh ** -0.5], q.device)
     LAUNCHES["flash_attention_causal"] += 1
+    LAUNCHES[f"flash_attention_causal/{route}"] += 1
     return out

@@ -170,3 +170,81 @@ def test_wrappers_reject_bad_inputs():
         ops.flash_attention_causal(torch.zeros((1, 4, 2, 3, 8)), k, k)
     with pytest.raises(ValueError, match="ranks"):
         ops.flash_attention_causal(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' route choice and input checks (no card needed)
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+
+
+def _flash_args(dtype, dh, s=8, g=3):
+    return (torch.zeros((1, s, 2, g, dh), dtype=dtype),
+            torch.zeros((1, s, 2, dh), dtype=dtype),
+            torch.zeros((1, s, 2, dh), dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 40, "cuda_cores"), (torch.bfloat16, 8, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+])
+def test_flash_route_by_dtype_and_dh(dtype, dh, route):
+    """bf16 with Dh % 16 == 0 goes to the tensor cores; float32 (whose
+    1e-5 tolerance TF32 would break) and other Dh to the CUDA cores."""
+    assert fmod.flash_route(*_flash_args(dtype, dh)) == route
+
+
+def test_flash_route_needs_16_byte_alignment():
+    """TMA and the 16-byte Q loads need aligned tensors: a view that
+    starts 2 bytes into its storage takes the CUDA-core kernel."""
+    q, k, v = _flash_args(torch.bfloat16, 64)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert fmod.flash_route(shifted, k, v) == "cuda_cores"
+    assert fmod.flash_route(q, k, v, out=flat[1:].view(q.shape)) \
+        == "cuda_cores"
+    assert fmod.flash_route(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("name", ["decode_attention",
+                                  "flash_attention_causal"])
+def test_cpu_calls_launch_no_kernel(name):
+    """A CPU call takes the plain version and counts no launch, of any
+    route."""
+    if name == "decode_attention":
+        args = (torch.zeros((1, 2, 3, 64), dtype=torch.bfloat16),
+                torch.zeros((1, 5, 2, 64), dtype=torch.bfloat16),
+                torch.zeros((1, 5, 2, 64), dtype=torch.bfloat16), 3)
+    else:
+        args = _flash_args(torch.bfloat16, 64)
+    before = dict(ops.LAUNCHES)
+    out = getattr(ops, name)(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    assert ops.LAUNCHES == before
+    assert {"flash_attention_causal/wgmma",
+            "flash_attention_causal/cuda_cores"} <= set(ops.LAUNCHES)
+
+
+def test_wrappers_reject_bad_inputs_more():
+    """The checks that hold before any route is chosen: kv_len's type and
+    shape, k/v shape agreement, the batch of k against q's."""
+    q = torch.zeros((2, 2, 3, 16))
+    k = torch.zeros((2, 5, 2, 16))
+    with pytest.raises(TypeError, match="kv_len"):
+        ops.decode_attention(q, k, k, torch.ones(2))
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.decode_attention(q, k, k, torch.ones((2, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="!="):
+        ops.decode_attention(q, k, torch.zeros((2, 6, 2, 16)), 1)
+    with pytest.raises(ValueError, match="match"):
+        ops.decode_attention(q, torch.zeros((3, 5, 2, 16)),
+                             torch.zeros((3, 5, 2, 16)), 1)
+    qf, kf, _ = _flash_args(torch.float32, 16)
+    with pytest.raises(ValueError, match="match"):
+        ops.flash_attention_causal(qf, torch.zeros((2, 8, 2, 16)),
+                                   torch.zeros((2, 8, 2, 16)))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention_causal(qf.half(), kf.half(), kf.half())

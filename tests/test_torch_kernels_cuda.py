@@ -325,3 +325,98 @@ def test_attention_kernels_reject_bad_inputs(attn_cuda):
             torch.zeros((1, 4, 1, 256), device="cuda"))
     with pytest.raises(ValueError, match="one device"):
         dmod.decode_attention(q, k.cpu(), k, kl)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper designs: flash's tensor-core route, decode's split over a
+# cluster
+# ---------------------------------------------------------------------------
+def _flash_inputs(seed, b, s, kvh, g, dh, dtype):
+    rng = np.random.default_rng(seed)
+    return [_randn(rng, shape, dtype) for shape in
+            ((b, s, kvh, g, dh), (b, s, kvh, dh), (b, s, kvh, dh))]
+
+
+@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("g", [1, 2, 3, 32])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_wgmma_route_matches_plain(attn_cuda, dh, g, s):
+    """bf16 with Dh % 16 == 0 takes the tensor-core kernel: three panel
+    widths (Dh 32 and 64 in one 64-column panel, 128 in two), G from 1 to
+    32 rows a position, ragged S."""
+    args = _flash_inputs(dh + g + s, 1, s, 2, g, dh, torch.bfloat16)
+    assert fmod.flash_route(*args) == "wgmma"
+    expect = attn_cuda["flash"](*args)
+    before = mod.LAUNCHES["flash_attention_causal/wgmma"]
+    _attn_check("flash_attention_causal", fmod.flash_attention_causal,
+                expect, [x.cuda() for x in args], 3e-2)
+    assert mod.LAUNCHES["flash_attention_causal/wgmma"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,dh,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 40, "cuda_cores"), (torch.float32, 64, "cuda_cores")])
+def test_flash_variant_counters(attn_cuda, dtype, dh, route):
+    """Each launch counts once in total and once for the route it took."""
+    args = [x.cuda() for x in _flash_inputs(1, 1, 130, 2, 3, dh, dtype)]
+    assert fmod.flash_route(*args) == route
+    before = dict(mod.LAUNCHES)
+    fmod.flash_attention_causal(*args)
+    torch.cuda.synchronize()
+    moved = {k: mod.LAUNCHES[k] - before[k] for k in before
+             if mod.LAUNCHES[k] != before[k]}
+    assert moved == {"flash_attention_causal": 1,
+                     f"flash_attention_causal/{route}": 1}
+
+
+def _decode_chunk(t):
+    """Keys a block of decode's 8-block cluster takes (decode_attention.cu:
+    roundup(ceil(T / 8), 32))."""
+    per_block = -(-t // 8)
+    return -(-per_block // 32) * 32
+
+
+@pytest.mark.parametrize("t", [300, 1024])
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_decode_split_chunk_edges(attn_cuda, t, dtype):
+    """kv_len at the edges of the split: 0, 1, C - 1, C, C + 1 and T, one
+    sequence each, with the tail past kv_len poisoned."""
+    c = _decode_chunk(t)
+    lens = [0, 1, c - 1, c, c + 1, t]
+    rng = np.random.default_rng(t)
+    b, kvh, g, dh = len(lens), 2, 3, 64
+    q = _randn(rng, (b, kvh, g, dh), dtype)
+    k = _randn(rng, (b, t, kvh, dh), dtype)
+    v = _randn(rng, (b, t, kvh, dh), dtype)
+    kl = torch.tensor(lens, dtype=torch.int32)
+    expect = attn_cuda["decode"](q, k, v, kl)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    out = _attn_check("decode_attention", dmod.decode_attention, expect,
+                      [x.cuda() for x in (q, k, v, kl)], tol)
+    assert (out[0] == 0).all()
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        k2[i, n:] = 1e9
+        v2[i, n:] = -1e9
+    poisoned = dmod.decode_attention(*(x.cuda() for x in (q, k2, v2, kl)))
+    assert torch.equal(poisoned, out)
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+@pytest.mark.parametrize("which", ["decode", "flash"])
+def test_attention_kernels_repeat_bit_equal(attn_cuda, which, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    if which == "decode":
+        rng = np.random.default_rng(9)
+        args = [_randn(rng, (8, 5, 3, 64), dtype),
+                _randn(rng, (8, 1024, 5, 64), dtype),
+                _randn(rng, (8, 1024, 5, 64), dtype),
+                torch.from_numpy(rng.integers(129, 545, 8).astype(np.int32))]
+        fn = dmod.decode_attention
+    else:
+        args = _flash_inputs(9, 1, 512, 5, 3, 64, dtype)
+        fn = fmod.flash_attention_causal
+    args = [x.cuda() for x in args]
+    first = fn(*args)
+    for _ in range(3):
+        assert torch.equal(fn(*args), first)
