@@ -9,11 +9,18 @@ the JAX package. Phases, each of which must pass:
 2. build: the CUDA sources ``src/repro_torch/kernels/csrc/*.cu`` are
    compiled into ``build/repro_torch/`` (one nvcc each, all started
    together);
-3. kernels: each resolve kernel (``mvcc_resolve``,
-   ``mvcc_resolve_masked``, ``mvcc_resolve_paged``) equals its plain
-   PyTorch version on the card at its path's shapes and at an odd
-   float32 shape, and is timed against it with CUDA events (device time
-   per call, median of 21 rounds of 20 back-to-back calls); each
+3. kernels: each resolve kernel equals its plain PyTorch version bit
+   for bit on the card at its path's shapes and at an odd float32
+   shape, and is timed against it and its bound with CUDA events
+   (device time per call, median of 21 rounds of 20 back-to-back
+   calls): ``mvcc_resolve`` and ``mvcc_resolve_masked`` in both forms —
+   pre-gathered windows, and in place over a consistent store shaped
+   like the dense path's (a 1,000,000 x 4 ring, a 250,000 x 8 spill
+   pool, 8-word payloads, 10,240 zipfian theta=0.9 row ids), the masked
+   one with and without the ring's result as its prior — beside the old
+   read path's call site (gathers + two windows launches + select) and
+   the new one (two in-place launches), which must agree;
+   ``mvcc_resolve_paged`` at the paged path's slab; each
    attention kernel (``decode_attention``, ``flash_attention_causal``)
    agrees with its plain version in float32 (1e-5) and bfloat16 (2e-2
    decode, 3e-2 prefill) at the reference tests' shapes, the serving
@@ -30,8 +37,8 @@ the JAX package. Phases, each of which must pass:
    a snapshot is pinned after batch 3 and, after 6 more batches, 1024
    read-only scans x 10 reads at the pin must return the pinned state
    wherever they find a version; then snapshot_read, gc_sweep,
-   release_snapshot, gc_sweep. Both kernels' launch counters must have
-   moved during this phase. An enabled ``PhaseTracer`` times each phase
+   release_snapshot, gc_sweep. Both kernels must have launched during
+   this phase, in their in-place forms only. An enabled ``PhaseTracer`` times each phase
    between two device synchronisations;
 5. CPU replay: the same seeded stream through ``device="cpu"`` (the
    plain versions) must give byte-equal reads, found flags, head store,
@@ -44,7 +51,8 @@ the JAX package. Phases, each of which must pass:
    read-only batch at the oldest pin, ``snapshot_read`` of records
    0-4095 at every pin, release, two sweeps. Found reads must equal the
    head store cloned at their pin; ``mvcc_resolve_paged`` and
-   ``mvcc_resolve_masked`` must have launched and the policy must have
+   ``mvcc_resolve_masked`` (in place only) must have launched and the
+   policy must have
    granted slots. The dense twin (``adaptive_k=True, k_max=16,
    k_quantum=2``) must give byte-equal reads, capacities, pinned reads,
    overflow histogram and spill arrays while no page allocation failed
@@ -63,7 +71,8 @@ the JAX package. Phases, each of which must pass:
    done with 32 generated, the pinned view must be unchanged after the
    second wave, ``prefix_hits >= 1``, ``pages_recycled > 0``, and
    ``decode_attention``, ``flash_attention_causal``, ``mvcc_resolve``
-   and ``mvcc_resolve_masked`` must all have launched: flash through its
+   and ``mvcc_resolve_masked`` must all have launched (the last two in
+   their in-place forms only): flash through its
    tensor-core kernel once a layer for every prefill and never through
    the CUDA-core one, decode once a layer for every decode step and
    prefix hit. Prints prefill
@@ -77,11 +86,15 @@ the JAX package. Phases, each of which must pass:
    lookups and state-store arrays.
 
 The line before the last is a JSON object with every kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+error and times (rows 1-2 in the in-place form the read path launches,
+the windows form's and the two call sites' times beside them), then the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -149,26 +162,52 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # kernels vs plain versions
 # ---------------------------------------------------------------------------
-def _windows(seed, b, k, d, dtype, masked):
-    """Consistent version windows (sorted begins, end = next begin) on the
-    card; masked windows get owner ids with free (-1) slots."""
+def _dense_store(seed, R, K, NB, S, D, dtype):
+    """A consistent ring [R, K] and spill pool [NB, S] on the card, shaped
+    like the dense path's store: each ring row holds 1..K live versions
+    with increasing begins from 100 on, each ending where the next
+    begins (the newest open), in slots rotated by a random head (empty
+    slots INF / INF); each pool bucket holds, in half its slots, a
+    version of a record that hashes there (rec % NB == bucket) in [90 +
+    6 s, 96 + 6 s) — disjoint per slot — and free slots (rec -1, INF)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    begin = torch.randint(0, 100, (b, k), generator=g, device="cuda",
-                          dtype=torch.int32).sort(dim=1).values
-    end = torch.cat([begin[:, 1:], torch.full((b, 1), 2 ** 31 - 1,
-                                              dtype=torch.int32,
-                                              device="cuda")], 1)
-    data = torch.randint(-1000, 1000, (b, k, d), generator=g,
-                         device="cuda").to(dtype)
-    ts = torch.randint(0, 120, (b,), generator=g, device="cuda",
+    kw = dict(generator=g, device="cuda")
+    inf = 2 ** 31 - 1
+    k = torch.arange(K, device="cuda")
+    live = torch.randint(1, K + 1, (R, 1), **kw)
+    b = 100 + torch.randint(0, 30, (R, 1), **kw) \
+        + torch.randint(1, 20, (R, K), **kw).cumsum(1)
+    e = torch.cat([b[:, 1:], torch.full_like(b[:, :1], inf)], 1)
+    e = torch.where(k + 1 < live, e, inf)
+    slot = (torch.randint(0, K, (R, 1), **kw) + k) % K
+    empty = torch.full((R, K), inf, dtype=torch.int64, device="cuda")
+    begin = empty.scatter(1, slot, torch.where(k < live, b, inf))
+    end = empty.scatter(1, slot, torch.where(k < live, e, inf))
+    payload = torch.randint(-1000, 1000, (R, K, D), **kw).to(dtype)
+    s = torch.arange(S, device="cuda")
+    rec = torch.arange(NB, device="cuda")[:, None] \
+        + NB * torch.randint(0, max(R // NB, 1), (NB, S), **kw)
+    free = torch.rand((NB, S), **kw) < 0.5
+    pb = 90 + 6 * s + torch.randint(0, 3, (NB, S), **kw)
+    pe = pb + torch.randint(1, 4, (NB, S), **kw)
+    pool = [torch.where(free, inf, pb), torch.where(free, inf, pe),
+            torch.where(free, -1, rec)]
+    pp = torch.randint(-1000, 1000, (NB, S, D), **kw).to(dtype)
+    ring = [x.to(torch.int32).contiguous() for x in (begin, end)]
+    pool = [x.to(torch.int32).contiguous() for x in pool]
+    return ring + [payload], pool + [pp]
+
+
+def _dense_reads(seed, R, B):
+    """B zipfian (theta=0.9) row ids, drawn as the dense path's read-only
+    batch draws them, and ts in [90, 400): most reads find a ring version,
+    some only a spilled one."""
+    scan = gen_scan_batch(np.random.default_rng(seed), B // OPS, R, ops=OPS,
+                          theta=YCSB_HIGH_10RMW.theta, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ts = torch.randint(90, 400, (B,), generator=g, device="cuda",
                        dtype=torch.int32)
-    if not masked:
-        return [begin.contiguous(), end.contiguous(), data, ts]
-    rec = torch.randint(-1, 3, (b, k), generator=g, device="cuda",
-                        dtype=torch.int32)
-    want = torch.randint(0, 3, (b,), generator=g, device="cuda",
-                         dtype=torch.int32)
-    return [begin.contiguous(), end.contiguous(), rec, want, data, ts]
+    return scan.read_set.reshape(-1).clamp(min=0).contiguous(), ts
 
 
 def resolve_need(args, masked: bool):
@@ -194,6 +233,70 @@ def resolve_need(args, masked: bool):
     words = B * K * (3 if masked else 2) + B * (2 if masked else 1) \
         + n_sel * D + B * D
     return 4 * words + B, B * K * (4 if masked else 3) + n_sel * D
+
+
+def rows_need(begin, end, data, ts, rows):
+    """Bytes and operations of the rows form: per read its row id and ts,
+    the begin/end of each DISTINCT row in range (hot zipfian rows repeat,
+    and L2 serves the repeats), the payload of each distinct selected
+    slot, then vals and found."""
+    B, (R, K), D = ts.numel(), begin.shape, data.shape[2]
+    inside = (rows >= 0) & (rows < R)
+    n_rows = int(torch.unique(rows[inside]).numel())
+    safe = torch.where(inside, rows, 0).long()
+    t = ts[:, None]
+    vis = (begin[safe] <= t) & (t < end[safe]) & inside[:, None]
+    best = torch.where(vis, begin[safe], kmod.NEG_INF).max(dim=1).values
+    sel = vis & (begin[safe] == best[:, None])
+    slots = safe[:, None] * K + torch.arange(K, device=rows.device)
+    n_sel = int(torch.unique(slots[sel]).numel())
+    words = 2 * B + 2 * K * n_rows + n_sel * D + B * D
+    return 4 * words + B, 3 * K * int(inside.sum()) + int(sel.sum()) * D
+
+
+def pool_need(begin, end, rec, want, data, ts, prior=None):
+    """Bytes and operations of the pool (buckets) form: each read the
+    prior did not find needs its want and ts, the begin/end/rec of each
+    DISTINCT bucket such reads hit and the payload of each distinct
+    selected slot; each read the prior found needs its prior found byte
+    and D copied words; then vals and found."""
+    B, (NB, S), D = ts.numel(), begin.shape, data.shape[2]
+    scan = torch.ones_like(want, dtype=torch.bool) if prior is None \
+        else ~prior[1]
+    n_scan = int(scan.sum())
+    bkt = (want.clamp(min=0) % NB).long()
+    n_bkt = int(torch.unique(bkt[scan]).numel())
+    t = ts[:, None]
+    b = begin[bkt]
+    vis = (b <= t) & (t < end[bkt]) & (rec[bkt] == want[:, None]) \
+        & scan[:, None]
+    best = torch.where(vis, b, kmod.NEG_INF).max(dim=1).values
+    sel = vis & (b == best[:, None])
+    slots = bkt[:, None] * S + torch.arange(S, device=want.device)
+    n_sel = int(torch.unique(slots[sel]).numel())
+    words = 2 * n_scan + 3 * S * n_bkt + n_sel * D + (B - n_scan) * D \
+        + B * D
+    nbytes = 4 * words + B + (0 if prior is None else B)
+    return nbytes, 4 * S * n_scan + int(sel.sum()) * D
+
+
+def old_call_site(rb, re, rp, pb, pe, prec, pp, rows, ts):
+    """The read path before the in-place forms (PR 14's
+    ``_resolve_two_level``, dense): gather the ring windows and the spill
+    buckets, two windows-form launches, then the select."""
+    r = rows.clamp(min=0).long()
+    vals, found = kmod.mvcc_resolve(rb[r], re[r], rp[r], ts)
+    bkt = (rows.clamp(min=0) % pb.shape[0]).long()
+    s_vals, s_found = kmod.mvcc_resolve_masked(pb[bkt], pe[bkt], prec[bkt],
+                                               rows, pp[bkt], ts)
+    return torch.where(found[:, None], vals, s_vals), found | s_found
+
+
+def new_call_site(rb, re, rp, pb, pe, prec, pp, rows, ts):
+    """The read path's two in-place launches (``_resolve_two_level``)."""
+    prior = kmod.mvcc_resolve(rb, re, rp, ts, rows=rows)
+    return kmod.mvcc_resolve_masked(pb, pe, prec, rows, pp, ts,
+                                    in_place=True, prior=prior)
 
 
 def _paged_args(seed, P, S, max_pages, b, d, dtype):
@@ -278,56 +381,152 @@ def _host_ms(fn, args, reps=200):
     return dt
 
 
-def _kernel_cases():
-    """(name, shape, dtype, inputs, (bytes, operations)) of each kernel at
-    its path's shape (int32), then at an odd float32 shape."""
-    B0 = N_SCANS * OPS
-    for name, masked, K in (("mvcc_resolve", False, 4),
-                            ("mvcc_resolve_masked", True, 8)):
-        for B, k, D, dtype in ((B0, K, 8, torch.int32),
-                               (1000, 5, 33, torch.float32)):
-            args = _windows(B + k, B, k, D, dtype, masked)
-            yield name, [B, k, D], dtype, args, resolve_need(args, masked)
-    # paged: [P, S, MaxP, B, D] — the paged path's slab, then an odd one
+# rows 1-2 at the dense path's store (R, K, NB, S, D, B) and at an odd
+# float32 shape
+RESOLVE_SHAPES = {"path": (1_000_000, 4, 250_000, 8, 8, N_SCANS * OPS,
+                           torch.int32),
+                  "odd": (5003, 5, 1201, 5, 33, 1000, torch.float32)}
+
+
+def _resolve_cases(label):
+    """Rows 1-2 in both forms on one store and read batch: (name, form,
+    inputs, keyword arguments, (bytes, operations)), then the call-site
+    inputs. The windows forms get the windows the old read path gathered
+    for these reads."""
+    R, K, NB, S, D, B, dtype = RESOLVE_SHAPES[label]
+    ring, pool = _dense_store(R + B, R, K, NB, S, D, dtype)
+    rows, ts = _dense_reads(R + B, R, B)
+    r, bkt = rows.long(), (rows % NB).long()
+    win = [x[r] for x in ring] + [ts]
+    win_m = [x[bkt] for x in pool[:3]] + [rows, pool[3][bkt], ts]
+    in_ring, in_pool = ring + [ts], pool[:3] + [rows, pool[3], ts]
+    prior = kmod.mvcc_resolve(*in_ring, rows=rows)
+    cases = [
+        ("mvcc_resolve", "windows", win, {}, resolve_need(win, False)),
+        ("mvcc_resolve", "rows", in_ring, dict(rows=rows),
+         rows_need(*in_ring, rows)),
+        ("mvcc_resolve_masked", "windows", win_m, {},
+         resolve_need(win_m, True)),
+        ("mvcc_resolve_masked", "rows", in_pool, dict(in_place=True),
+         pool_need(*in_pool)),
+        ("mvcc_resolve_masked", "rows+prior", in_pool,
+         dict(in_place=True, prior=prior), pool_need(*in_pool, prior))]
+    return cases, ring + pool + [rows, ts]
+
+
+def _paged_cases():
+    """Row 3: [P, S, MaxP, B, D] — the paged path's slab, then an odd
+    one."""
     for P, S, max_pages, B, D, dtype in (
-            (PAGED["pages_per_shard"], 2, 8, B0, 8, torch.int32),
+            (PAGED["pages_per_shard"], 2, 8, N_SCANS * OPS, 8, torch.int32),
             (4099, 3, 5, 1000, 33, torch.float32)):
         args = _paged_args(P + B, P, S, max_pages, B, D, dtype)
-        yield ("mvcc_resolve_paged", [P, S, max_pages, B, D], dtype, args,
+        yield ("mvcc_resolve_paged", "path" if dtype == torch.int32
+               else "odd", [P, S, max_pages, B, D], dtype, args,
                paged_need(args))
 
 
+def _time_against_plain(name, what, kernel, plain, args):
+    """``kernel`` against ``plain`` on the same card inputs (bit for bit),
+    then both timed; returns (max_abs_err, ms, plain_ms, host_ms)."""
+    vals, found = kernel(*args)
+    p_vals, p_found = plain(*args)
+    torch.cuda.synchronize()
+    err = (vals.double() - p_vals.double()).abs().max().item()
+    if err != 0 or not torch.equal(found, p_found):
+        raise AssertionError(f"{name} {what}: kernel != plain (max_abs_err "
+                             f"{err})")
+    return (err, _device_ms(kernel, args), _device_ms(plain, args),
+            _host_ms(kernel, args))
+
+
+def _row(name, err, ms, plain_ms, nbytes, ops, shape, host_ms):
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "shape": shape,
+            "bytes": nbytes, "host_ms": host_ms}
+
+
 def kernel_phase():
-    """Each kernel against its plain version on the same card inputs."""
+    """Each resolve kernel against its plain version on the same card
+    inputs, timed beside it and its bound: rows 1-2 in both forms and
+    the two call sites, row 3. Returns the kernels line's rows: rows 1-2
+    in the form the read path launches (row 2 with its prior), with the
+    windows form's numbers beside them."""
     rows = {}
-    for name, shape, dtype, args, (nbytes, ops) in _kernel_cases():
+    for label in RESOLVE_SHAPES:
+        cases, site = _resolve_cases(label)
+        dtype = str(RESOLVE_SHAPES[label][-1])[6:]
+        timed = {}
+        for name, form, args, kw, (nbytes, ops) in cases:
+            kernel = functools.partial(getattr(kmod, name), **kw)
+            plain = functools.partial(getattr(kmod, name + "_plain"), **kw)
+            err, ms, plain_ms, host_ms = _time_against_plain(
+                name, f"{form} {label}", kernel, plain, args)
+            data = next(x for x in args if x.dim() == 3)
+            shape = [*args[0].shape, data.shape[2],
+                     args[-1].numel()]
+            timed[name, form] = _row(name, err, ms, plain_ms, nbytes, ops,
+                                     shape, host_ms)
+            log(f"kernel {name} [{form}] {label} {shape} {dtype}: equal to "
+                f"plain (max_abs_err {err}); device: kernel {ms * 1e3:.2f} "
+                f"us, plain {plain_ms * 1e3:.2f} us, bound "
+                f"{timed[name, form]['bound_ms'] * 1e3:.3f} us ({nbytes} "
+                f"bytes); host per kernel call {host_ms * 1e3:.1f} us")
+        old, new = old_call_site(*site), new_call_site(*site)
+        if not all(torch.equal(a, b) for a, b in zip(old, new)):
+            raise AssertionError(f"call sites differ ({label})")
+        old_ms, new_ms = (_device_ms(fn, site)
+                          for fn in (old_call_site, new_call_site))
+        old_host, new_host = (_host_ms(fn, site)
+                              for fn in (old_call_site, new_call_site))
+        found = new[1].float().mean().item()
+        log(f"resolve call site {label} {dtype} (found {found:.4f}): old "
+            f"(gathers + 2 windows launches + select) device "
+            f"{old_ms * 1e3:.2f} us, host {old_host * 1e3:.1f} us; new (2 "
+            f"in-place launches) device {new_ms * 1e3:.2f} us, host "
+            f"{new_host * 1e3:.1f} us; equal")
+        if label != "path":
+            continue
+        for name, form in (("mvcc_resolve", "rows"),
+                           ("mvcc_resolve_masked", "rows+prior")):
+            win = timed[name, "windows"]
+            rows[name] = dict(timed[name, form], form=form,
+                              windows={k: win[k] for k in (
+                                  "ms", "plain_ms", "bound_ms", "bytes",
+                                  "shape")},
+                              call_site_ms={"old": old_ms, "new": new_ms})
+        rows["mvcc_resolve_masked"]["no_prior"] = {
+            k: timed["mvcc_resolve_masked", "rows"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+    for name, label, shape, dtype, args, (nbytes, ops) in _paged_cases():
         kernel = getattr(kmod, name)
         plain = getattr(kmod, name + "_plain")
-        vals, found = kernel(*args)
-        p_vals, p_found = plain(*args)
-        torch.cuda.synchronize()
-        err = (vals.double() - p_vals.double()).abs().max().item()
-        if err != 0 or not torch.equal(found, p_found):
-            raise AssertionError(f"{name} {shape} {dtype}: kernel != plain "
-                                 f"(max_abs_err {err})")
-        ms = _device_ms(kernel, args)
-        plain_ms = _device_ms(plain, args)
-        host_ms = _host_ms(kernel, args)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                       ops / FP32_OPS_PER_S) * 1e3
+        err, ms, plain_ms, host_ms = _time_against_plain(
+            name, f"{shape} {dtype}", kernel, plain, args)
+        row = _row(name, err, ms, plain_ms, nbytes, ops, shape, host_ms)
         log(f"kernel {name} {shape} {str(dtype)[6:]}: equal to plain "
             f"(max_abs_err {err}); device: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+            f"{plain_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} us "
             f"({nbytes} bytes); host per kernel call {host_ms * 1e3:.1f} us")
-        if dtype == torch.int32:              # the path's own shape
-            rows[name] = {
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": 0,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": "bytes",
-                "library_ms": None, "shape": shape, "bytes": nbytes,
-                "host_ms": host_ms}
+        if label == "path":
+            rows[name] = row
     return rows
+
+
+def check_in_place(path, launches, names):
+    """The path read only through the in-place forms of rows 1-2: no
+    windows-form launch, and every kernel of ``names`` launched."""
+    for name in ("mvcc_resolve", "mvcc_resolve_masked"):
+        if launches[f"{name}/windows"] != 0 or \
+                launches[f"{name}/rows"] != launches[name]:
+            raise AssertionError(f"{path}: {name} launched a windows form "
+                                 f"({launches})")
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{path} launched {name} no time")
 
 
 # ---------------------------------------------------------------------------
@@ -929,10 +1128,10 @@ def main() -> int:
     gpu = drive("cuda", check_oracle=True)
     wall = time.perf_counter() - t0
     launches = dict(kmod.LAUNCHES)
+    check_in_place("main path", launches, ("mvcc_resolve",
+                                           "mvcc_resolve_masked"))
     for name in ("mvcc_resolve", "mvcc_resolve_masked"):
         rows[name]["launches"] = launches[name]
-        if launches[name] <= 0:
-            raise AssertionError(f"main path launched {name} no time")
     steady = gpu["batch_ms"][2:]            # batches 1-2 warm up
     ph = {k: statistics.median(v[2:]) for k, v in gpu["phase_ms"].items()}
     log(f"main path: launches {launches}; found_frac {gpu['found_frac']:.6f}"
@@ -971,9 +1170,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = dict(kmod.LAUNCHES)
     rows["mvcc_resolve_paged"]["launches"] = launches["mvcc_resolve_paged"]
-    for name in ("mvcc_resolve_paged", "mvcc_resolve_masked"):
-        if launches[name] <= 0:
-            raise AssertionError(f"paged path launched {name} no time")
+    check_in_place("paged path", launches, ("mvcc_resolve_paged",
+                                            "mvcc_resolve_masked"))
     if paged["counters"]["engine/k_slots_granted"] <= 0:
         raise AssertionError("the adaptive-K policy granted no slots")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1012,10 +1210,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     srv = drive_serving(get_config(SERVE_ARCH))
     launches = dict(ops.LAUNCHES)
-    for name in ("decode_attention", "flash_attention_causal",
-                 "mvcc_resolve", "mvcc_resolve_masked"):
-        if launches[name] <= 0:
-            raise AssertionError(f"serving path launched {name} no time")
+    check_in_place("serving path", launches, (
+        "decode_attention", "flash_attention_causal", "mvcc_resolve",
+        "mvcc_resolve_masked"))
     for name in ("decode_attention", "flash_attention_causal"):
         rows[name]["launches"] = launches[name]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -396,7 +396,8 @@ class BohmEngine:
     def snapshot_windows(self, records) -> Tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor]:
         """Gathered (begin, end, payload) candidate windows per record —
-        the ``mvcc_resolve`` kernel's input layout."""
+        the input layout of the ``mvcc_resolve`` kernel's windows form
+        (reads take the store in place)."""
         return gather_windows_sharded(self.store.versions,
                                       i32(records, self.device))
 

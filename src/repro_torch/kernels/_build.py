@@ -33,6 +33,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: launches of each CUDA kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {
     "mvcc_resolve": 0, "mvcc_resolve_masked": 0, "mvcc_resolve_paged": 0,
+    # which form each resolve launch took: the store read in place
+    # (rows) or pre-gathered windows
+    "mvcc_resolve/rows": 0, "mvcc_resolve/windows": 0,
+    "mvcc_resolve_masked/rows": 0, "mvcc_resolve_masked/windows": 0,
     "decode_attention": 0, "flash_attention_causal": 0,
     # which of flash_attention_causal's two kernels each launch took
     "flash_attention_causal/wgmma": 0,

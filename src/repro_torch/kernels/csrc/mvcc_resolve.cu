@@ -5,36 +5,55 @@
 //   * mvcc_resolve_masked (_resolve_masked_kernel, pallas_call at :169)
 //   * mvcc_resolve_paged  (_resolve_paged_kernel, pallas_call at :248)
 //
-// Per read i (paper §4.1.3): slot k is visible when
-//     begin[i,k] <= ts[i] < end[i,k]   (&& rec[i,k] == want[i], masked)
+// Per read i (paper §4.1.3): slot k of the read's row is visible when
+//     begin[row,k] <= ts[i] < end[row,k]   (&& rec[row,k] == want[i], masked)
 // best  = max visible begin (INT32_MIN when none),
-// vals  = sum of data[i,k,:] over visible slots with begin == best
-//         (the Pallas tie rule: every slot tied at best is summed; a
-//         consistent store has exactly one),
+// vals  = sum of data[row,k,:] over visible slots with begin == best
+//         (the Pallas tie rule: every slot tied at best is summed, in
+//         ascending k with int32 wrap-around; a consistent store has
+//         exactly one),
 // found = best > INT32_MIN.
 //
-// What bounds it: memory traffic. Each read needs all K slots' begin and
-// end (+ rec, and want, when masked), its ts, and the D payload words of
-// the selected slot only (a consistent store has at most one), and writes
-// 4D + 1 bytes of vals/found. That is ~K compares and D adds for well
-// over one byte each, so the roofline is HBM bandwidth. At the engine's
-// snapshot-read shapes (B = 10240 reads, K = 4 or 8, D = 8) a call needs
-// about 1-1.5 MB, which the H100 streams in well under a microsecond, so
-// in practice a launch costs more than the bytes.
+// Which row a read resolves is the form of the call:
+//   * windows: row = i, over pre-gathered [B, K] windows (the Pallas
+//     kernels' interface, kept for the kernel-level parity tests);
+//   * rows (mvcc_resolve): row = rows[i] of the ring's [R, K] arrays,
+//     read where it lies — no window copy;
+//   * buckets (mvcc_resolve_masked): row = max(want[i], 0) % NB, the
+//     read's spill bucket of the pool's [NB, S] arrays, computed here
+//     (store/spill.py::spill_buckets_for's rule) — no bucket copy.
+// A row outside [0, rows) gives found = false and zero values and loads
+// nothing, as an unmapped page does in the paged kernel. With a prior
+// (the primary level's vals/found), a read whose prior found its version
+// copies the prior's values, sets found and loads nothing of its bucket:
+// the result is where(prior_found, prior_vals, s_vals), prior_found |
+// s_found, the two-level combine of store/sharded.py, in the same launch.
 //
-// What the design does about it: one small group of `lanes` threads per
-// read (lanes = next power of two >= D, capped at 32). The group keeps the
-// K-wide interval test and max in registers (begin/end loads are the same
-// address across the group, so a warp broadcasts them), then each lane
-// owns a strided subset of the D payload words: consecutive lanes load
-// consecutive words, so payload loads are coalesced along D, and a payload
-// word is loaded only where its slot is selected (at D = 8 a slot's payload
-// is one 32-byte sector, so unselected slots cost no traffic). Every
-// window byte loaded is read from HBM once. `found` is written once per
-// read, by lane 0. The ragged edge (B not a multiple of the block) is masked by an
-// index test; nothing is padded or copied. Fusing the window gather
-// (ring/spill rows indexed by record) into the kernel is later work: the
-// interface keeps the Pallas kernels' pre-gathered windows.
+// What bounds it: memory traffic and, at the engine's sizes, latency.
+// Each read needs its row id (or want) and ts, the begin/end (+ rec) of
+// its row — a zipfian batch reads hot rows again, and L2 serves the
+// repeats — the D payload words of the selected slot only, and writes 4D
+// + 1 bytes. That is ~K compares and D adds for well over one byte each,
+// so the roofline is HBM bandwidth: at the dense path's read batch
+// (B = 10240, K = 4 or S = 8, D = 8) well under a microsecond, so a
+// launch costs more than the bytes, and the serial chain of dependent
+// loads (row id -> begin/end -> payload) is what a read waits on.
+//
+// What the design does about it: one group of G lanes per read (G = the
+// next power of two >= max(K, D), capped at 32; groups never straddle a
+// warp). The read's scalars (ts, row id or want, prior found) are loaded
+// first, together. Then lane k loads slot k's begin and end (+ rec) — at
+// K = 4 one 16-byte line of begin per row — so the K loads of a row go
+// out at once instead of one after another; a strided loop covers K > G.
+// The largest visible begin is reduced with __shfl_xor_sync inside the
+// group, and the tied slots become one bit mask (__ballot_sync), the
+// same on every lane. Lane d then loads payload word d of the selected
+// slots only, in ascending k: consecutive lanes read consecutive words,
+// so the load is coalesced along D and an unselected slot costs no
+// traffic. Offsets are 64-bit (row * K * D exceeds 2^31 past 2^28
+// slots). No shared memory, no atomics; `found` is written once per read
+// by lane 0, and the ragged edge (B not a multiple of the block) is
+// masked by an index test over whole groups.
 //
 // The paged kernel reads its windows in place. Read i's candidates are
 // the S slots of every mapped page in its page-table row page_rows[i, :]
@@ -67,45 +86,104 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
 }
 __device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
 
+// Slot s of a [rows, K] version array: sets its begin and returns whether
+// it is visible at t (masked: and owned by w). The loads go out before
+// any compare.
+template <bool MASKED>
+__device__ __forceinline__ bool visible(const int* __restrict__ begin,
+                                        const int* __restrict__ end,
+                                        const int* __restrict__ rec,
+                                        long long s, int t, int w, int& b) {
+  b = begin[s];
+  const int e = end[s];
+  const int r = MASKED ? rec[s] : w;
+  return (b <= t) & (t < e) & (r == w);
+}
+
+// One lane group of 2^lanes_log2 lanes per read (see the header). `rows`
+// is null except in the rows form; `by_bucket` selects the buckets form
+// of the masked kernel; `prior_vals` / `prior_found` are null without a
+// prior.
 template <typename T, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
-resolve_kernel(const int* __restrict__ begin, const int* __restrict__ end,
-               const int* __restrict__ rec, const int* __restrict__ want,
-               const T* __restrict__ data, const int* __restrict__ ts,
-               T* __restrict__ vals, bool* __restrict__ found,
-               long long n_reads, int K, int D, int lanes_log2) {
+resolve_kernel(const int* __restrict__ rows, const int* __restrict__ begin,
+               const int* __restrict__ end, const int* __restrict__ rec,
+               const int* __restrict__ want, const T* __restrict__ data,
+               const int* __restrict__ ts, const T* __restrict__ prior_vals,
+               const bool* __restrict__ prior_found, T* __restrict__ vals,
+               bool* __restrict__ found, long long n_reads,
+               long long n_rows, int K, int D, int lanes_log2,
+               bool by_bucket) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long i = tid >> lanes_log2;
-  const int lane = static_cast<int>(tid & ((1 << lanes_log2) - 1));
-  if (i >= n_reads) return;  // ragged edge of the last block
+  if (i >= n_reads) return;  // ragged edge of the last block: whole groups
+  const int G = 1 << lanes_log2;
+  const int lane = static_cast<int>(tid & (G - 1));
+  const int base = static_cast<int>(threadIdx.x & 31) & ~(G - 1);
+  const unsigned gmask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << base;
+  T* v_row = vals + i * static_cast<long long>(D);
 
+  // the read's scalars: independent loads, issued together
   const int t = ts[i];
   const int w = MASKED ? want[i] : 0;
-  const int* b_row = begin + i * K;
-  const int* e_row = end + i * K;
-  const int* r_row = MASKED ? rec + i * K : nullptr;
-
-  int best = INT_MIN;
-  for (int k = 0; k < K; ++k) {
-    const int bk = b_row[k];
-    bool vis = bk <= t && t < e_row[k];
-    if (MASKED) vis = vis && r_row[k] == w;
-    if (vis && bk > best) best = bk;
+  const long long r_in = rows != nullptr ? rows[i] : i;
+  const bool hit = prior_found != nullptr && prior_found[i];
+  if (hit) {  // the primary level holds the version: nothing of the bucket
+    const T* p_row = prior_vals + i * static_cast<long long>(D);
+    for (int d = lane; d < D; d += G) v_row[d] = p_row[d];
+    if (lane == 0) found[i] = true;
+    return;
   }
+  const long long row =
+      by_bucket ? static_cast<long long>(max(w, 0)) % n_rows : r_in;
+  if (row < 0 || row >= n_rows) {  // outside the array: nothing loaded
+    for (int d = lane; d < D; d += G) v_row[d] = T(0);
+    if (lane == 0) found[i] = false;
+    return;
+  }
+
+  // pass 1: lane k tests slot k (strided past G); the group's max
+  const long long slot0 = row * K;
+  int best = INT_MIN, b_own = INT_MIN;
+  bool vis_own = false;  // the lane's slot of the first round
+  for (int k = lane; k < K; k += G) {
+    int b;
+    const bool v = visible<MASKED>(begin, end, rec, slot0 + k, t, w, b);
+    if (k == lane) {
+      b_own = b;
+      vis_own = v;
+    }
+    if (v && b > best) best = b;
+  }
+  for (int off = G >> 1; off > 0; off >>= 1)
+    best = max(best, __shfl_xor_sync(gmask, best, off, G));
   if (lane == 0) found[i] = best > INT_MIN;
 
-  const T* d_row = data + i * K * static_cast<long long>(D);
-  T* v_row = vals + i * static_cast<long long>(D);
-  for (int d = lane; d < D; d += (1 << lanes_log2)) {
+  // pass 2: the slots tied at best as a bit mask per round of G slots
+  // (the same on every lane), then lane d sums word d of those slots in
+  // ascending k
+  const unsigned first =
+      (__ballot_sync(gmask, vis_own && b_own == best) & gmask) >> base;
+  const T* d_row = data + slot0 * D;
+  for (int d0 = 0; d0 < D; d0 += G) {
+    const int d = d0 + lane;
     T acc = T(0);
-    for (int k = 0; k < K; ++k) {
-      const int bk = b_row[k];
-      bool sel = bk == best && bk <= t && t < e_row[k];
-      if (MASKED) sel = sel && r_row[k] == w;
-      if (sel) acc = add_wrap(acc, d_row[static_cast<long long>(k) * D + d]);
+    for (int k0 = 0; k0 < K; k0 += G) {
+      unsigned sel = first;
+      if (k0 > 0) {  // K > G: this round's slots again (from L1)
+        int b = INT_MIN;
+        bool v = false;
+        if (k0 + lane < K)
+          v = visible<MASKED>(begin, end, rec, slot0 + k0 + lane, t, w, b);
+        sel = (__ballot_sync(gmask, v && b == best) & gmask) >> base;
+      }
+      for (; sel != 0; sel &= sel - 1) {
+        const long long k = k0 + __ffs(sel) - 1;
+        if (d < D) acc = add_wrap(acc, d_row[k * D + d]);
+      }
     }
-    v_row[d] = acc;
+    if (d < D) v_row[d] = acc;
   }
 }
 
@@ -156,22 +234,25 @@ resolve_paged_kernel(const int* __restrict__ page_rows,
   }
 }
 
-int lanes_log2_for(int D) {
+int lanes_log2_for(int n) {
   int l = 0;
-  while ((1 << l) < D && l < 5) ++l;
+  while ((1 << l) < n && l < 5) ++l;
   return l;
 }
 
 template <typename T, bool MASKED>
-int launch(const int* begin, const int* end, const int* rec, const int* want,
-           const T* data, const int* ts, T* vals, bool* found,
-           long long n_reads, int K, int D, cudaStream_t stream) {
-  const int ll = lanes_log2_for(D);
+int launch(const int* rows, const int* begin, const int* end, const int* rec,
+           const int* want, const T* data, const int* ts,
+           const T* prior_vals, const bool* prior_found, T* vals,
+           bool* found, long long n_reads, int n_rows, bool by_bucket, int K,
+           int D, cudaStream_t stream) {
+  const int ll = lanes_log2_for(K > D ? K : D);
   const long long threads = n_reads << ll;
   const long long blocks = (threads + kThreads - 1) / kThreads;
   resolve_kernel<T, MASKED><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(begin, end, rec, want, data, ts, vals,
-                                        found, n_reads, K, D, ll);
+                              stream>>>(rows, begin, end, rec, want, data, ts,
+                                        prior_vals, prior_found, vals, found,
+                                        n_reads, n_rows, K, D, ll, by_bucket);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,36 +277,49 @@ int launch_paged(const int* page_rows, const int* begin, const int* end,
 // cudaGetLastError() code of its launch; 0 means the launch was accepted.
 extern "C" {
 
-int mvcc_resolve_i32(const int* begin, const int* end, const int* data,
-                     const int* ts, int* vals, bool* found, long long n_reads,
-                     int K, int D, void* stream) {
-  return launch<int, false>(begin, end, nullptr, nullptr, data, ts, vals,
-                            found, n_reads, K, D,
-                            static_cast<cudaStream_t>(stream));
+// rows == null: the windows form (R = n_reads, read i resolves row i).
+int mvcc_resolve_i32(const int* rows, const int* begin, const int* end,
+                     const int* data, const int* ts, int* vals, bool* found,
+                     long long n_reads, int n_rows, int K, int D,
+                     void* stream) {
+  return launch<int, false>(rows, begin, end, nullptr, nullptr, data, ts,
+                            nullptr, nullptr, vals, found, n_reads, n_rows,
+                            false, K, D, static_cast<cudaStream_t>(stream));
 }
 
-int mvcc_resolve_f32(const int* begin, const int* end, const float* data,
-                     const int* ts, float* vals, bool* found,
-                     long long n_reads, int K, int D, void* stream) {
-  return launch<float, false>(begin, end, nullptr, nullptr, data, ts, vals,
-                              found, n_reads, K, D,
-                              static_cast<cudaStream_t>(stream));
+int mvcc_resolve_f32(const int* rows, const int* begin, const int* end,
+                     const float* data, const int* ts, float* vals,
+                     bool* found, long long n_reads, int n_rows, int K, int D,
+                     void* stream) {
+  return launch<float, false>(rows, begin, end, nullptr, nullptr, data, ts,
+                              nullptr, nullptr, vals, found, n_reads, n_rows,
+                              false, K, D, static_cast<cudaStream_t>(stream));
 }
 
+// by_bucket == 0: the windows form (n_rows = n_reads); 1: the buckets
+// form over the pool. prior_vals / prior_found null: no prior.
 int mvcc_resolve_masked_i32(const int* begin, const int* end, const int* rec,
                             const int* want, const int* data, const int* ts,
-                            int* vals, bool* found, long long n_reads, int K,
-                            int D, void* stream) {
-  return launch<int, true>(begin, end, rec, want, data, ts, vals, found,
-                           n_reads, K, D, static_cast<cudaStream_t>(stream));
+                            const int* prior_vals, const bool* prior_found,
+                            int* vals, bool* found, long long n_reads,
+                            int n_rows, int by_bucket, int K, int D,
+                            void* stream) {
+  return launch<int, true>(nullptr, begin, end, rec, want, data, ts,
+                           prior_vals, prior_found, vals, found, n_reads,
+                           n_rows, by_bucket != 0, K, D,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int mvcc_resolve_masked_f32(const int* begin, const int* end, const int* rec,
                             const int* want, const float* data, const int* ts,
-                            float* vals, bool* found, long long n_reads, int K,
-                            int D, void* stream) {
-  return launch<float, true>(begin, end, rec, want, data, ts, vals, found,
-                             n_reads, K, D, static_cast<cudaStream_t>(stream));
+                            const float* prior_vals, const bool* prior_found,
+                            float* vals, bool* found, long long n_reads,
+                            int n_rows, int by_bucket, int K, int D,
+                            void* stream) {
+  return launch<float, true>(nullptr, begin, end, rec, want, data, ts,
+                             prior_vals, prior_found, vals, found, n_reads,
+                             n_rows, by_bucket != 0, K, D,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int mvcc_resolve_paged_i32(const int* page_rows, const int* begin,

@@ -136,8 +136,10 @@ def ring_fill_fraction(occupancy: torch.Tensor,
 
 def gather_windows(ring: VersionRing, records: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pre-gather per-read candidate windows for ``mvcc_resolve``:
-    records [B] -> (begin [B, K], end [B, K], payload [B, K, D])."""
+    """Pre-gather per-read candidate windows for ``mvcc_resolve``'s
+    windows form: records [B] -> (begin [B, K], end [B, K], payload
+    [B, K, D]). A diagnostic path: reads take the ring in place
+    (``mvcc_resolve(..., rows=)``)."""
     rec = records.to(torch.int32).clamp(min=0).long()
     return ring.begin[rec], ring.end[rec], ring.payload[rec]
 

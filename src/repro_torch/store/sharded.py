@@ -21,12 +21,13 @@ that path (the loop's ownership test wraps it to the last record), which
 the parity tests hold the port to.
 
 Snapshot reads are two-level per shard: the primary goes through
-``mvcc_resolve`` (dense: pre-gathered ring windows) or
+``mvcc_resolve`` (dense: the ring's rows read in place) or
 ``mvcc_resolve_paged`` (paged: the reads' page-table rows, the slab read
-in place), then the record's spill bucket goes through
-``mvcc_resolve_masked``; at most one level holds the visible version, so
-combining is a select. Each read has one owning shard; the shards'
-results merge by ownership (foreign shards contribute zeros).
+in place), then ``mvcc_resolve_masked`` reads the record's spill bucket
+in place with the primary's result as its prior; at most one level
+holds the visible version, so combining is a select, done inside that
+launch. Each read has one owning shard; the shards' results merge by
+ownership (foreign shards contribute zeros).
 
 Not ported yet (raises ``NotImplementedError``): the ``mesh=`` substrate
 (ROADMAP.md, queue 1).
@@ -43,11 +44,10 @@ from repro_torch.store.pages import (PageSlab, commit_paged, gc_pages,
                                      init_page_slab, mask_gathered_windows,
                                      paged_occupancy, slab_fill_fraction)
 from repro_torch.store.ring import (INF_TS, VersionRing, commit_versions,
-                                    gather_windows, gc_ring, i32,
-                                    ring_occupancy)
+                                    gc_ring, i32, ring_occupancy)
 from repro_torch.store.spill import (SpillPool, gc_spill, init_spill_pool,
-                                     spill_buckets_for, spill_commit,
-                                     spill_fill_fraction, spill_occupancy)
+                                     spill_commit, spill_fill_fraction,
+                                     spill_occupancy)
 
 PAD_KEY = 0xFFFFFFFF      # the plan's pad key (repro_torch.core.plan)
 
@@ -427,8 +427,9 @@ def gc_sharded(store: ShardedVersionStore, watermark
 
 
 # ---------------------------------------------------------------------------
-# Snapshot reads: gather + mvcc_resolve (primary), then the spill
-# fall-through through mvcc_resolve_masked.
+# Snapshot reads: mvcc_resolve over the ring in place (or mvcc_resolve_paged
+# over the slab), then the spill fall-through through mvcc_resolve_masked
+# over the pool in place, the primary's result passed in as its prior.
 # ---------------------------------------------------------------------------
 def gather_windows_sharded(store: ShardedVersionStore,
                            records: torch.Tensor
@@ -454,28 +455,31 @@ def gather_windows_sharded(store: ShardedVersionStore,
 
 
 def _resolve_two_level(prim_s, spill_s: Optional[SpillPool],
-                       local_rec: torch.Tensor, ts: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       rows: torch.Tensor, want: torch.Tensor,
+                       ts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Primary resolve with the spill fall-through: a version leaves the
     primary exactly when it moves to spill and [begin, end) windows
     partition a record's timeline, so at most one level holds the
-    version visible at ``ts`` and combining is a select. A dense primary
-    resolves pre-gathered windows through ``mvcc_resolve``; a page slab
-    resolves the reads' page-table rows through ``mvcc_resolve_paged``."""
+    version visible at ``ts`` and combining is a select. ``rows`` are the
+    reads' shard-local record ids clamped at 0, ``want`` the same ids
+    unclamped (the spill pool's owner test), as in the reference. A dense
+    primary is read in place through ``mvcc_resolve(rows=)``, a page slab
+    through the reads' page-table rows and ``mvcc_resolve_paged``; the
+    spill bucket is read in place by ``mvcc_resolve_masked``, which takes
+    the primary's result as its prior and makes the select: two launches
+    a shard, no window copy."""
     if isinstance(prim_s, PageSlab):
-        rows = prim_s.page_table[local_rec.long()]
-        vals, found = ops.mvcc_resolve_paged(rows, prim_s.begin, prim_s.end,
+        vals, found = ops.mvcc_resolve_paged(prim_s.page_table[rows.long()],
+                                             prim_s.begin, prim_s.end,
                                              prim_s.payload, ts)
     else:
-        begin, end, payload = gather_windows(prim_s, local_rec)
-        vals, found = ops.mvcc_resolve(begin, end, payload, ts)
+        vals, found = ops.mvcc_resolve(prim_s.begin, prim_s.end,
+                                       prim_s.payload, ts, rows=rows)
     if spill_s is None:
         return vals, found
-    bkt = spill_buckets_for(local_rec, spill_s.begin.shape[0]).long()
-    s_vals, s_found = ops.mvcc_resolve_masked(
-        spill_s.begin[bkt], spill_s.end[bkt], spill_s.rec[bkt],
-        local_rec, spill_s.payload[bkt], ts)
-    return torch.where(found[:, None], vals, s_vals), found | s_found
+    return ops.mvcc_resolve_masked(spill_s.begin, spill_s.end, spill_s.rec,
+                                   want, spill_s.payload, ts, in_place=True,
+                                   prior=(vals, found))
 
 
 def resolve_sharded(store: ShardedVersionStore, records: torch.Tensor,
@@ -490,16 +494,21 @@ def resolve_sharded(store: ShardedVersionStore, records: torch.Tensor,
     records = records.to(torch.int32)
     ts = ts.to(torch.int32).contiguous()
     if n == 1:
+        local = records.clamp(min=0).contiguous()
         return _resolve_two_level(_ring0(store), _take_spill(store, 0),
-                                  records.clamp(min=0).contiguous(), ts)
+                                  local, local, ts)
+    # a read's shard-local id is the same for every shard (and in range
+    # for each when the record is the store's): a shard that does not own
+    # the read resolves it too, and the merge drops that result
+    owner = records % n
+    local = torch.div(records, n, rounding_mode="floor")
+    rows = local.clamp(min=0)
     vals = found = None
     for s in range(n):
-        owned = (records % n) == s
-        local = torch.where(owned, torch.div(records, n,
-                                             rounding_mode="floor"), 0)
+        owned = owner == s
         v_s, f_s = _resolve_two_level(_take_shard(store, s),
-                                      _take_spill(store, s),
-                                      local.contiguous(), ts)
+                                      _take_spill(store, s), rows, local,
+                                      ts)
         v_s = torch.where(owned[:, None], v_s, 0)
         f_s = owned & f_s
         # each read has exactly one owner: the sum is a select

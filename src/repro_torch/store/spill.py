@@ -2,8 +2,9 @@
 
 The port of ``repro.store.spill``. A bucketed pool of version slots
 shared across records; record ``r`` spills into bucket ``r % B`` and a
-read gathers that whole bucket as the candidate window of the masked
-resolve kernel (``mvcc_resolve_masked`` filters ``rec == r``):
+read's candidates are that whole bucket, which the masked resolve kernel
+reads in place (``mvcc_resolve_masked(..., in_place=True)`` computes the
+bucket and filters ``rec == r``):
 
     begin   [B, S] i32   version begin ts (INF_TS = free slot)
     end     [B, S] i32   version end ts (spilled versions are closed)
@@ -78,8 +79,10 @@ def spill_fill_fraction(pool: SpillPool) -> torch.Tensor:
 
 def spill_buckets_for(records: torch.Tensor, num_buckets: int
                       ) -> torch.Tensor:
-    """Bucket index of each (shard-local) record id — the one home of the
-    spill hash so commit and resolve can never disagree."""
+    """Bucket index of each (shard-local) record id — the spill hash of
+    commit. Resolve computes the same rule inside
+    ``mvcc_resolve_masked(..., in_place=True)`` (kernel and plain
+    version); the parity tests hold the two to the reference's."""
     return records.clamp(min=0) % num_buckets
 
 

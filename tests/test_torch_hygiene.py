@@ -78,7 +78,7 @@ def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
     it never reaches the plain version."""
     from repro_torch.kernels import mvcc_resolve as mod
 
-    def boom(*args):
+    def boom(*args, **kwargs):
         raise AssertionError("plain version reached")
 
     monkeypatch.setattr(mod, "mvcc_resolve_plain", boom)
@@ -91,6 +91,14 @@ def test_non_cpu_tensor_never_reaches_plain_version(monkeypatch):
         mod.mvcc_resolve(z, z, d, t)
     with pytest.raises(ValueError, match="no kernel"):
         mod.mvcc_resolve_masked(z, z, z, t, d, t)
+    rows = torch.zeros((5,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        mod.mvcc_resolve(z, z, d, rows, rows=rows)
+    prior = (torch.zeros((5, 3), dtype=torch.int32, device="meta"),
+             torch.zeros((5,), dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        mod.mvcc_resolve_masked(z, z, z, rows, d, rows, in_place=True,
+                                prior=prior)
     with pytest.raises(ValueError, match="no kernel"):
         mod.mvcc_resolve_paged(z, z, z, d, t)
 

@@ -34,10 +34,12 @@ def cuda(monkeypatch):
              "paged": mod.mvcc_resolve_paged_plain}
 
     def cpu_only(fn):
-        def run(*args):
-            if any(x.is_cuda for x in args):
+        def run(*args, **kw):
+            tensors = [*args, kw.get("rows")] + list(kw.get("prior") or ())
+            if any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in tensors):
                 raise AssertionError("a CUDA call reached the plain version")
-            return fn(*args)
+            return fn(*args, **kw)
         return run
 
     for name in ("mvcc_resolve_plain", "mvcc_resolve_masked_plain",
@@ -188,6 +190,207 @@ def test_resolve_paged_rejects_non_contiguous_and_mixed_devices(cuda):
         mod.mvcc_resolve_paged(rows, *g[1:])
     with pytest.raises(ValueError, match="one device"):
         mod.mvcc_resolve_paged(*g[:4], ts)
+
+
+# ---------------------------------------------------------------------------
+# the in-place forms: ring rows (mvcc_resolve rows=), pool buckets with a
+# prior (mvcc_resolve_masked in_place=True)
+# ---------------------------------------------------------------------------
+# (R, K, D, B): the dense path's ring at a reduced R with its read batch,
+# ragged batches, K and D past one lane group (33, 40)
+INPLACE_SHAPES = [(37, 4, 8, 101), (1, 1, 1, 1), (500, 16, 8, 10240),
+                  (64, 5, 33, 1000), (200, 40, 3, 77), (100_000, 4, 8, 10243)]
+
+
+def _ring_inputs(seed, R, K, D, B, dtype, tied=False):
+    """A consistent ring (per row 0..K live versions, increasing begins,
+    each ending where the next begins, slots rotated by a random head;
+    empty slots INF / INF), row ids with out-of-range entries and ts.
+    ``tied``: every row's live begins collapse onto one value, so the
+    tie-sum rule decides (integer-valued float32 sums stay exact)."""
+    rng = np.random.default_rng(seed)
+    live = rng.integers(0, K + 1, R)
+    steps = np.cumsum(rng.integers(1, 20, (R, K)), axis=1).astype(np.int32)
+    start = rng.integers(0, 30, R).astype(np.int32)
+    head = rng.integers(0, K, R)
+    k = np.arange(K)
+    slot = (head[:, None] + k[None, :]) % K               # [R, K]
+    is_live = k[None, :] < live[:, None]
+    b = start[:, None] + steps
+    e = np.concatenate([b[:, 1:], np.full((R, 1), INF, np.int32)], 1)
+    e = np.where(k[None, :] + 1 < live[:, None], e, INF)
+    if tied:
+        b = np.where(is_live, start[:, None], b)
+        e = np.where(is_live, INF, e)
+    begin = np.full((R, K), INF, np.int32)
+    end = np.full((R, K), INF, np.int32)
+    rr = np.repeat(np.arange(R)[:, None], K, 1)
+    begin[rr[is_live], slot[is_live]] = b[is_live]
+    end[rr[is_live], slot[is_live]] = e[is_live]
+    data = rng.integers(-1000, 1000, (R, K, D)).astype(dtype)
+    rows = rng.integers(-2, R + 2, B).astype(np.int32)
+    ts = rng.integers(0, 20 * K + 40, B).astype(np.int32)
+    return [torch.from_numpy(a) for a in (begin, end, data, ts, rows)]
+
+
+def _pool_inputs(seed, NB, S, D, B, dtype):
+    """A consistent spill pool: slot s of a bucket holds a version of a
+    record that hashes there (or is free: rec -1, begin INF) within
+    [12 s, 12 s + 12), so a record's windows never overlap; want ids
+    include negatives and records of no bucket slot."""
+    rng = np.random.default_rng(seed)
+    rec = (np.arange(NB)[:, None]
+           + NB * rng.integers(0, 3, (NB, S))).astype(np.int32)
+    free = rng.random((NB, S)) < 0.3
+    begin = (12 * np.arange(S)[None, :] + rng.integers(0, 6, (NB, S)))
+    end = begin + rng.integers(1, 7, (NB, S))
+    begin = np.where(free, INF, begin).astype(np.int32)
+    end = np.where(free, INF, end).astype(np.int32)
+    rec = np.where(free, -1, rec).astype(np.int32)
+    data = rng.integers(-1000, 1000, (NB, S, D)).astype(dtype)
+    want = rng.integers(-2, 3 * NB, B).astype(np.int32)
+    ts = rng.integers(0, 12 * S, B).astype(np.int32)
+    return [torch.from_numpy(a) for a in (begin, end, rec, want, data, ts)]
+
+
+def _prior(seed, B, D, dtype):
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-50, 50, (B, D)).astype(dtype)
+    found = rng.random(B) < 0.6
+    return torch.from_numpy(vals), torch.from_numpy(found)
+
+
+def _check_form(name, form, fn, plain, args, kw, gpu_kw):
+    expect = plain(*args, **kw)
+    before = dict(mod.LAUNCHES)
+    vals, found = fn(*(x.cuda() for x in args), **gpu_kw)
+    torch.cuda.synchronize()
+    moved = {k: mod.LAUNCHES[k] - before[k] for k in mod.LAUNCHES
+             if mod.LAUNCHES[k] != before[k]}
+    assert moved == {name: 1, f"{name}/{form}": 1}, moved
+    assert vals.dtype == expect[0].dtype and vals.is_cuda
+    torch.testing.assert_close(vals.cpu(), expect[0], rtol=0, atol=0)
+    assert torch.equal(found.cpu(), expect[1])
+    return vals, found
+
+
+@pytest.mark.parametrize("R,K,D,B", INPLACE_SHAPES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("tied", [False, True])
+def test_resolve_rows_form_matches_plain(cuda, R, K, D, B, dtype, tied):
+    begin, end, data, ts, rows = _ring_inputs(R + K + B, R, K, D, B, dtype,
+                                              tied)
+    vals, found = _check_form("mvcc_resolve", "rows", mod.mvcc_resolve,
+                              cuda["resolve"], [begin, end, data, ts],
+                              dict(rows=rows), dict(rows=rows.cuda()))
+    outside = ((rows < 0) | (rows >= R)).cuda()
+    assert not found[outside].any() and (vals[outside] == 0).all()
+
+
+@pytest.mark.parametrize("NB,S,D,B", [(7, 4, 3, 50), (1, 1, 1, 1),
+                                      (2500, 8, 8, 10240),
+                                      (300, 40, 33, 777)])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("with_prior", [False, True])
+def test_resolve_masked_in_place_matches_plain(cuda, NB, S, D, B, dtype,
+                                               with_prior):
+    begin, end, rec, want, data, ts = _pool_inputs(NB + S + B, NB, S, D, B,
+                                                   dtype)
+    prior = _prior(B, B, D, dtype) if with_prior else None
+    gpu_prior = None if prior is None else tuple(x.cuda() for x in prior)
+    vals, found = _check_form(
+        "mvcc_resolve_masked", "rows", mod.mvcc_resolve_masked,
+        cuda["masked"], [begin, end, rec, want, data, ts],
+        dict(in_place=True, prior=prior),
+        dict(in_place=True, prior=gpu_prior))
+    if with_prior:
+        hit = gpu_prior[1]
+        assert found[hit].all() and torch.equal(vals[hit], gpu_prior[0][hit])
+
+
+def test_in_place_forms_equal_the_windows_forms(cuda):
+    """The rows form over a ring equals the windows form over the rows'
+    gathered windows; the pool form with a prior equals the windows form
+    over the gathered buckets, then the select."""
+    begin, end, data, ts, rows = (x.cuda() for x in _ring_inputs(
+        3, 300, 4, 8, 2000, np.int32))
+    rows = rows.clamp(0, 299)
+    v1, f1 = mod.mvcc_resolve(begin, end, data, ts, rows=rows)
+    r = rows.long()
+    v2, f2 = mod.mvcc_resolve(begin[r], end[r], data[r], ts)
+    assert torch.equal(v1, v2) and torch.equal(f1, f2)
+    pb, pe, prec, want, pd, _ = (x.cuda() for x in _pool_inputs(
+        4, 100, 8, 8, 2000, np.int32))
+    s1 = mod.mvcc_resolve_masked(pb, pe, prec, want, pd, ts, in_place=True,
+                                 prior=(v1, f1))
+    bkt = (want.clamp(min=0) % 100).long()
+    sv, sf = mod.mvcc_resolve_masked(pb[bkt], pe[bkt], prec[bkt], want,
+                                     pd[bkt], ts)
+    assert torch.equal(s1[0], torch.where(f1[:, None], v1, sv))
+    assert torch.equal(s1[1], f1 | sf)
+
+
+def test_in_place_forms_reject_non_contiguous_and_mixed_devices(cuda):
+    begin, end, data, ts, rows = (x.cuda() for x in _ring_inputs(
+        5, 40, 4, 6, 16, np.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        mod.mvcc_resolve(begin, end, data[:, :, ::2], ts, rows=rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        mod.mvcc_resolve(begin, end, data, ts,
+                         rows=torch.stack([rows, rows], 1)[:, 0])
+    with pytest.raises(ValueError, match="one device"):
+        mod.mvcc_resolve(begin, end, data, ts, rows=rows.cpu())
+    pb, pe, prec, want, pd, pts = (x.cuda() for x in _pool_inputs(
+        6, 9, 4, 6, 16, np.int32))
+    p_vals, p_found = (x.cuda() for x in _prior(7, 16, 6, np.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        mod.mvcc_resolve_masked(pb, pe, prec, want, pd, pts, in_place=True,
+                                prior=(p_vals.t().contiguous().t(), p_found))
+    with pytest.raises(ValueError, match="one device"):
+        mod.mvcc_resolve_masked(pb, pe, prec, want, pd, pts, in_place=True,
+                                prior=(p_vals, p_found.cpu()))
+    with pytest.raises(ValueError, match="one device"):
+        mod.mvcc_resolve_masked(pb, pe, prec, want.cpu(), pd, pts,
+                                in_place=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ring_slots=2, spill_buckets=16, spill_slots=4),
+    dict(ring_slots=2, spill_buckets=16, spill_slots=4, n_shards=2),
+    dict(ring_slots=4, spill_buckets=16, spill_slots=4, paged=True,
+         page_slots=2, pages_per_shard=400)],
+    ids=["dense", "dense-2-shards", "paged"])
+def test_engine_reads_launch_only_in_place_forms(cuda, kw):
+    """An engine on the card reads through the in-place forms only, and
+    equals its CPU twin read for read."""
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.engine import BohmEngine
+
+    R = 300
+    reads = {}
+    for dev in ("cuda", "cpu"):
+        eng = BohmEngine(R, wl.make_ycsb(payload_words=4, ops=4), device=dev,
+                         **kw)
+        rng = np.random.default_rng(11)
+        for i in range(5):
+            eng.run_batch(wl.gen_ycsb_batch(rng, 64, R, theta=1.1, ops=4,
+                                            device=dev))
+            if i == 1:
+                pin = eng.begin_snapshot()
+        scan = wl.gen_scan_batch(np.random.default_rng(12), 32, R, ops=6,
+                                 theta=1.1, device=dev)
+        mod.reset_launches()
+        reads[dev] = (eng.run_readonly_batch(scan, pin)[:2]
+                      + eng.snapshot_read(torch.arange(R), pin))
+        if dev == "cuda":
+            launches = dict(mod.LAUNCHES)
+    assert launches["mvcc_resolve/windows"] == 0
+    assert launches["mvcc_resolve_masked/windows"] == 0
+    assert launches["mvcc_resolve_masked/rows"] > 0
+    primary = "mvcc_resolve_paged" if kw.get("paged") else "mvcc_resolve/rows"
+    assert launches[primary] == launches["mvcc_resolve_masked/rows"]
+    for a, b in zip(reads["cuda"], reads["cpu"]):
+        assert torch.equal(a.cpu(), b)
 
 
 # ---------------------------------------------------------------------------
