@@ -1,7 +1,7 @@
 """Where a steady Bohm batch's time goes on the GPU (the port).
 
     python3 benchmarks_torch/breakdown.py [--batches 3] [--warmup 4]
-                                          [--seed 0]
+                                          [--seed 0] [--paged]
 
 Builds ``YCSB_HIGH_10RMW`` on the GPU (1,000,000 records, batches of 1024
 zipfian theta=0.9 10-RMW transactions, spill tier on), warms it up, pins
@@ -10,6 +10,9 @@ batch (1024 scans x 10 reads at the pin) with ``torch.profiler``. The
 engine's ``PhaseTracer(enabled=True, annotate=True)`` opens a
 ``record_function`` range per phase and synchronises the device at both
 ends, so every kernel a phase launches runs inside its range.
+``--paged`` runs the same stream on the paged store with
+``chip_smoke.PAGED``'s storage settings (adaptive K, ``k_max=16``, 2M
+pages of 2 slots; no sweep runs, so the policy keeps its start).
 
 Prints per range (batch, plan_phase, exec_phase, commit_phase, readonly):
 host wall ms, device kernel ms, kernel launches, host synchronisations
@@ -35,10 +38,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
+from chip_smoke import PAGED  # noqa: E402
 from repro_torch.configs.bohm_workloads import YCSB_HIGH_10RMW, build  # noqa: E402
-from repro_torch.core.workloads import gen_scan_batch  # noqa: E402
+from repro_torch.core.engine import BohmEngine  # noqa: E402
+from repro_torch.core.workloads import gen_scan_batch, make_ycsb  # noqa: E402
 from repro_torch.obs import PhaseTracer  # noqa: E402
 
 PHASES = ("plan_phase", "exec_phase", "commit_phase")
@@ -108,6 +115,7 @@ def main() -> int:
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("breakdown: needs a CUDA device", file=sys.stderr)
@@ -119,6 +127,10 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}")
     cfg = YCSB_HIGH_10RMW
     eng, gen = build(cfg, seed=args.seed, device="cuda")
+    if args.paged:                             # the same stream, paged
+        eng = BohmEngine(cfg.num_records,
+                         make_ycsb(payload_words=cfg.payload_words),
+                         device="cuda", **PAGED)
     for _ in range(args.warmup):
         eng.run_batch(gen())
     pin = eng.begin_snapshot()

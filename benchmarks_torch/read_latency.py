@@ -2,7 +2,7 @@
 
     python3 benchmarks_torch/read_latency.py [--reps 50] [--seed 0]
 
-Three read paths, each timed ``--reps`` times after three warm-up calls,
+Four read paths, each timed ``--reps`` times after three warm-up calls,
 every call ended by ``torch.cuda.synchronize()``:
 
 * ``dense``: ``build(YCSB_HIGH_10RMW)`` (1,000,000 records, one shard,
@@ -11,6 +11,9 @@ every call ended by ``torch.cuda.synchronize()``:
   the pin, as ``chip_smoke.py``'s main path reads;
 * ``two_shards``: the same stream and read batch on
   ``BohmEngine(n_shards=2)`` (logical shards on one device);
+* ``paged``: the same stream and read batch on the paged store with
+  ``chip_smoke.PAGED``'s storage settings (adaptive K, ``k_max=16``, 2M
+  pages of 2 slots), read through ``mvcc_resolve_paged``;
 * ``state_lookup``: the serving state store's engine as ``ServeEngine``
   builds it (1024 request ids, ``ring_slots=4``, ``state_shards=2``) and
   a ``lookup``-shaped read-only batch of all 1024 ids.
@@ -32,8 +35,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
+from chip_smoke import PAGED  # noqa: E402
 from repro_torch.configs.bohm_workloads import YCSB_HIGH_10RMW, build  # noqa: E402
 from repro_torch.core.engine import BohmEngine  # noqa: E402
 from repro_torch.core.txn import make_batch  # noqa: E402
@@ -99,6 +105,13 @@ def main() -> int:
     pin = pinned_engine(eng, args.seed)
     times["two_shards"] = timed(lambda: eng.run_readonly_batch(scan, pin),
                                 args.reps)
+    del eng
+    eng = BohmEngine(cfg.num_records,
+                     make_ycsb(payload_words=cfg.payload_words),
+                     device="cuda", **PAGED)
+    pin = pinned_engine(eng, args.seed)
+    times["paged"] = timed(lambda: eng.run_readonly_batch(scan, pin),
+                           args.reps)
     del eng
     state = BohmEngine(1024, make_state_workload(), ring_slots=4, n_shards=2,
                        device="cuda")

@@ -20,7 +20,13 @@ the JAX package. Phases, each of which must pass:
    one with and without the ring's result as its prior — beside the old
    read path's call site (gathers + two windows launches + select) and
    the new one (two in-place launches), which must agree;
-   ``mvcc_resolve_paged`` at the paged path's slab; each
+   ``mvcc_resolve_paged`` in both forms — the page table read in place
+   (``rows=``), and its reads' table rows pre-gathered — on a
+   1,000,000 x 8 table mapped as the engine maps it over the paged
+   path's slab (2M pages of 2 slots) with the same 10,240 zipfian row
+   ids, beside the old call site (table copy + windows launch) and the
+   new one (one launch), which must agree, and at an odd float32 shape
+   (39 candidates a read, 33 words); each
    attention kernel (``decode_attention``, ``flash_attention_causal``)
    agrees with its plain version in float32 (1e-5) and bfloat16 (2e-2
    decode, 3e-2 prefill) at the reference tests' shapes, the serving
@@ -36,7 +42,9 @@ the JAX package. Phases, each of which must pass:
    transactions, spill tier on. Batch 1 must equal the serial oracle;
    a snapshot is pinned after batch 3 and, after 6 more batches, 1024
    read-only scans x 10 reads at the pin must return the pinned state
-   wherever they find a version; then snapshot_read, gc_sweep,
+   wherever they find a version; then snapshot_read of records 0-4095
+   and of the ids R, R+3 and 2R+1 past the store, which must read record
+   R-1 as the reference's clamped gathers do; gc_sweep,
    release_snapshot, gc_sweep. Both kernels must have launched during
    this phase, in their in-place forms only. An enabled ``PhaseTracer`` times each phase
    between two device synchronisations;
@@ -49,8 +57,9 @@ the JAX package. Phases, each of which must pass:
    ``benchmarks/paged.py``): 9 batches, a pin every 2 batches (at most 3
    held) with a ``gc_sweep`` (and the adaptive-K policy) at each, then a
    read-only batch at the oldest pin, ``snapshot_read`` of records
-   0-4095 at every pin, release, two sweeps. Found reads must equal the
-   head store cloned at their pin; ``mvcc_resolve_paged`` and
+   0-4095 and of the ids past the store at every pin, release, two
+   sweeps. Found reads must equal the head store cloned at their pin
+   (record R-1 for ids past the store); ``mvcc_resolve_paged`` and
    ``mvcc_resolve_masked`` (in place only) must have launched and the
    policy must have
    granted slots. The dense twin (``adaptive_k=True, k_max=16,
@@ -86,7 +95,7 @@ the JAX package. Phases, each of which must pass:
    lookups and state-store arrays.
 
 The line before the last is a JSON object with every kernel's launches,
-error and times (rows 1-2 in the in-place form the read path launches,
+error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -299,53 +308,89 @@ def new_call_site(rb, re, rp, pb, pe, prec, pp, rows, ts):
                                     in_place=True, prior=prior)
 
 
-def _paged_args(seed, P, S, max_pages, b, d, dtype):
+def _paged_table_args(seed, R, P, S, max_pages, B, D, dtype):
     """A consistent page slab on the card (every begin distinct, so one
-    slot is selected per read) and page-table rows shaped like the
-    engine's: entry 0 mapped, entry j mapped with probability 2^-j.
-    Below 5000 pages a row repeats no page."""
+    slot is selected per read), a page table [R, MaxP] mapped as the
+    engine maps it (entry 0 always, entry j with probability 2^-j) and
+    ``_dense_reads``' B zipfian row ids, each read's ts near a version of
+    its row's first page (versions live 1-29 ts). Returns the rows form's
+    inputs (table, begin, end, data, ts) and the row ids."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=g, device="cuda")
     begin = torch.randperm(P * S * 2, **kw)[:P * S].reshape(P, S).to(
         torch.int32)
     end = begin + torch.randint(1, 30, (P, S), **kw, dtype=torch.int32)
-    data = torch.randint(-1000, 1000, (P, S, d), **kw).to(dtype)
-    if P < 5000:
-        rows = torch.rand((b, P), **kw).argsort(dim=1)[:, :max_pages]
-    else:
-        rows = torch.randint(0, P, (b, max_pages), **kw)
-    keep = torch.rand((b, max_pages), **kw) < 0.5 ** torch.arange(
+    data = torch.randint(-1000, 1000, (P, S, D), **kw).to(dtype)
+    table = torch.randint(0, P, (R, max_pages), **kw)
+    keep = torch.rand((R, max_pages), **kw) < 0.5 ** torch.arange(
         max_pages, device="cuda")
-    # each read's ts lands near a version of its first page, so most
-    # reads find one (versions live 1-29 ts)
-    ts = begin[rows[:, 0], 0] + torch.randint(0, 10, (b,), **kw,
-                                              dtype=torch.int32)
-    rows = torch.where(keep, rows, -1).to(torch.int32).contiguous()
-    return [rows, begin.contiguous(), end.contiguous(), data, ts]
+    table = torch.where(keep, table, -1).to(torch.int32).contiguous()
+    reads, _ = _dense_reads(seed, R, B)
+    first = table[reads.long(), 0].long()
+    ts = begin[first, 0] + torch.randint(0, 10, (B,), **kw,
+                                         dtype=torch.int32)
+    return [table, begin.contiguous(), end.contiguous(), data, ts], reads
 
 
-def paged_need(args):
-    """Bytes and operations the paged resolve needs on these inputs.
-    Bytes: every page id, the begin/end of each DISTINCT mapped page
-    (S x 8 bytes; reads of hot pages repeat), ts, the payload of each
-    distinct selected slot, then vals and found. Operations: per mapped
-    slot the interval test and the max, per selected payload word one
-    add."""
-    rows, begin, end, data, ts = args
-    B, max_pages = rows.shape
-    S, D = begin.shape[1], data.shape[2]
-    mapped = rows >= 0
-    n_pages = int(torch.unique(rows[mapped]).numel())
-    safe = rows.clamp(min=0).long()
+def _paged_select(page_rows, begin, end, ts):
+    """What a paged read batch selects: (distinct mapped pages, mapped
+    entries, selected candidates, distinct selected slots)."""
+    P, S = begin.shape
+    mapped = (page_rows >= 0) & (page_rows < P)
+    safe = torch.where(mapped, page_rows, 0).long()
     t = ts[:, None, None]
     b = torch.where(mapped[..., None], begin[safe], 2 ** 31 - 1)
     vis = (b <= t) & (t < end[safe]) & mapped[..., None]
     best = torch.where(vis, b, kmod.NEG_INF).amax(dim=(1, 2))
     sel = vis & (b == best[:, None, None])
-    slots = safe[..., None] * S + torch.arange(S, device=rows.device)
-    n_sel = int(torch.unique(slots[sel]).numel())
-    words = B * max_pages + 2 * S * n_pages + B + n_sel * D + B * D
-    return 4 * words + B, 3 * S * int(mapped.sum()) + int(sel.sum()) * D
+    slots = safe[..., None] * S + torch.arange(S, device=begin.device)
+    return (int(torch.unique(page_rows[mapped]).numel()),
+            int(mapped.sum()), int(sel.sum()),
+            int(torch.unique(slots[sel]).numel()))
+
+
+def paged_need(page_rows, begin, end, data, ts):
+    """Bytes and operations of the paged windows form on these inputs.
+    Bytes: every page id, the begin/end of each DISTINCT mapped page
+    (S x 8 bytes; reads of hot pages repeat), ts, the payload of each
+    distinct selected slot, then vals and found. Operations: per mapped
+    slot the interval test and the max, per selected payload word one
+    add."""
+    (B, max_pages), S, D = page_rows.shape, begin.shape[1], data.shape[2]
+    n_pages, n_mapped, n_sel, n_slots = _paged_select(page_rows, begin, end,
+                                                      ts)
+    words = B * max_pages + 2 * S * n_pages + B + n_slots * D + B * D
+    return 4 * words + B, 3 * S * n_mapped + n_sel * D
+
+
+def table_need(table, begin, end, data, ts, rows):
+    """Bytes and operations of the paged rows form: per read its row id
+    and ts, the MaxP page ids of each DISTINCT row in range (hot zipfian
+    rows repeat), then as the windows form: the begin/end of each
+    distinct mapped page, the payload of each distinct selected slot,
+    vals and found."""
+    (R, max_pages), S, D = table.shape, begin.shape[1], data.shape[2]
+    B = ts.numel()
+    inside = (rows >= 0) & (rows < R)
+    n_rows = int(torch.unique(rows[inside]).numel())
+    page_rows = torch.where(inside[:, None],
+                            table[torch.where(inside, rows, 0).long()], -1)
+    n_pages, n_mapped, n_sel, n_slots = _paged_select(page_rows, begin, end,
+                                                      ts)
+    words = 2 * B + max_pages * n_rows + 2 * S * n_pages + n_slots * D \
+        + B * D
+    return 4 * words + B, 3 * S * n_mapped + n_sel * D
+
+
+def old_paged_site(table, begin, end, data, ts, rows):
+    """Row 3's call site before the rows form (``_resolve_two_level``,
+    paged): copy the reads' table rows, then one windows-form launch."""
+    return kmod.mvcc_resolve_paged(table[rows.long()], begin, end, data, ts)
+
+
+def new_paged_site(table, begin, end, data, ts, rows):
+    """Row 3's call site now: one launch over the table in place."""
+    return kmod.mvcc_resolve_paged(table, begin, end, data, ts, rows=rows)
 
 
 def _device_ms(fn, args, rounds=21, reps=20, warmup=5):
@@ -414,16 +459,11 @@ def _resolve_cases(label):
     return cases, ring + pool + [rows, ts]
 
 
-def _paged_cases():
-    """Row 3: [P, S, MaxP, B, D] — the paged path's slab, then an odd
-    one."""
-    for P, S, max_pages, B, D, dtype in (
-            (PAGED["pages_per_shard"], 2, 8, N_SCANS * OPS, 8, torch.int32),
-            (4099, 3, 5, 1000, 33, torch.float32)):
-        args = _paged_args(P + B, P, S, max_pages, B, D, dtype)
-        yield ("mvcc_resolve_paged", "path" if dtype == torch.int32
-               else "odd", [P, S, max_pages, B, D], dtype, args,
-               paged_need(args))
+# row 3 at the paged path's table and slab (R, P, S, MaxP, B, D) and at
+# an odd float32 shape (MaxP * S = 39 candidates, D = 33)
+TABLE_SHAPES = {"path": (1_000_000, PAGED["pages_per_shard"], 2, 8,
+                         N_SCANS * OPS, 8, torch.int32),
+                "odd": (1201, 4099, 3, 13, 1000, 33, torch.float32)}
 
 
 def _time_against_plain(name, what, kernel, plain, args):
@@ -451,10 +491,10 @@ def _row(name, err, ms, plain_ms, nbytes, ops, shape, host_ms):
 
 def kernel_phase():
     """Each resolve kernel against its plain version on the same card
-    inputs, timed beside it and its bound: rows 1-2 in both forms and
-    the two call sites, row 3. Returns the kernels line's rows: rows 1-2
-    in the form the read path launches (row 2 with its prior), with the
-    windows form's numbers beside them."""
+    inputs, timed beside it and its bound: rows 1-3 in both forms and
+    their call sites. Returns the kernels line's rows: rows 1-3 in the
+    form the read path launches (row 2 with its prior), with the windows
+    form's and the call sites' numbers beside them."""
     rows = {}
     for label in RESOLVE_SHAPES:
         cases, site = _resolve_cases(label)
@@ -501,25 +541,57 @@ def kernel_phase():
         rows["mvcc_resolve_masked"]["no_prior"] = {
             k: timed["mvcc_resolve_masked", "rows"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bytes")}
-    for name, label, shape, dtype, args, (nbytes, ops) in _paged_cases():
-        kernel = getattr(kmod, name)
-        plain = getattr(kmod, name + "_plain")
-        err, ms, plain_ms, host_ms = _time_against_plain(
-            name, f"{shape} {dtype}", kernel, plain, args)
-        row = _row(name, err, ms, plain_ms, nbytes, ops, shape, host_ms)
-        log(f"kernel {name} {shape} {str(dtype)[6:]}: equal to plain "
-            f"(max_abs_err {err}); device: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} us "
-            f"({nbytes} bytes); host per kernel call {host_ms * 1e3:.1f} us")
+    for label, (R, P, S, max_pages, B, D, dtype) in TABLE_SHAPES.items():
+        args, reads = _paged_table_args(R + B, R, P, S, max_pages, B, D,
+                                        dtype)
+        win = [args[0][reads.long()].contiguous()] + args[1:]
+        timed = {}
+        for form, a, kw, (nbytes, ops) in (
+                ("windows", win, {}, paged_need(*win)),
+                ("rows", args, dict(rows=reads), table_need(*args, reads))):
+            name = "mvcc_resolve_paged"
+            kernel = functools.partial(kmod.mvcc_resolve_paged, **kw)
+            plain = functools.partial(kmod.mvcc_resolve_paged_plain, **kw)
+            err, ms, plain_ms, host_ms = _time_against_plain(
+                name, f"{form} {label}", kernel, plain, a)
+            shape = [*a[0].shape, P, S, D, B]
+            timed[form] = _row(name, err, ms, plain_ms, nbytes, ops, shape,
+                               host_ms)
+            log(f"kernel {name} [{form}] {label} {shape} "
+                f"{str(dtype)[6:]}: equal to plain (max_abs_err {err}); "
+                f"device: kernel {ms * 1e3:.2f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, bound "
+                f"{timed[form]['bound_ms'] * 1e3:.3f} us ({nbytes} bytes); "
+                f"host per kernel call {host_ms * 1e3:.1f} us")
+        site = args + [reads]
+        old, new = old_paged_site(*site), new_paged_site(*site)
+        if not all(torch.equal(x, y) for x, y in zip(old, new)):
+            raise AssertionError(f"paged call sites differ ({label})")
+        old_ms, new_ms = (_device_ms(fn, site)
+                          for fn in (old_paged_site, new_paged_site))
+        old_host, new_host = (_host_ms(fn, site)
+                              for fn in (old_paged_site, new_paged_site))
+        log(f"paged call site {label} (found "
+            f"{new[1].float().mean().item():.4f}): old (table copy + windows"
+            f" launch) device {old_ms * 1e3:.2f} us, host "
+            f"{old_host * 1e3:.1f} us; new (1 in-place launch) device "
+            f"{new_ms * 1e3:.2f} us, host {new_host * 1e3:.1f} us; equal")
         if label == "path":
-            rows[name] = row
+            win = timed["windows"]
+            rows["mvcc_resolve_paged"] = dict(
+                timed["rows"], form="rows",
+                windows={k: win[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bytes", "shape", "host_ms")},
+                call_site_ms={"old": old_ms, "new": new_ms},
+                call_site_host_ms={"old": old_host, "new": new_host})
     return rows
 
 
 def check_in_place(path, launches, names):
-    """The path read only through the in-place forms of rows 1-2: no
+    """The path read only through the in-place forms of rows 1-3: no
     windows-form launch, and every kernel of ``names`` launched."""
-    for name in ("mvcc_resolve", "mvcc_resolve_masked"):
+    for name in ("mvcc_resolve", "mvcc_resolve_masked",
+                 "mvcc_resolve_paged"):
         if launches[f"{name}/windows"] != 0 or \
                 launches[f"{name}/rows"] != launches[name]:
             raise AssertionError(f"{path}: {name} launched a windows form "
@@ -532,6 +604,22 @@ def check_in_place(path, launches, names):
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
+def past_probe(n: int, R: int, device) -> torch.Tensor:
+    """Records 0..n-1, then R-1 and three ids past the store: R, R+3 and
+    2R+1, which read the last record as the reference's clamped gathers
+    do."""
+    return torch.cat([torch.arange(n), torch.tensor(
+        [R - 1, R, R + 3, 2 * R + 1])]).to(device=device, dtype=torch.int32)
+
+
+def check_past(vals, found, what):
+    """``past_probe``'s last three reads equal its read of record R-1."""
+    if not (torch.equal(vals[-3:], vals[-4:-3].expand(3, -1))
+            and bool((found[-3:] == found[-4]).all())):
+        raise AssertionError(f"{what}: reads past the store differ from "
+                             "the last record's")
+
+
 def drive(device: str, seed: int = 0, check_oracle: bool = False):
     """The main path on ``device``; returns what the replay compares."""
     cuda = device == "cuda"
@@ -579,10 +667,13 @@ def drive(device: str, seed: int = 0, check_oracle: bool = False):
         raise AssertionError("pinned read differs from the state at the pin")
     out["found_frac"] = float(rmetrics["found_frac"])
     out["ro_vals"], out["ro_found"] = vals.cpu().numpy(), found.cpu().numpy()
-    hot = torch.arange(4096, dtype=torch.int32, device=device)
+    hot = past_probe(4096, eng.num_records, device)
     s_vals, s_found = eng.snapshot_read(hot, pin)
-    if not torch.equal(s_vals[s_found], pinned_base[:4096][s_found]):
+    if not torch.equal(s_vals[s_found],
+                       pinned_base[hot.clamp(max=eng.num_records - 1).long()]
+                       [s_found]):
         raise AssertionError("snapshot_read differs from the pinned state")
+    check_past(s_vals, s_found, "dense")
     out["snap_found"] = s_found.cpu().numpy()
     out["spill_stats"] = eng.spill_stats()
     out["store_pinned"] = store_to_numpy(eng.store)
@@ -655,13 +746,15 @@ def drive_paged(device: str, cfg: dict, seed: int = 0):
         raise AssertionError("paged read-only batch differs from the state "
                              "at its pin")
     out["ro"] = (vals.cpu().numpy(), found.cpu().numpy())
-    probe = torch.arange(N_PROBE, dtype=torch.int32, device=device)
+    probe = past_probe(N_PROBE, wc.num_records, device)
     out["pin_reads"] = []
     for pin, base in pins:
         s_vals, s_found = eng.snapshot_read(probe, pin)
-        if not torch.equal(s_vals[s_found], base[:N_PROBE][s_found]):
+        expect = base[probe.clamp(max=wc.num_records - 1).long()]
+        if not torch.equal(s_vals[s_found], expect[s_found]):
             raise AssertionError(f"paged snapshot_read at {pin.ts} differs "
                                  "from the state at the pin")
+        check_past(s_vals, s_found, f"paged at {pin.ts}")
         out["pin_reads"].append((s_vals.cpu().numpy(),
                                  s_found.cpu().numpy()))
     out["storage"] = eng.storage_stats()

@@ -37,6 +37,7 @@ LAUNCHES: Dict[str, int] = {
     # (rows) or pre-gathered windows
     "mvcc_resolve/rows": 0, "mvcc_resolve/windows": 0,
     "mvcc_resolve_masked/rows": 0, "mvcc_resolve_masked/windows": 0,
+    "mvcc_resolve_paged/rows": 0, "mvcc_resolve_paged/windows": 0,
     "decode_attention": 0, "flash_attention_causal": 0,
     # which of flash_attention_causal's two kernels each launch took
     "flash_attention_causal/wgmma": 0,

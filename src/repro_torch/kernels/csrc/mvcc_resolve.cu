@@ -21,12 +21,18 @@
 //     read where it lies — no window copy;
 //   * buckets (mvcc_resolve_masked): row = max(want[i], 0) % NB, the
 //     read's spill bucket of the pool's [NB, S] arrays, computed here
-//     (store/spill.py::spill_buckets_for's rule) — no bucket copy.
+//     (store/spill.py::spill_buckets_for's rule) — no bucket copy;
+//   * paged (mvcc_resolve_paged): the row is a page-table row, rows[i]
+//     of the slab's own table [R, MaxP] (rows form, no table copy) or
+//     row i of pre-gathered page rows [B, MaxP] (windows form). Its K =
+//     MaxP * S candidates are k = p * S + s: slot s of page table[row, p]
+//     of the slab begin/end [P, S], data [P, S, D]. A page id outside
+//     [0, P) (-1 = unmapped) gives no candidate and loads nothing, so a
+//     corrupt table can never read outside the slab.
 // A row outside [0, rows) gives found = false and zero values and loads
-// nothing, as an unmapped page does in the paged kernel. With a prior
-// (the primary level's vals/found), a read whose prior found its version
-// copies the prior's values, sets found and loads nothing of its bucket:
-// the result is where(prior_found, prior_vals, s_vals), prior_found |
+// nothing. With a prior (the primary level's vals/found), a read whose
+// prior found its version copies the prior's values, sets found and loads
+// nothing of its bucket: the result is where(prior_found, prior_vals, s_vals), prior_found |
 // s_found, the two-level combine of store/sharded.py, in the same launch.
 //
 // What bounds it: memory traffic and, at the engine's sizes, latency.
@@ -55,23 +61,24 @@
 // by lane 0, and the ragged edge (B not a multiple of the block) is
 // masked by an index test over whole groups.
 //
-// The paged kernel reads its windows in place. Read i's candidates are
-// the S slots of every mapped page in its page-table row page_rows[i, :]
-// (-1 = unmapped) of the slab begin/end [P, S], data [P, S, D]. The
-// Pallas kernel maps the whole slab into VMEM as one grid-invariant block
-// and gathers from there; at the engine's size the slab is 2M pages x 2
-// slots x 10 words = 160 MB, far beyond shared memory, so here the lane
-// group loads its MaxP page ids and reads those pages' begin/end straight
-// from global memory, skipping unmapped entries (Pallas reads page 0 for
-// them and masks afterwards; this kernel loads nothing). What bounds it:
-// the page ids, the begin/end of each distinct mapped page (S x 8 bytes;
-// a zipfian batch reads hot pages again, and L2 serves the repeats), ts,
-// the selected slot's payload and the outputs — again HBM bytes, about
-// 0.5 MB at the engine's shape (B = 10240, MaxP = 8, S = 2, D = 8, most
-// records mapping one page), so a launch costs more than the bytes. Slab
-// offsets are 64-bit ((pid * S + s) * D + d exceeds 2^31 at 2^28 slots);
-// a page id outside [0, P) is treated as unmapped, so a corrupt table can
-// never read outside the slab.
+// The paged form is the same kernel with one more dependent load: the
+// lanes < MaxP of the group load the row's page ids at once (one 32-byte
+// sector at MaxP = 8), __shfl_sync hands candidate lane p * S + s its
+// page id, and that lane loads begin/end of slot pid * S + s only where
+// the page is mapped; the selected slots' payload offsets come from their
+// candidates' lanes by __shfl_sync as well. The Pallas kernel maps the
+// whole slab into VMEM as one grid-invariant block and gathers from
+// there; at the engine's size the slab is 2M pages x 2 slots x 10 words =
+// 160 MB, far beyond shared memory, so here each group reads its pages
+// straight from global memory. What bounds it: the row id and ts, the
+// MaxP page ids of each distinct row, the begin/end of each distinct
+// mapped page (S x 8 bytes; a zipfian batch reads hot rows and pages
+// again, and L2 serves the repeats), the selected slot's payload and the
+// outputs — again HBM bytes, well under a microsecond at the engine's
+// shape (B = 10240, MaxP = 8, S = 2, D = 8, most records mapping one
+// page), so the chain row id -> page id -> begin/end -> payload is what a
+// read waits on. Slab offsets are 64-bit ((pid * S + s) * D + d exceeds
+// 2^31 at 2^28 slots).
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -100,20 +107,44 @@ __device__ __forceinline__ bool visible(const int* __restrict__ begin,
   return (b <= t) & (t < e) & (r == w);
 }
 
+// The paged candidates of one round of a read's table row trow (k0, a
+// multiple of G): lane j's candidate is k = k0 + j (K = MaxP * S), slot
+// k % S of page table[trow, k / S]; the call returns that slot of the
+// slab, or -1 when there is none (k >= K, or an unmapped page). The
+// round's candidates span at most G pages from p_lo = k0 / S on (S = 1:
+// exactly G); lane j loads page id p_lo + j of the row — at MaxP = 8 one
+// 32-byte sector, all ids at once — and __shfl_sync hands each lane its
+// candidate's id. A page id outside [0, n_pages) (-1 among them) is
+// unmapped. Every lane of the group must call it (it shuffles).
+__device__ __forceinline__ long long paged_slot(
+    const int* __restrict__ table, long long trow, int k0, int lane, int G,
+    unsigned gmask, int K, int max_pages, int S, long long n_pages) {
+  const int k = k0 + lane;
+  const int p_lo = k0 / S;
+  const int p_n = min((k0 + G - 1) / S, max_pages - 1) - p_lo + 1;
+  const int own = lane < p_n ? table[trow * max_pages + p_lo + lane] : -1;
+  const int pid = __shfl_sync(gmask, own, (min(k, K - 1) / S) - p_lo, G);
+  if (k >= K || pid < 0 || pid >= n_pages) return -1;
+  return static_cast<long long>(pid) * S + k % S;
+}
+
 // One lane group of 2^lanes_log2 lanes per read (see the header). `rows`
 // is null except in the rows form; `by_bucket` selects the buckets form
 // of the masked kernel; `prior_vals` / `prior_found` are null without a
-// prior.
-template <typename T, bool MASKED>
+// prior. PAGED: `table` is the page table ([n_rows, max_pages]; with
+// `rows` null, one row per read), K = max_pages * S, and the version
+// arrays are the slab's [n_pages, S].
+template <typename T, bool MASKED, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-resolve_kernel(const int* __restrict__ rows, const int* __restrict__ begin,
-               const int* __restrict__ end, const int* __restrict__ rec,
-               const int* __restrict__ want, const T* __restrict__ data,
-               const int* __restrict__ ts, const T* __restrict__ prior_vals,
+resolve_kernel(const int* __restrict__ rows, const int* __restrict__ table,
+               const int* __restrict__ begin, const int* __restrict__ end,
+               const int* __restrict__ rec, const int* __restrict__ want,
+               const T* __restrict__ data, const int* __restrict__ ts,
+               const T* __restrict__ prior_vals,
                const bool* __restrict__ prior_found, T* __restrict__ vals,
                bool* __restrict__ found, long long n_reads,
                long long n_rows, int K, int D, int lanes_log2,
-               bool by_bucket) {
+               bool by_bucket, int max_pages, int S, long long n_pages) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long i = tid >> lanes_log2;
@@ -142,27 +173,53 @@ resolve_kernel(const int* __restrict__ rows, const int* __restrict__ begin,
     if (lane == 0) found[i] = false;
     return;
   }
+  // candidate k's slot: dense slot0 + k; paged through the table row
+  const long long slot0 = PAGED ? 0 : row * K;
+  auto slot_of = [&](int k0) -> long long {
+    if (PAGED)
+      return paged_slot(table, row, k0, lane, G, gmask, K, max_pages, S,
+                        n_pages);
+    return k0 + lane < K ? slot0 + k0 + lane : -1;
+  };
 
-  // pass 1: lane k tests slot k (strided past G); the group's max
-  const long long slot0 = row * K;
+  // pass 1: lane j tests candidate k0 + j of each round; the group's max.
+  // Paged rounds run on every lane (they shuffle page ids); the dense
+  // loop lets lanes past K stop early, which whole rounds would cost the
+  // dense forms 0.1-0.2 us on an H100 (benchmarks_torch/resolve_kernels.py)
   int best = INT_MIN, b_own = INT_MIN;
-  bool vis_own = false;  // the lane's slot of the first round
-  for (int k = lane; k < K; k += G) {
-    int b;
-    const bool v = visible<MASKED>(begin, end, rec, slot0 + k, t, w, b);
-    if (k == lane) {
-      b_own = b;
-      vis_own = v;
+  bool vis_own = false;       // the lane's candidate of the first round
+  long long slot_own = -1;
+  if constexpr (PAGED) {
+    for (int k0 = 0; k0 < K; k0 += G) {
+      const long long slot = slot_of(k0);
+      int b = INT_MIN;
+      bool v = false;
+      if (slot >= 0) v = visible<MASKED>(begin, end, rec, slot, t, w, b);
+      if (k0 == 0) {
+        slot_own = slot;
+        b_own = b;
+        vis_own = v;
+      }
+      if (v && b > best) best = b;
     }
-    if (v && b > best) best = b;
+  } else {
+    for (int k = lane; k < K; k += G) {
+      int b;
+      const bool v = visible<MASKED>(begin, end, rec, slot0 + k, t, w, b);
+      if (k == lane) {
+        b_own = b;
+        vis_own = v;
+      }
+      if (v && b > best) best = b;
+    }
   }
   for (int off = G >> 1; off > 0; off >>= 1)
     best = max(best, __shfl_xor_sync(gmask, best, off, G));
   if (lane == 0) found[i] = best > INT_MIN;
 
-  // pass 2: the slots tied at best as a bit mask per round of G slots
-  // (the same on every lane), then lane d sums word d of those slots in
-  // ascending k
+  // pass 2: the candidates tied at best as a bit mask per round (the same
+  // on every lane), then lane d sums word d of their slots in ascending
+  // candidate order; a paged slot comes from its candidate's lane
   const unsigned first =
       (__ballot_sync(gmask, vis_own && b_own == best) & gmask) >> base;
   const T* d_row = data + slot0 * D;
@@ -171,66 +228,22 @@ resolve_kernel(const int* __restrict__ rows, const int* __restrict__ begin,
     T acc = T(0);
     for (int k0 = 0; k0 < K; k0 += G) {
       unsigned sel = first;
-      if (k0 > 0) {  // K > G: this round's slots again (from L1)
+      long long slot = slot_own;
+      if (k0 > 0) {  // K > G: this round's candidates again (from L1)
+        slot = slot_of(k0);
         int b = INT_MIN;
         bool v = false;
-        if (k0 + lane < K)
-          v = visible<MASKED>(begin, end, rec, slot0 + k0 + lane, t, w, b);
+        if (slot >= 0) v = visible<MASKED>(begin, end, rec, slot, t, w, b);
         sel = (__ballot_sync(gmask, v && b == best) & gmask) >> base;
       }
       for (; sel != 0; sel &= sel - 1) {
-        const long long k = k0 + __ffs(sel) - 1;
-        if (d < D) acc = add_wrap(acc, d_row[k * D + d]);
+        const int j = __ffs(sel) - 1;
+        const T* src = PAGED ? data + __shfl_sync(gmask, slot, j, G) * D
+                             : d_row + static_cast<long long>(k0 + j) * D;
+        if (d < D) acc = add_wrap(acc, src[d]);
       }
     }
     if (d < D) v_row[d] = acc;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-resolve_paged_kernel(const int* __restrict__ page_rows,
-                     const int* __restrict__ begin,
-                     const int* __restrict__ end, const T* __restrict__ data,
-                     const int* __restrict__ ts, T* __restrict__ vals,
-                     bool* __restrict__ found, long long n_reads,
-                     int max_pages, int n_pages, int S, int D,
-                     int lanes_log2) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long i = tid >> lanes_log2;
-  const int lane = static_cast<int>(tid & ((1 << lanes_log2) - 1));
-  if (i >= n_reads) return;  // ragged edge of the last block
-
-  const int t = ts[i];
-  const int* row = page_rows + i * max_pages;
-
-  int best = INT_MIN;
-  for (int p = 0; p < max_pages; ++p) {
-    const int pid = row[p];
-    if (pid < 0 || pid >= n_pages) continue;  // unmapped: nothing loaded
-    const long long slot0 = static_cast<long long>(pid) * S;
-    for (int s = 0; s < S; ++s) {
-      const int b = begin[slot0 + s];
-      if (b <= t && t < end[slot0 + s] && b > best) best = b;
-    }
-  }
-  if (lane == 0) found[i] = best > INT_MIN;
-
-  T* v_row = vals + i * static_cast<long long>(D);
-  for (int d = lane; d < D; d += (1 << lanes_log2)) {
-    T acc = T(0);
-    for (int p = 0; p < max_pages; ++p) {
-      const int pid = row[p];
-      if (pid < 0 || pid >= n_pages) continue;
-      const long long slot0 = static_cast<long long>(pid) * S;
-      for (int s = 0; s < S; ++s) {
-        const int b = begin[slot0 + s];
-        if (b == best && b <= t && t < end[slot0 + s])
-          acc = add_wrap(acc, data[(slot0 + s) * D + d]);
-      }
-    }
-    v_row[d] = acc;
   }
 }
 
@@ -240,34 +253,22 @@ int lanes_log2_for(int n) {
   return l;
 }
 
-template <typename T, bool MASKED>
-int launch(const int* rows, const int* begin, const int* end, const int* rec,
-           const int* want, const T* data, const int* ts,
-           const T* prior_vals, const bool* prior_found, T* vals,
-           bool* found, long long n_reads, int n_rows, bool by_bucket, int K,
-           int D, cudaStream_t stream) {
+// K: candidates a read (dense: slots a row; paged: max_pages * S).
+template <typename T, bool MASKED, bool PAGED>
+int launch(const int* rows, const int* table, const int* begin,
+           const int* end, const int* rec, const int* want, const T* data,
+           const int* ts, const T* prior_vals, const bool* prior_found,
+           T* vals, bool* found, long long n_reads, int n_rows,
+           bool by_bucket, int K, int D, int max_pages, int S, int n_pages,
+           cudaStream_t stream) {
   const int ll = lanes_log2_for(K > D ? K : D);
   const long long threads = n_reads << ll;
   const long long blocks = (threads + kThreads - 1) / kThreads;
-  resolve_kernel<T, MASKED><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(rows, begin, end, rec, want, data, ts,
-                                        prior_vals, prior_found, vals, found,
-                                        n_reads, n_rows, K, D, ll, by_bucket);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_paged(const int* page_rows, const int* begin, const int* end,
-                 const T* data, const int* ts, T* vals, bool* found,
-                 long long n_reads, int max_pages, int n_pages, int S, int D,
-                 cudaStream_t stream) {
-  const int ll = lanes_log2_for(D);
-  const long long threads = n_reads << ll;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  resolve_paged_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            stream>>>(page_rows, begin, end, data, ts, vals,
-                                      found, n_reads, max_pages, n_pages, S,
-                                      D, ll);
+  resolve_kernel<T, MASKED, PAGED>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          rows, table, begin, end, rec, want, data, ts, prior_vals,
+          prior_found, vals, found, n_reads, n_rows, K, D, ll, by_bucket,
+          max_pages, S, n_pages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,18 +283,20 @@ int mvcc_resolve_i32(const int* rows, const int* begin, const int* end,
                      const int* data, const int* ts, int* vals, bool* found,
                      long long n_reads, int n_rows, int K, int D,
                      void* stream) {
-  return launch<int, false>(rows, begin, end, nullptr, nullptr, data, ts,
-                            nullptr, nullptr, vals, found, n_reads, n_rows,
-                            false, K, D, static_cast<cudaStream_t>(stream));
+  return launch<int, false, false>(
+      rows, nullptr, begin, end, nullptr, nullptr, data, ts, nullptr,
+      nullptr, vals, found, n_reads, n_rows, false, K, D, 0, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 int mvcc_resolve_f32(const int* rows, const int* begin, const int* end,
                      const float* data, const int* ts, float* vals,
                      bool* found, long long n_reads, int n_rows, int K, int D,
                      void* stream) {
-  return launch<float, false>(rows, begin, end, nullptr, nullptr, data, ts,
-                              nullptr, nullptr, vals, found, n_reads, n_rows,
-                              false, K, D, static_cast<cudaStream_t>(stream));
+  return launch<float, false, false>(
+      rows, nullptr, begin, end, nullptr, nullptr, data, ts, nullptr,
+      nullptr, vals, found, n_reads, n_rows, false, K, D, 0, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // by_bucket == 0: the windows form (n_rows = n_reads); 1: the buckets
@@ -304,10 +307,10 @@ int mvcc_resolve_masked_i32(const int* begin, const int* end, const int* rec,
                             int* vals, bool* found, long long n_reads,
                             int n_rows, int by_bucket, int K, int D,
                             void* stream) {
-  return launch<int, true>(nullptr, begin, end, rec, want, data, ts,
-                           prior_vals, prior_found, vals, found, n_reads,
-                           n_rows, by_bucket != 0, K, D,
-                           static_cast<cudaStream_t>(stream));
+  return launch<int, true, false>(
+      nullptr, nullptr, begin, end, rec, want, data, ts, prior_vals,
+      prior_found, vals, found, n_reads, n_rows, by_bucket != 0, K, D, 0, 0,
+      0, static_cast<cudaStream_t>(stream));
 }
 
 int mvcc_resolve_masked_f32(const int* begin, const int* end, const int* rec,
@@ -316,30 +319,36 @@ int mvcc_resolve_masked_f32(const int* begin, const int* end, const int* rec,
                             float* vals, bool* found, long long n_reads,
                             int n_rows, int by_bucket, int K, int D,
                             void* stream) {
-  return launch<float, true>(nullptr, begin, end, rec, want, data, ts,
-                             prior_vals, prior_found, vals, found, n_reads,
-                             n_rows, by_bucket != 0, K, D,
-                             static_cast<cudaStream_t>(stream));
+  return launch<float, true, false>(
+      nullptr, nullptr, begin, end, rec, want, data, ts, prior_vals,
+      prior_found, vals, found, n_reads, n_rows, by_bucket != 0, K, D, 0, 0,
+      0, static_cast<cudaStream_t>(stream));
 }
 
-int mvcc_resolve_paged_i32(const int* page_rows, const int* begin,
-                           const int* end, const int* data, const int* ts,
-                           int* vals, bool* found, long long n_reads,
-                           int max_pages, int n_pages, int S, int D,
-                           void* stream) {
-  return launch_paged<int>(page_rows, begin, end, data, ts, vals, found,
-                           n_reads, max_pages, n_pages, S, D,
-                           static_cast<cudaStream_t>(stream));
+// rows == null: the windows form (table = page_rows [n_reads, max_pages],
+// n_rows = n_reads); else the rows form over the page table
+// [n_rows, max_pages].
+int mvcc_resolve_paged_i32(const int* rows, const int* table,
+                           const int* begin, const int* end, const int* data,
+                           const int* ts, int* vals, bool* found,
+                           long long n_reads, int n_rows, int max_pages,
+                           int n_pages, int S, int D, void* stream) {
+  return launch<int, false, true>(
+      rows, table, begin, end, nullptr, nullptr, data, ts, nullptr, nullptr,
+      vals, found, n_reads, n_rows, false, max_pages * S, D, max_pages, S,
+      n_pages, static_cast<cudaStream_t>(stream));
 }
 
-int mvcc_resolve_paged_f32(const int* page_rows, const int* begin,
-                           const int* end, const float* data, const int* ts,
-                           float* vals, bool* found, long long n_reads,
+int mvcc_resolve_paged_f32(const int* rows, const int* table,
+                           const int* begin, const int* end,
+                           const float* data, const int* ts, float* vals,
+                           bool* found, long long n_reads, int n_rows,
                            int max_pages, int n_pages, int S, int D,
                            void* stream) {
-  return launch_paged<float>(page_rows, begin, end, data, ts, vals, found,
-                             n_reads, max_pages, n_pages, S, D,
-                             static_cast<cudaStream_t>(stream));
+  return launch<float, false, true>(
+      rows, table, begin, end, nullptr, nullptr, data, ts, nullptr, nullptr,
+      vals, found, n_reads, n_rows, false, max_pages * S, D, max_pages, S,
+      n_pages, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -30,8 +30,8 @@ The in-place form reads the store where it lies, with no window copy:
   bucket: the result is ``where(prior_found, prior_vals, s_vals)``,
   ``prior_found | s_found``, the two-level combine in one launch.
 
-The paged variant reads the windows in place, through the reads'
-page-table rows:
+The paged variant reads the page slab in place, through page-table
+rows:
 
     page_rows [B, MaxP] i32   page ids of each read's record (-1 = unmapped)
     begin/end [P, S]    i32   the page slab
@@ -39,7 +39,14 @@ page-table rows:
     ts        [B]       i32
 
 read i's candidates are the S slots of every mapped page of its row; an
-unmapped entry contributes nothing and loads nothing.
+entry outside [0, P) (-1 among them) is unmapped: it contributes nothing
+and loads nothing. That is its windows form, the Pallas kernel's
+interface. Its in-place form reads the page table where it lies too:
+
+* ``mvcc_resolve_paged(page_table, begin, end, data, ts, rows=rows)``:
+  ``page_table`` [R, MaxP] is the slab's own table and read i's pages
+  are ``page_table[rows[i], :]``; a row outside [0, R) gives found =
+  False and zeros.
 
 Tie rule: like the Pallas kernels (``repro/kernels/mvcc_resolve.py:69-73``)
 both the CUDA kernels and the plain versions SUM the payloads of every
@@ -49,7 +56,7 @@ one), not the first one as ``repro/kernels/ref.py`` does.
 The wrappers take the plain version only for CPU tensors. For CUDA
 tensors they launch the kernel (``csrc/mvcc_resolve.cu``, built on first
 use by ``_build``) or raise; each launch adds one to ``LAUNCHES[name]``
-and, for the first two, to ``LAUNCHES[name + "/rows"]`` (in place) or
+and to ``LAUNCHES[name + "/rows"]`` (in place) or
 ``LAUNCHES[name + "/windows"]``.
 """
 from __future__ import annotations
@@ -125,14 +132,25 @@ def mvcc_resolve_masked_plain(begin: torch.Tensor, end: torch.Tensor,
 
 def mvcc_resolve_paged_plain(page_rows: torch.Tensor, begin: torch.Tensor,
                              end: torch.Tensor, data: torch.Tensor,
-                             ts: torch.Tensor
+                             ts: torch.Tensor,
+                             rows: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather each read's pages into a [B, MaxP*S] window (unmapped pages'
-    slots emptied: begin = end = INF, payload 0), then the dense select."""
+    slots emptied: begin = end = INF, payload 0), then the dense select.
+    With ``rows``: ``page_rows`` is the page table; gather the reads'
+    table rows, resolve them, and give rows outside [0, R) found = False
+    and zeros."""
+    if rows is not None:
+        inside = (rows >= 0) & (rows < page_rows.shape[0])
+        safe = torch.where(inside, rows, 0).long()
+        vals, found = mvcc_resolve_paged_plain(page_rows[safe], begin, end,
+                                               data, ts)
+        return torch.where(inside[:, None], vals, 0), found & inside
     B, max_pages = page_rows.shape
-    S = begin.shape[1]
-    safe = page_rows.clamp(min=0).long()
-    mapped = (page_rows >= 0)[..., None]                  # [B, MaxP, 1]
+    P, S = begin.shape
+    mapped = (page_rows >= 0) & (page_rows < P)
+    safe = torch.where(mapped, page_rows, 0).long()
+    mapped = mapped[..., None]                            # [B, MaxP, 1]
     inf = 2 ** 31 - 1
     w_begin = torch.where(mapped, begin[safe], inf).reshape(B, max_pages * S)
     w_end = torch.where(mapped, end[safe], inf).reshape(B, max_pages * S)
@@ -191,7 +209,7 @@ def _check(begin, end, data, ts, rec=None, want=None, rows=None,
     return dev
 
 
-def _launch(name: str, form: Optional[str], inputs, data: torch.Tensor,
+def _launch(name: str, form: str, inputs, data: torch.Tensor,
             B: int, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``<name>_<dtype>`` of the C library: pointers of ``inputs``
     (None passes a null pointer), then of the outputs vals [B, D] and
@@ -212,8 +230,7 @@ def _launch(name: str, form: Optional[str], inputs, data: torch.Tensor,
                 [*(None if x is None else x.data_ptr() for x in inputs),
                  vals.data_ptr(), found.data_ptr(), B, *dims], dev)
     LAUNCHES[name] += 1
-    if form is not None:
-        LAUNCHES[f"{name}/{form}"] += 1
+    LAUNCHES[f"{name}/{form}"] += 1
     return vals, found
 
 
@@ -253,31 +270,46 @@ def mvcc_resolve_masked(begin: torch.Tensor, end: torch.Tensor,
 
 def mvcc_resolve_paged(page_rows: torch.Tensor, begin: torch.Tensor,
                        end: torch.Tensor, data: torch.Tensor,
-                       ts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                       ts: torch.Tensor, rows: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Visibility through the page table: read i's candidates are the
-    slots of the mapped pages in ``page_rows[i]`` (see module doc)."""
+    slots of the mapped pages in ``page_rows[i]``, or with ``rows`` in
+    the table row ``page_rows[rows[i]]`` read in place (see module
+    doc)."""
     if page_rows.dim() != 2 or begin.dim() != 2 or data.dim() != 3 \
             or ts.dim() != 1:
-        raise ValueError("expected page_rows [B, MaxP], begin/end [P, S], "
-                         "data [P, S, D], ts [B]")
-    B, max_pages = page_rows.shape
+        raise ValueError("expected page_rows [B, MaxP] (or a page table "
+                         "[R, MaxP] with rows), begin/end [P, S], data "
+                         "[P, S, D], ts [B]")
+    n_rows, max_pages = page_rows.shape
     P, S = begin.shape
+    B = ts.shape[0]
     if (tuple(end.shape) != (P, S) or tuple(data.shape[:2]) != (P, S)
-            or ts.shape[0] != B):
+            or (rows is None and n_rows != B)):
         raise ValueError(f"shape mismatch: page_rows "
                          f"{tuple(page_rows.shape)}, begin "
                          f"{tuple(begin.shape)}, end {tuple(end.shape)}, "
                          f"data {tuple(data.shape)}, ts {tuple(ts.shape)}")
+    if P == 0 or max_pages == 0:
+        raise ValueError("the page slab and the table need at least one "
+                         "page")
     ints = [page_rows, begin, end, ts]
+    if rows is not None:
+        if tuple(rows.shape) != (B,):
+            raise ValueError("rows must be [B]")
+        if n_rows == 0:
+            raise ValueError("the in-place form needs at least one row")
+        ints.append(rows)
     if any(x.dtype != torch.int32 for x in ints):
-        raise TypeError("page_rows/begin/end/ts must be int32")
+        raise TypeError("page_rows/begin/end/ts (and rows) must be int32")
     if data.dtype not in _SUFFIX:
         raise TypeError(f"data must be int32 or float32, got {data.dtype}")
     if any(x.device != data.device for x in ints):
         raise ValueError("all inputs must be on one device")
     if data.device.type == "cpu":
-        return mvcc_resolve_paged_plain(page_rows, begin, end, data, ts)
-    return _launch("mvcc_resolve_paged", None,
-                   (page_rows, begin, end, data, ts), data, B,
-                   (max_pages, P, S, data.shape[2]))
-
+        return mvcc_resolve_paged_plain(page_rows, begin, end, data, ts,
+                                        rows)
+    return _launch("mvcc_resolve_paged",
+                   "windows" if rows is None else "rows",
+                   (rows, page_rows, begin, end, data, ts), data, B,
+                   (n_rows, max_pages, P, S, data.shape[2]))

@@ -186,8 +186,10 @@ def gather_windows_paged(slab: PageSlab, records: torch.Tensor
                                     torch.Tensor]:
     """Materialise per-read candidate windows through the page table:
     records [B] -> (begin [B, MaxP*S], end, payload [B, MaxP*S, D]).
+    Ids are clamped to [0, R - 1], as the reference's gather is.
     Diagnostic path; reads go through the ``mvcc_resolve_paged`` kernel."""
-    rec = records.to(torch.int32).clamp(min=0).long()
+    rec = records.to(torch.int32).clamp(
+        0, slab.page_table.shape[0] - 1).long()
     pt = slab.page_table[rec]                          # [B, MaxP]
     safe = pt.clamp(min=0).long()
     return mask_gathered_windows(pt, slab.begin[safe], slab.end[safe],

@@ -138,9 +138,10 @@ def gather_windows(ring: VersionRing, records: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-gather per-read candidate windows for ``mvcc_resolve``'s
     windows form: records [B] -> (begin [B, K], end [B, K], payload
-    [B, K, D]). A diagnostic path: reads take the ring in place
+    [B, K, D]). Ids are clamped to [0, R - 1], as the reference's gather
+    is. A diagnostic path: reads take the ring in place
     (``mvcc_resolve(..., rows=)``)."""
-    rec = records.to(torch.int32).clamp(min=0).long()
+    rec = records.to(torch.int32).clamp(0, ring.begin.shape[0] - 1).long()
     return ring.begin[rec], ring.end[rec], ring.payload[rec]
 
 

@@ -17,12 +17,13 @@ At ``n_shards == 1`` ``commit_sharded`` and ``resolve_sharded`` keep
 the reference's fast path, for two reasons. The loop would stack a copy
 of the whole store every batch, where the fast path adds a shard axis
 to a view. And the reference clamps a negative record id to 0 only on
-that path (the loop's ownership test wraps it to the last record), which
-the parity tests hold the port to.
+that path (the loop's ownership test sends it to the last shard), which
+the parity tests hold the port to. On both paths an id past the store
+reads its shard's last row, as the reference's clamped gathers do.
 
 Snapshot reads are two-level per shard: the primary goes through
 ``mvcc_resolve`` (dense: the ring's rows read in place) or
-``mvcc_resolve_paged`` (paged: the reads' page-table rows, the slab read
+``mvcc_resolve_paged`` (paged: the page table's rows and the slab read
 in place), then ``mvcc_resolve_masked`` reads the record's spill bucket
 in place with the primary's result as its prior; at most one level
 holds the visible version, so combining is a select, done inside that
@@ -442,7 +443,10 @@ def gather_windows_sharded(store: ShardedVersionStore,
     n = store.n_shards
     rec = records.to(torch.int32).clamp(min=0).long()
     shard = rec % n
-    loc = torch.div(rec, n, rounding_mode="floor")
+    # an id past the store reads its shard's last row, as the
+    # reference's clamped gathers do
+    loc = torch.div(rec, n, rounding_mode="floor").clamp(
+        max=store.records_per_shard - 1)
     if store.paged:
         p = store.pages
         pt = p.page_table[shard, loc]                          # [B, MaxP]
@@ -461,17 +465,17 @@ def _resolve_two_level(prim_s, spill_s: Optional[SpillPool],
     primary exactly when it moves to spill and [begin, end) windows
     partition a record's timeline, so at most one level holds the
     version visible at ``ts`` and combining is a select. ``rows`` are the
-    reads' shard-local record ids clamped at 0, ``want`` the same ids
-    unclamped (the spill pool's owner test), as in the reference. A dense
-    primary is read in place through ``mvcc_resolve(rows=)``, a page slab
-    through the reads' page-table rows and ``mvcc_resolve_paged``; the
-    spill bucket is read in place by ``mvcc_resolve_masked``, which takes
-    the primary's result as its prior and makes the select: two launches
-    a shard, no window copy."""
+    reads' shard-local record ids clamped to [0, Rl - 1], ``want`` the
+    same ids unclamped (the spill pool's owner test), as in the
+    reference. The primary is read in place: a dense ring's rows through
+    ``mvcc_resolve(rows=)``, a page slab through its page table's rows
+    and ``mvcc_resolve_paged(rows=)``; the spill bucket is read in place
+    by ``mvcc_resolve_masked``, which takes the primary's result as its
+    prior and makes the select: two launches a shard, no copy."""
     if isinstance(prim_s, PageSlab):
-        vals, found = ops.mvcc_resolve_paged(prim_s.page_table[rows.long()],
-                                             prim_s.begin, prim_s.end,
-                                             prim_s.payload, ts)
+        vals, found = ops.mvcc_resolve_paged(prim_s.page_table, prim_s.begin,
+                                             prim_s.end, prim_s.payload, ts,
+                                             rows=rows)
     else:
         vals, found = ops.mvcc_resolve(prim_s.begin, prim_s.end,
                                        prim_s.payload, ts, rows=rows)
@@ -487,22 +491,25 @@ def resolve_sharded(store: ShardedVersionStore, records: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve ``records`` [B] at snapshot timestamps ``ts`` [B] through
     the kernels, primary level then spill, once per shard; results merge
-    by ownership. Returns (vals [B, D], found [B])."""
+    by ownership. An id past the store reads its shard's last row and a
+    negative one row 0, as the reference's clamped gathers do; the spill
+    pool's owner test takes the id unclamped above, so it never matches
+    there. Returns (vals [B, D], found [B])."""
     if mesh is not None:
         raise _unported("the mesh= substrate")
-    n = store.n_shards
+    n, last = store.n_shards, store.records_per_shard - 1
     records = records.to(torch.int32)
     ts = ts.to(torch.int32).contiguous()
     if n == 1:
         local = records.clamp(min=0).contiguous()
         return _resolve_two_level(_ring0(store), _take_spill(store, 0),
-                                  local, local, ts)
-    # a read's shard-local id is the same for every shard (and in range
-    # for each when the record is the store's): a shard that does not own
-    # the read resolves it too, and the merge drops that result
+                                  local.clamp(max=last), local, ts)
+    # a read's shard-local id is the same for every shard: a shard that
+    # does not own the read resolves it too, and the merge drops that
+    # result
     owner = records % n
     local = torch.div(records, n, rounding_mode="floor")
-    rows = local.clamp(min=0)
+    rows = local.clamp(0, last)
     vals = found = None
     for s in range(n):
         owned = owner == s

@@ -384,13 +384,144 @@ def test_engine_reads_launch_only_in_place_forms(cuda, kw):
                       + eng.snapshot_read(torch.arange(R), pin))
         if dev == "cuda":
             launches = dict(mod.LAUNCHES)
-    assert launches["mvcc_resolve/windows"] == 0
-    assert launches["mvcc_resolve_masked/windows"] == 0
+    for name in ("mvcc_resolve", "mvcc_resolve_masked", "mvcc_resolve_paged"):
+        assert launches[f"{name}/windows"] == 0
     assert launches["mvcc_resolve_masked/rows"] > 0
-    primary = "mvcc_resolve_paged" if kw.get("paged") else "mvcc_resolve/rows"
+    primary = ("mvcc_resolve_paged/rows" if kw.get("paged")
+               else "mvcc_resolve/rows")
     assert launches[primary] == launches["mvcc_resolve_masked/rows"]
     for a, b in zip(reads["cuda"], reads["cpu"]):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# mvcc_resolve_paged's rows form: the page table read in place
+# ---------------------------------------------------------------------------
+# (R, P, S, MaxP, D, B): the paged path's table at a reduced R with its
+# read batch; k_max=16 with one slot a page; MaxP * S past one lane group
+# (39, 40) and D past it (33); one row, one page
+TABLE_SHAPES = [(37, 23, 3, 4, 5, 101), (1, 1, 1, 1, 1, 1),
+                (500, 1000, 2, 8, 8, 10240), (300, 200, 1, 16, 8, 777),
+                (120, 300, 3, 13, 33, 500), (64, 90, 1, 40, 3, 333),
+                (100_000, 200_000, 2, 8, 8, 10243)]
+
+
+def _table_inputs(seed, R, P, S, max_pages, D, B, dtype, tied=False):
+    """A slab, a page table [R, MaxP] and reads: entry j of a row mapped
+    with probability 2^-j (entry 0 always, as the engine maps a record's
+    first page), page ids drawn with replacement (a row may repeat a
+    page, whose slots then count twice) and some >= P (unmapped), row ids
+    with entries outside [0, R), ts near a version of the row's first
+    page. Begins are distinct unless ``tied``, where they collide often
+    and the tie-sum rule decides (integer-valued float32 sums stay
+    exact)."""
+    rng = np.random.default_rng(seed)
+    if tied:
+        begin = rng.integers(0, 8, (P, S)).astype(np.int32)
+    else:
+        begin = rng.permutation(P * S * 2)[:P * S].reshape(P, S).astype(
+            np.int32)
+    end = begin + rng.integers(1, 30, (P, S)).astype(np.int32)
+    data = rng.integers(-1000, 1000, (P, S, D)).astype(dtype)
+    table = rng.integers(0, P, (R, max_pages)).astype(np.int32)
+    keep = rng.random((R, max_pages)) < 0.5 ** np.arange(max_pages)
+    table = np.where(keep, table, -1).astype(np.int32)
+    table[rng.random((R, max_pages)) < 0.05] = P + 2     # past the slab
+    rows = rng.integers(-2, R + 2, B).astype(np.int32)
+    first = np.maximum(table[np.clip(rows, 0, R - 1), 0], 0) % P
+    ts = (begin[first, 0] + rng.integers(0, 10, B)).astype(np.int32)
+    return [torch.from_numpy(a) for a in (table, begin, end, data, ts, rows)]
+
+
+@pytest.mark.parametrize("R,P,S,max_pages,D,B", TABLE_SHAPES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("tied", [False, True])
+def test_resolve_paged_rows_form_matches_plain(cuda, R, P, S, max_pages, D,
+                                               B, dtype, tied):
+    table, begin, end, data, ts, rows = _table_inputs(
+        R + P + B, R, P, S, max_pages, D, B, dtype, tied)
+    vals, found = _check_form(
+        "mvcc_resolve_paged", "rows", mod.mvcc_resolve_paged, cuda["paged"],
+        [table, begin, end, data, ts], dict(rows=rows),
+        dict(rows=rows.cuda()))
+    outside = ((rows < 0) | (rows >= R)).cuda()
+    assert not found[outside].any() and (vals[outside] == 0).all()
+
+
+@pytest.mark.parametrize("R,P,S,max_pages,D,B", TABLE_SHAPES[:-1])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_resolve_paged_windows_form_edges(cuda, R, P, S, max_pages, D, B,
+                                          dtype):
+    """The windows form over the same tables' rows: ids >= P, repeated
+    pages, MaxP * S > 32 and D = 33 as in the rows form."""
+    table, begin, end, data, ts, rows = _table_inputs(
+        R + P + B + 1, R, P, S, max_pages, D, B, dtype, tied=True)
+    page_rows = table[rows.clamp(0, R - 1).long()].contiguous()
+    _check_form("mvcc_resolve_paged", "windows", mod.mvcc_resolve_paged,
+                cuda["paged"], [page_rows, begin, end, data, ts], {}, {})
+
+
+def test_paged_rows_form_equals_the_windows_form(cuda):
+    """The table read in place equals the windows form over the rows'
+    gathered table rows (the read path's old call site)."""
+    table, begin, end, data, ts, rows = (x.cuda() for x in _table_inputs(
+        5, 3000, 6000, 2, 8, 8, 4000, np.int32))
+    rows = rows.clamp(0, 2999)
+    v1, f1 = mod.mvcc_resolve_paged(table, begin, end, data, ts, rows=rows)
+    v2, f2 = mod.mvcc_resolve_paged(table[rows.long()], begin, end, data, ts)
+    assert torch.equal(v1, v2) and torch.equal(f1, f2) and f1.any()
+
+
+def test_paged_rows_form_rejects_bad_inputs(cuda):
+    table, begin, end, data, ts, rows = (x.cuda() for x in _table_inputs(
+        6, 40, 30, 2, 4, 6, 16, np.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        mod.mvcc_resolve_paged(table.t().contiguous().t(), begin, end, data,
+                               ts, rows=rows)
+    with pytest.raises(ValueError, match="one device"):
+        mod.mvcc_resolve_paged(table, begin, end, data, ts, rows=rows.cpu())
+    with pytest.raises(ValueError, match="rows must be"):
+        mod.mvcc_resolve_paged(table, begin, end, data, ts, rows=rows[:5])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ring_slots=2, spill_buckets=16, spill_slots=4),
+    dict(ring_slots=4, spill_buckets=16, spill_slots=4, paged=True,
+         page_slots=2, pages_per_shard=400)],
+    ids=["dense", "paged"])
+def test_engine_reads_past_the_store(cuda, kw):
+    """Ids past the store read the last record and negative ids record 0,
+    as the reference's clamped gathers do, on the card as on the CPU:
+    ``snapshot_read``, ``run_readonly_batch`` and ``snapshot_windows``."""
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.engine import BohmEngine
+    from repro_torch.core.txn import make_batch
+
+    R = 300
+    ids = np.array([R, R + 3, 2 * R + 1, -1, -5, R - 1, 0, 7], np.int32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        eng = BohmEngine(R, wl.make_ycsb(payload_words=4, ops=4), device=dev,
+                         **kw)
+        rng = np.random.default_rng(13)
+        for i in range(5):
+            eng.run_batch(wl.gen_ycsb_batch(rng, 64, R, theta=1.1, ops=4,
+                                            device=dev))
+            if i == 1:
+                pin = eng.begin_snapshot()
+        scan = make_batch(ids.reshape(2, 4), np.full((2, 1), -1),
+                          np.zeros(2), np.zeros((2, 4)), device=dev)
+        got[dev] = [*eng.snapshot_read(torch.from_numpy(ids), pin),
+                    *eng.run_readonly_batch(scan, pin)[:2],
+                    *eng.snapshot_windows(torch.from_numpy(ids))]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    vals, found = (x.cpu() for x in got["cuda"][:2])
+    last, zero = ids.tolist().index(R - 1), ids.tolist().index(0)
+    for j in range(3):
+        assert torch.equal(vals[j], vals[last]) and found[j] == found[last]
+    for j in (3, 4):
+        assert torch.equal(vals[j], vals[zero]) and found[j] == found[zero]
 
 
 # ---------------------------------------------------------------------------

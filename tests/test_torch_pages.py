@@ -142,6 +142,42 @@ def test_paged_plain_sums_tied_begins_like_pallas():
     np.testing.assert_array_equal(vals[1].numpy(), data[2, 0])
 
 
+@pytest.mark.parametrize("R,P,S,MaxP,B,D", [(1, 3, 1, 1, 4, 1),
+                                            (37, 23, 3, 4, 60, 5),
+                                            (50, 64, 2, 8, 129, 8),
+                                            (20, 30, 1, 16, 40, 33)])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_paged_rows_form_matches_pallas_on_clipped_table_rows(R, P, S, MaxP,
+                                                               B, D, dtype):
+    """``mvcc_resolve_paged(page_table, ..., rows=)`` on the CPU (its plain
+    version) equals the Pallas kernel (interpret mode) over
+    ``page_table[clip(rows, 0, R - 1)]`` for rows inside [0, R) and gives
+    found = False and zeros outside; the table repeats pages within rows
+    and holds ids >= P, unmapped on both sides."""
+    rng = np.random.default_rng(R * 13 + P + S + MaxP + D)
+    begin, end, data = _slab(rng, P, S, D, dtype)
+    table = rng.integers(0, P, (R, MaxP)).astype(np.int32)
+    table[rng.random((R, MaxP)) < 0.3] = -1
+    table[rng.random((R, MaxP)) < 0.1] = P + 1
+    rows = rng.integers(-3, R + 3, B).astype(np.int32)
+    rows[:3] = [0, R - 1, R]
+    ts = rng.integers(0, 2 * P * S, B).astype(np.int32)
+    pt = table[np.clip(rows, 0, R - 1)]
+    ref_v, ref_f = (np_(x) for x in ref_ops.mvcc_resolve_paged(
+        pt, begin, end, data, ts, interpret=True))
+    inside = (rows >= 0) & (rows < R)
+    args = [_t(a) for a in (table, begin, end, data, ts)]
+    vals, found = ops.mvcc_resolve_paged_plain(*args, rows=_t(rows))
+    assert vals.numpy().dtype == ref_v.dtype
+    assert_same(np.where(inside[:, None], ref_v, 0), vals, "vals")
+    assert_same(ref_f & inside, found, "found")
+    before = dict(ops.LAUNCHES)
+    v2, f2 = ops.mvcc_resolve_paged(*args, rows=_t(rows))
+    assert torch.equal(v2, vals) and torch.equal(f2, found)
+    assert ops.LAUNCHES == before                # the CPU launches nothing
+    assert found[inside].any() or not ref_f.any()
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "payload_dtype", "rank"])
 def test_paged_wrapper_rejects_bad_inputs(bad):
     pt = torch.zeros((4, 2), dtype=torch.int32)
@@ -159,6 +195,12 @@ def test_paged_wrapper_rejects_bad_inputs(bad):
         begin = begin[None]
     with pytest.raises((TypeError, ValueError)):
         ops.mvcc_resolve_paged(pt, begin, end, data, ts)
+    # the rows form: rows [B] int32 into a table of at least one row
+    table = torch.zeros((4, 2), dtype=torch.int32)
+    rows = torch.zeros((4,), dtype=torch.int32)
+    rows = {"dtype": rows.long(), "shape": rows[:3]}.get(bad, rows)
+    with pytest.raises((TypeError, ValueError)):
+        ops.mvcc_resolve_paged(table, begin, end, data, ts, rows=rows)
 
 
 # ---------------------------------------------------------------------------

@@ -184,15 +184,16 @@ def test_in_place_forms_check_their_inputs():
     ids=["dense", "dense-2-shards", "paged"])
 def test_read_path_calls_only_in_place_forms(monkeypatch, kw):
     """Every read of the engine (``snapshot_read``, ``run_readonly_batch``)
-    reaches ``mvcc_resolve`` with ``rows=`` (or ``mvcc_resolve_paged``)
-    and ``mvcc_resolve_masked`` in place with the primary's result as its
-    prior: no window is gathered on the read path. The reads still equal
-    the reference engine's."""
+    reaches ``mvcc_resolve`` or ``mvcc_resolve_paged`` with ``rows=`` (the
+    paged one with the slab's own table) and ``mvcc_resolve_masked`` in
+    place with the primary's result as its prior: no window or table row
+    is gathered on the read path. The reads still equal the reference
+    engine's."""
     calls = []
 
     def spy(name, fn):
         def run(*args, **kwargs):
-            calls.append((name, kwargs))
+            calls.append((name, args, kwargs))
             return fn(*args, **kwargs)
         return run
 
@@ -222,11 +223,16 @@ def test_read_path_calls_only_in_place_forms(monkeypatch, kw):
     for a, b in zip(ref.run_readonly_batch(scan, r_pin)[:2],
                     port.run_readonly_batch(port_batch(scan), p_pin)[:2]):
         assert_same(a, b, "run_readonly_batch")
-    names = [n for n, _ in calls]
+    names = [n for n, _, _ in calls]
     primary = "mvcc_resolve_paged" if kw.get("paged") else "mvcc_resolve"
     assert names.count(primary) == names.count("mvcc_resolve_masked") > 0
-    for name, kwargs in calls:
-        if name == "mvcc_resolve":
+    tables = [] if not kw.get("paged") else [
+        port.store.versions.pages.page_table[s]
+        for s in range(port.store.versions.n_shards)]
+    for name, args, kwargs in calls:
+        if name in ("mvcc_resolve", "mvcc_resolve_paged"):
             assert kwargs.get("rows") is not None
+        if name == "mvcc_resolve_paged":      # the table itself, no copy
+            assert any(args[0].data_ptr() == t.data_ptr() for t in tables)
         elif name == "mvcc_resolve_masked":
             assert kwargs.get("in_place") and kwargs.get("prior") is not None
