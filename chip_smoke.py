@@ -92,7 +92,37 @@ the JAX package. Phases, each of which must pass:
    tokens, on the card and on the CPU (plain versions); on the card
    every prefill takes flash's CUDA-core (float32) kernel: equal tokens,
    last logits within 1e-3 of their largest magnitude, byte-equal
-   lookups and state-store arrays.
+   lookups and state-store arrays;
+9. service path: ``TxnService`` over ``build(YCSB_HIGH_10RMW,
+   device="cuda")`` (the dense path's engine) with
+   ``benchmarks/admission.py``'s ``mixed`` stream at the paper's scale:
+   24 host-built batches of 1024 transactions of 10 distinct-record RMWs,
+   keys uniform in a stripe (R/16 reserved, the rest cut into 8 stripes;
+   a burst of 3 batches on one of 3 contended stripes every 8 batches,
+   the rest round robin over the 5 cold stripes), a pin through
+   ``svc.begin_snapshot()`` after batch 8 and, after the stream, 1024
+   read-only scans x 10 reads at the pin. Three modes, each on a fresh
+   engine: ``barriered`` (``pipelined=False``, window 1), ``fifo_w4``
+   (``reorder=False``, window 4) and ``ooo`` (``max_inflight=4,
+   admission_window=16, max_inflight_execs=4``) with an enabled
+   ``FlightRecorder``. Every mode's per-ticket reads must equal
+   ``run_batch`` in submission order on the card; its pinned read-only
+   batch and, after a ``gc_sweep``, its head store and rings (and the
+   spill pool where no epoch merged batches: a merged epoch hands the
+   spill tier other evictees, in the reference too) must equal
+   ``run_batch`` in its own ``dispatch_log`` order; ``ooo`` must merge
+   and hop; only the in-place forms of rows 1-2 may launch; a CPU replay
+   of ``ooo`` over the first 8 batches must be byte-equal (reads,
+   schedule, counters, store). Prints per mode committed txn/s, epochs,
+   the scheduler counters and the plan/exec/commit medians of a second,
+   traced run (which must dispatch the same schedule); for ``ooo`` the
+   flight breakdown's p50/p99 per phase and ``svc.health()``;
+10. baselines: 2PL, OCC, SI and Hekaton on one ``YCSB_HIGH_10RMW`` batch
+   (1,000,000 records, 1024 zipfian 10-RMW transactions) on the card
+   (twice, the second timed) and on the CPU: base, reads and every stat
+   byte-equal. Prints rounds, aborts, waits and committed txn/s beside
+   Bohm's ``run_batch`` on the same batch (a fresh engine, the second of
+   two timed).
 
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
@@ -118,8 +148,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.bohm_workloads import YCSB_HIGH_10RMW, build  # noqa: E402
+from repro_torch.core.baselines import (run_2pl, run_hekaton,  # noqa: E402
+                                        run_occ, run_si)
 from repro_torch.core.carry import store_to_numpy  # noqa: E402
 from repro_torch.core.engine import BohmEngine, serial_oracle  # noqa: E402
+from repro_torch.core.txn import make_batch  # noqa: E402
 from repro_torch.core.workloads import (gen_scan_batch,  # noqa: E402
                                         gen_ycsb_batch, make_ycsb)
 from repro_torch.configs import get_config  # noqa: E402
@@ -128,9 +161,10 @@ from repro_torch.kernels import mvcc_resolve as kmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
-from repro_torch.obs import PhaseTracer  # noqa: E402
+from repro_torch.obs import FlightRecorder, PhaseTracer  # noqa: E402
 from repro_torch.serving import STATE_DONE, ServeEngine  # noqa: E402
 from repro_torch.serving import engine as serve_mod  # noqa: E402
+from repro_torch.service import TxnService  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
@@ -1175,6 +1209,241 @@ def serving_replay(cfg, device="cuda"):
     return rel, gpu["tokens"], routes
 
 
+# ---------------------------------------------------------------------------
+# the service path: TxnService over the dense engine (phase 9)
+# ---------------------------------------------------------------------------
+# benchmarks/admission.py's ``mixed`` stream: R/16 reserved, the rest cut
+# into 8 stripes; a burst of 3 back-to-back batches on one of the 3
+# contended stripes every 8 batches, the others round robin over the 5
+# cold stripes
+MIX_STRIPES, MIX_BURST_STRIPES, MIX_HOT_BURST, MIX_HOT_PERIOD = 8, 3, 3, 8
+SVC_BATCHES, SVC_PIN_AFTER, SVC_REPLAY = 24, 8, 8
+OOO_KW = dict(max_inflight=4, admission_window=16, max_inflight_execs=4)
+SVC_MODES = (
+    ("barriered", dict(max_inflight=2, pipelined=False, admission_window=1)),
+    ("fifo_w4", dict(max_inflight=2, admission_window=4, reorder=False)),
+    ("ooo", OOO_KW))
+FLIGHT_PHASES = ("queue", "formation", "exec", "commit_defer", "total")
+SVC_COUNTERS = ("merged_batches", "hopped_batches", "overlapped_execs",
+                "chain_depth_max")
+
+
+def span_batch(rng, lo: int, hi: int, ops: int, t: int):
+    """An RMW batch of ``t`` transactions over [lo, hi), ``ops`` distinct
+    records each, uniform keys (``benchmarks/admission.py``'s
+    ``_span_batch``), built on the host."""
+    recs = rng.integers(lo, hi, size=(t, ops))
+    for col in range(1, ops):
+        dup = (recs[:, col:col + 1] == recs[:, :col]).any(axis=1)
+        recs[dup, col] = lo + (recs[dup, col] - lo + col) % (hi - lo)
+    return make_batch(recs, recs.copy(), np.zeros(t, np.int32),
+                      np.zeros((t, 1), np.int32), device="cpu")
+
+
+def mixed_stream(rng, n_records: int, n_batches: int, t: int, ops: int):
+    """``benchmarks/admission.py``'s ``mixed`` stream at any scale."""
+    hot = n_records // 16
+    width = (n_records - hot) // MIX_STRIPES
+    out, cold = [], 0
+    for i in range(n_batches):
+        if i % MIX_HOT_PERIOD < MIX_HOT_BURST:
+            stripe = (i // MIX_HOT_PERIOD) % MIX_BURST_STRIPES
+        else:
+            stripe = MIX_BURST_STRIPES + cold % (MIX_STRIPES
+                                                 - MIX_BURST_STRIPES)
+            cold += 1
+        lo = hot + stripe * width
+        out.append(span_batch(rng, lo, lo + width, ops, t))
+    return out
+
+
+def drive_service(kw, batches, scan=None, device="cuda", flight=None,
+                  traced=False):
+    """One TxnService run over a fresh ``YCSB_HIGH_10RMW`` engine: submit
+    every batch (a pin after ``SVC_PIN_AFTER`` when ``scan`` is given),
+    wait every ticket, drain, then the read-only ``scan`` at the pin and a
+    ``gc_sweep``. Returns the reads, the schedule, the counters, the
+    pinned read, the store arrays and the timed wall."""
+    eng = build(YCSB_HIGH_10RMW, device=device)[0]
+    if traced:
+        eng.tracer = PhaseTracer(enabled=True)
+    svc = TxnService(eng, flight=flight, **kw)
+    _sync(device)
+    t0 = time.perf_counter()
+    tickets, pin = [], None
+    for i, b in enumerate(batches):
+        tickets.append(svc.submit(b))
+        if scan is not None and i + 1 == SVC_PIN_AFTER:
+            pin = svc.begin_snapshot()
+            pin_epochs = len(svc.dispatch_log)
+    reads = [svc.wait(t).read_vals for t in tickets]
+    svc.drain()
+    wall = time.perf_counter() - t0
+    out = {"wall": wall, "reads": [r.cpu().numpy() for r in reads],
+           "log": [list(ep) for ep in svc.dispatch_log],
+           "stats": dict(svc.stats),
+           "spans_ms": {k: [x * 1e3 for x in v] for k, v in
+                        eng.tracer.span_durations().items()}}
+    if pin is not None:
+        covered = sum(len(ep) for ep in svc.dispatch_log[:pin_epochs])
+        if covered != SVC_PIN_AFTER:
+            raise AssertionError(f"the pin covers {covered} batches")
+        vals, found, _ = svc.run_readonly_batch(scan, pin)
+        out["pinned"] = (pin.ts, vals.cpu().numpy(), found.cpu().numpy())
+        out["health"] = svc.health()
+    eng.gc_sweep()
+    out["store"] = store_to_numpy(eng.store)
+    return out
+
+
+def drive_sequential(batches, order, scan, device="cuda"):
+    """``run_batch`` on a fresh engine in ``order``, a pin after
+    ``SVC_PIN_AFTER`` batches, the read-only ``scan`` at it, a sweep."""
+    eng = build(YCSB_HIGH_10RMW, device=device)[0]
+    reads = {}
+    for k, i in enumerate(order):
+        reads[i] = eng.run_batch(batches[i])[0].cpu().numpy()
+        if k + 1 == SVC_PIN_AFTER:
+            pin = eng.begin_snapshot()
+    vals, found, _ = eng.run_readonly_batch(scan, pin)
+    eng.gc_sweep()
+    return {"reads": [reads[i] for i in range(len(batches))],
+            "pinned": (pin.ts, vals.cpu().numpy(), found.cpu().numpy()),
+            "store": store_to_numpy(eng.store)}
+
+
+def _same_service(a, b, what, keys=("reads", "pinned", "store")):
+    """Byte equality of two runs' reads, pinned read and store arrays."""
+    if "reads" in keys:
+        for i, (x, y) in enumerate(zip(a["reads"], b["reads"])):
+            np.testing.assert_array_equal(x, y, err_msg=f"{what}: batch {i}")
+    if "pinned" in keys:
+        assert a["pinned"][0] == b["pinned"][0], what
+        for x, y in zip(a["pinned"][1:], b["pinned"][1:]):
+            np.testing.assert_array_equal(x, y, err_msg=f"{what}: pinned")
+    if "store" in keys:
+        assert set(a["store"]) == set(b["store"]), what
+        # a merged epoch hands the spill tier other evictees than its
+        # batches one by one (the reference does the same): its spill
+        # arrays are held only by the pinned reads that fall through them
+        merged = any(len(ep) > 1 for ep in a.get("log", ()))
+        for name in a["store"]:
+            if not (merged and name.startswith("spill_")):
+                np.testing.assert_array_equal(
+                    a["store"][name], b["store"][name],
+                    err_msg=f"{what}: {name}")
+
+
+def service_phase(device="cuda"):
+    """Phase 9 (see the module doc): the three modes on ``device``, their
+    sequential oracles there, and the CPU replay. Returns the runs, the
+    launches of the three modes' runs and the replay's seconds."""
+    wc = YCSB_HIGH_10RMW
+    batches = mixed_stream(np.random.default_rng(47), wc.num_records,
+                           SVC_BATCHES, wc.batch_size, OPS)
+    scan = gen_scan_batch(np.random.default_rng(48), N_SCANS, wc.num_records,
+                          ops=OPS, theta=wc.theta, device=device)
+    kmod.reset_launches()                  # counts start at 0 for the path
+    runs = {}
+    for name, kw in SVC_MODES:
+        flight = FlightRecorder(enabled=True) if name == "ooo" else None
+        runs[name] = drive_service(kw, batches, scan, device, flight)
+        runs[name]["flight"] = flight
+    launches = dict(kmod.LAUNCHES)
+    check_in_place("service path", launches, ("mvcc_resolve",
+                                              "mvcc_resolve_masked"))
+    for name, kw in SVC_MODES:             # phase medians, traced apart
+        traced = drive_service(kw, batches, scan, device, traced=True)
+        if traced["log"] != runs[name]["log"]:
+            raise AssertionError(f"{name}: the traced run dispatched "
+                                 "another schedule")
+        runs[name]["spans_ms"] = traced["spans_ms"]
+    submitted = drive_sequential(batches, range(SVC_BATCHES), scan, device)
+    for name, _ in SVC_MODES:
+        run = runs[name]
+        _same_service(run, submitted, f"{name} vs submission order",
+                      keys=("reads",))
+        flat = [t for ep in run["log"] for t in ep]
+        oracle = submitted if flat == list(range(SVC_BATCHES)) else \
+            drive_sequential(batches, flat, scan, device)
+        _same_service(run, oracle, f"{name} vs dispatch order",
+                      keys=("pinned", "store"))
+    st = runs["ooo"]["stats"]
+    if st["merged_batches"] <= 0 or st["hopped_batches"] <= 0:
+        raise AssertionError(f"ooo neither merged nor hopped: {st}")
+    t0 = time.perf_counter()
+    head = batches[:SVC_REPLAY]
+    gpu = drive_service(OOO_KW, head, device=device)
+    cpu = drive_service(OOO_KW, head, device="cpu")
+    _same_service(gpu, cpu, "ooo cpu replay", keys=("reads", "store"))
+    if (gpu["log"], gpu["stats"]) != (cpu["log"], cpu["stats"]):
+        raise AssertionError("ooo cpu replay: another schedule")
+    return runs, launches, time.perf_counter() - t0
+
+
+def flight_breakdown(flight):
+    """p50 / p99 ms of each lifecycle phase over the completed tickets."""
+    bds = [f.breakdown() for f in flight.records()]
+    return {k: [round(float(np.percentile([b[k] for b in bds], q)) * 1e3, 3)
+                for q in (50, 99)] for k in FLIGHT_PHASES}
+
+
+# ---------------------------------------------------------------------------
+# the four baseline protocols at the paper's scale (phase 10)
+# ---------------------------------------------------------------------------
+BASELINES = (("2pl", run_2pl), ("occ", run_occ), ("si", run_si),
+             ("hekaton", run_hekaton))
+
+
+def baselines_phase(device="cuda"):
+    """Phase 10: each protocol on one ``YCSB_HIGH_10RMW`` batch on
+    ``device`` (twice: the second call timed) and on the CPU, byte-equal;
+    Bohm's ``run_batch`` on the same batch beside them."""
+    wc = YCSB_HIGH_10RMW
+    R = wc.num_records
+    batch = gen_ycsb_batch(np.random.default_rng(7), wc.batch_size, R,
+                           theta=wc.theta, mix=wc.mix, device="cpu")
+    wl = make_ycsb(payload_words=wc.payload_words)
+    base = torch.zeros((R, wc.payload_words), dtype=torch.int32)
+    gbase, gbatch = base.to(device), batch.to(device)
+    rows = []
+    for name, run in BASELINES:
+        outs, ms = [], []
+        for _ in range(2):
+            _sync(device)
+            t0 = time.perf_counter()
+            outs.append(run(gbase, gbatch, wl, R))
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        cpu = run(base, batch, wl, R)
+        for out in outs:
+            for i, what in ((0, "base"), (1, "reads")):
+                if not torch.equal(out[i].cpu(), cpu[i]):
+                    raise AssertionError(f"{name}: card {what} != cpu")
+            if set(out[2]) != set(cpu[2]) or any(
+                    out[2][k].dtype != v.dtype
+                    or not torch.equal(out[2][k].cpu(), v)
+                    for k, v in cpu[2].items()):
+                raise AssertionError(f"{name}: card stats != cpu")
+        stats = {k: int(v) for k, v in cpu[2].items() if v.dim() == 0}
+        rows.append((name, stats, ms[1],
+                     stats["commits"] / ms[1] * 1e3))
+    bohm_ms = []
+    for _ in range(2):                      # a fresh engine each, 2nd timed
+        eng = build(wc, device=device)[0]
+        _sync(device)
+        t0 = time.perf_counter()
+        _, metrics = eng.run_batch(gbatch)
+        waves = int(metrics["waves"])
+        _sync(device)
+        bohm_ms.append((time.perf_counter() - t0) * 1e3)
+        del eng
+    rows.append(("bohm", {"waves": waves, "aborts": int(metrics["aborts"]),
+                          "commits": wc.batch_size}, bohm_ms[1],
+                 wc.batch_size / bohm_ms[1] * 1e3))
+    return rows
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -1357,6 +1626,36 @@ def main() -> int:
         f"{rel:.3g} of their "
         f"largest magnitude; lookups, progress view and state-store arrays "
         f"byte-equal ({time.perf_counter() - t0:.1f} s)")
+
+    # -- the service path, counted from zero ------------------------------
+    t0 = time.perf_counter()
+    runs, launches, replay_s = service_phase()
+    smi_now = nvidia_smi()
+    n_txn = SVC_BATCHES * YCSB_HIGH_10RMW.batch_size
+    log(f"service path: launches {launches}; every mode equals run_batch in "
+        f"submission order (reads) and in its dispatch order (pinned "
+        f"read-only batch; rings and heads after a sweep, the spill pool "
+        f"too where no epoch merged); ooo cpu replay of {SVC_REPLAY} "
+        f"batches byte-equal ({replay_s:.1f} s)")
+    for name, _ in SVC_MODES:
+        run, sp = runs[name], runs[name]["spans_ms"]
+        med = {k: round(statistics.median(sp[k]), 3) for k in PHASES}
+        log(f"service {name}: {n_txn / run['wall']:.1f} txn/s committed "
+            f"({run['wall'] * 1e3:.3f} ms for {SVC_BATCHES} batches); epochs "
+            f"{len(run['log'])}; "
+            f"{ {k: run['stats'][k] for k in SVC_COUNTERS} }; traced "
+            f"median phase ms {med}; {smi_now}")
+    log(f"service ooo: dispatch_log {runs['ooo']['log']}; flight p50/p99 "
+        f"ms {flight_breakdown(runs['ooo']['flight'])}; health "
+        f"{runs['ooo']['health']}")
+    log(f"service path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for name, stats, ms, rate in baselines_phase():
+        log(f"baseline {name}: {stats}; {ms:.3f} ms a batch on the card "
+            f"(warm) = {rate:.1f} committed txn/s; card == cpu "
+            f"(base, reads, stats)")
+    log(f"baselines: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -20,6 +20,12 @@ diagnostic stats surfaces.
 device (global record ``r`` at shard ``r % n``, local ``r // n``), as
 the reference's no-mesh substrate does.
 
+The phase functions are also bound on the engine as ``_plan``, ``_exec``
+(workload bound) and ``_commit``, with the reference's argument order;
+the scheduler (``repro_torch.service.TxnService``) calls them with its
+own interleaving. ``health()`` reads the MVCC gauges
+(``repro_torch.obs.health``).
+
 Not ported yet (each raises ``NotImplementedError``): ``mesh=`` and a
 lifecycle ``auditor`` (ROADMAP.md, queue 1). An enabled ``PhaseTracer``
 times the phases (``repro_torch.obs``).
@@ -27,6 +33,8 @@ times the phases (``repro_torch.obs``).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -38,7 +46,8 @@ from repro_torch.core.execute import (Store, commit, execute_plan,
 from repro_torch.core.plan import MAX_BATCH_TXNS, Plan, cc_plan
 from repro_torch.core.txn import TxnBatch, Workload
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.obs import NULL_AUDIT, MetricsRegistry, PhaseTracer
+from repro_torch.obs import (NULL_AUDIT, MetricsRegistry, PhaseTracer,
+                             engine_health)
 from repro_torch.store import (INF_TS, decay_pressure, from_global,
                                gather_windows_sharded, gc_sharded,
                                reassign_k, reassign_stats, resolve_sharded,
@@ -48,9 +57,12 @@ from repro_torch.store.ring import i32
 
 @dataclasses.dataclass(frozen=True)
 class SnapshotHandle:
-    """An active reader registration; holds the GC watermark at <= ts."""
+    """An active reader registration; holds the GC watermark at <= ts.
+    ``t_wall`` (monotonic registration time) feeds the oldest-pin-age
+    health gauge; it takes no part in equality."""
     sid: int
     ts: int
+    t_wall: float = dataclasses.field(default=0.0, compare=False)
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -163,6 +175,11 @@ class BohmEngine:
         self.auditor = NULL_AUDIT
         self._declare_metrics()
         self._reset_policy()
+        # the phase graph, bound as in the reference (the scheduler calls
+        # the same three with its own interleaving)
+        self._plan = plan_phase
+        self._exec = functools.partial(exec_phase, workload=workload)
+        self._commit = commit_phase
 
     def _reset_policy(self) -> None:
         """Restart the adaptive-K policy's host state (at init,
@@ -205,13 +222,13 @@ class BohmEngine:
         wm = i32(self.watermark(), self.device)
         pins = self.pin_array()
         with tr.span("plan_phase", txns=batch.size) as sp:
-            plan = sp.fence(plan_phase(batch, self.store.ts_counter))
+            plan = sp.fence(self._plan(batch, self.store.ts_counter))
         with tr.span("exec_phase", txns=batch.size) as sp:
-            w_data, read_vals, exec_metrics = exec_phase(
-                plan, batch, self.store, workload=self.workload)
+            w_data, read_vals, exec_metrics = self._exec(plan, batch,
+                                                         self.store)
             sp.fence(read_vals)
         with tr.span("commit_phase", txns=batch.size) as sp:
-            self.store, ring_metrics = commit_phase(
+            self.store, ring_metrics = self._commit(
                 plan, batch, self.store, w_data, wm, None, pins)
             sp.fence(self.store.base)
         metrics = dict(exec_metrics, **ring_metrics)
@@ -385,7 +402,8 @@ class BohmEngine:
         """Register a reader at ``ts`` (default: now)."""
         handle = SnapshotHandle(self._next_sid,
                                 self.current_ts() if ts is None
-                                else int(ts))
+                                else int(ts),
+                                t_wall=time.monotonic())
         self._next_sid += 1
         self._snapshots[handle.sid] = handle
         return handle
@@ -534,6 +552,12 @@ class BohmEngine:
                 "physical_version_words": dense_slots * (2 + D),
             })
         return stats
+
+    def health(self) -> Dict[str, object]:
+        """MVCC health gauges (watermark lag, pin ages, ring/slab/spill
+        saturation, pressure percentiles), derived from store state in one
+        transfer — see ``repro_torch.obs.health``. Synchronises."""
+        return engine_health(self)
 
 
 def _layout(store: Store) -> Tuple:

@@ -15,15 +15,24 @@ pass:
 
 Keys are int64 ``rec * T + t`` with pad 0xFFFFFFFF — the same values and
 order as the reference's uint32 keys, which torch cannot sort or search
-well. Record-partitioned planning and the batch footprints are not
+well.
+
+Batch footprints (``BatchFootprint``, ``batch_footprint``,
+``footprints_conflict``, ``conflict_witness``, ``merge_footprints``,
+``merge_batches``) are the conflict-aware scheduler's host-side record
+bitsets (``repro_torch.service.TxnService``); they stay numpy, as in the
+reference. Record-partitioned planning (``cc_plan_sharded``) is not
 ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.txn import TxnBatch
 from repro_torch.store.ring import INF_TS, i32
 
 # composite (record, ts) keys need R * T < 2^32 (R <= 2^20 records,
@@ -115,3 +124,126 @@ def cc_plan(batch, ts_base) -> Plan:
                 r_dep_txn=r_dep_txn, r_dep_slot=r_dep_slot,
                 commit_mask=commit_mask, ts_base=ts_base,
                 w_begin_ts=w_begin_ts, w_end_ts=w_end_ts)
+
+
+# ---------------------------------------------------------------------------
+# Batch footprints: per-batch read/write record bitsets for the
+# conflict-aware admission scheduler (``repro_torch.service.TxnService``).
+#
+# Two adjacent batches commute — their merged CC epoch is identical to
+# running them back to back — exactly when each batch's write-set is
+# disjoint from the other's read UNION write set. The same condition lets
+# exec(b+1) run against the pre-commit(b) store (exec reads only
+# ``store.base`` rows in b+1's read-set, none of which commit(b) writes).
+#
+# Footprints live on the HOST (packed numpy uint64 bitsets): admission
+# decisions are control flow. Every footprint also carries a one-word
+# BLOCK signature (bit j <=> some touched 64-record block w has
+# w % 64 == j); disjoint signatures certify disjoint footprints, so the
+# window scan tests one word before the [R/64] word scan.
+# ---------------------------------------------------------------------------
+def _fold_sig(bits: np.ndarray) -> int:
+    """uint64 block signature of a packed bitset (see note above)."""
+    nz = np.flatnonzero(bits)
+    if not nz.size:
+        return 0
+    return int(np.bitwise_or.reduce(
+        np.uint64(1) << (nz.astype(np.uint64) & np.uint64(63))))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchFootprint:
+    """Packed per-batch record bitsets (bit r set <=> record r touched)
+    plus their uint64 signatures (computed once at admission)."""
+    read_bits: np.ndarray    # [ceil(R/64)] uint64, reads incl. RMW reads
+    write_bits: np.ndarray   # [ceil(R/64)] uint64
+    write_sig: int = -1      # block signature of write_bits (< 0: compute)
+    rw_sig: int = -1         # block signature of read_bits | write_bits
+
+    def __post_init__(self):
+        if self.write_sig < 0:
+            object.__setattr__(self, "write_sig",
+                               _fold_sig(self.write_bits))
+        if self.rw_sig < 0:
+            object.__setattr__(self, "rw_sig",
+                               _fold_sig(self.read_bits | self.write_bits))
+
+    @property
+    def rw_bits(self) -> np.ndarray:
+        return self.read_bits | self.write_bits
+
+
+def _pack_bits(records: np.ndarray, num_records: int) -> np.ndarray:
+    bits = np.zeros((num_records + 63) // 64, np.uint64)
+    rec = records[records >= 0].astype(np.int64).reshape(-1)
+    np.bitwise_or.at(bits, rec >> 6, np.uint64(1) << (rec & 63).astype(
+        np.uint64))
+    return bits
+
+
+def _host(x) -> np.ndarray:
+    """A host numpy view of a batch array: the tensor's own memory on the
+    CPU, one device-to-host copy for a batch built on the card."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def batch_footprint(batch: TxnBatch, num_records: int) -> BatchFootprint:
+    """One pass over the batch's read/write sets at admission time."""
+    return BatchFootprint(
+        read_bits=_pack_bits(_host(batch.read_set), num_records),
+        write_bits=_pack_bits(_host(batch.write_set), num_records))
+
+
+def signatures_disjoint(a: BatchFootprint, b: BatchFootprint) -> bool:
+    """One-word certificate: True guarantees ``not footprints_conflict``.
+    False means "may conflict" — the caller falls back to the word scan."""
+    return not ((a.write_sig & b.rw_sig) | (b.write_sig & a.rw_sig))
+
+
+def footprints_conflict(a: BatchFootprint, b: BatchFootprint) -> bool:
+    """True when the batches do NOT commute: some write of one intersects
+    the other's read-or-write set (in either direction). The signature
+    check runs first; only colliding signatures pay for the word scan."""
+    if signatures_disjoint(a, b):
+        return False
+    return bool(np.any(a.write_bits & b.rw_bits)
+                or np.any(b.write_bits & a.rw_bits))
+
+
+def conflict_witness(a: BatchFootprint, b: BatchFootprint
+                     ) -> Optional[int]:
+    """A concrete record id proving ``footprints_conflict(a, b)``: the
+    lowest record written by one batch and touched by the other (a's
+    writes first). None when the footprints commute. The flight
+    recorder's conflict-attribution primitive."""
+    for cross in (a.write_bits & b.rw_bits, b.write_bits & a.rw_bits):
+        nz = np.flatnonzero(cross)
+        if nz.size:
+            w = int(nz[0])
+            bit = int(cross[w])
+            return w * 64 + ((bit & -bit).bit_length() - 1)
+    return None
+
+
+def merge_footprints(a: BatchFootprint, b: BatchFootprint) -> BatchFootprint:
+    # a block is touched in a|b iff it is touched in a or in b, so the
+    # merged signatures are the OR of the members' signatures
+    return BatchFootprint(read_bits=a.read_bits | b.read_bits,
+                          write_bits=a.write_bits | b.write_bits,
+                          write_sig=a.write_sig | b.write_sig,
+                          rw_sig=a.rw_sig | b.rw_sig)
+
+
+def merge_batches(a: TxnBatch, b: TxnBatch) -> TxnBatch:
+    """Concatenate two batches into one CC epoch, preserving submission
+    order (txn t of ``b`` becomes txn ``a.size + t``, so every global
+    timestamp equals running the batches back to back). Callers check
+    ``not footprints_conflict(...)``; widths must agree. The result lies
+    on the batches' device."""
+    if (a.n_read, a.n_write, tuple(a.args.shape[1:])) != \
+            (b.n_read, b.n_write, tuple(b.args.shape[1:])):
+        raise ValueError("merge_batches requires identical batch widths")
+    return TxnBatch(*(torch.cat([getattr(a, f.name), getattr(b, f.name)])
+                      for f in dataclasses.fields(a)))

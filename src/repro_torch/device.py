@@ -4,7 +4,8 @@ Every entry point (``BohmEngine``, ``build``, the batch generators) takes
 ``device=None`` and runs on the card unless the caller names the CPU.
 There is no silent fallback: asking for the card on a machine without
 one raises, so a run that was meant to measure the GPU can never finish
-on the CPU by accident.
+on the CPU by accident. ``fence`` is the one host join of the
+scheduler (``repro_torch.service``).
 """
 from __future__ import annotations
 
@@ -26,3 +27,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def fence(x):
+    """Wait until the work that produces ``x`` (a tensor) has finished, and
+    return ``x``: the current stream's ``synchronize()`` when ``x`` lies on
+    a CUDA device, nothing on the CPU, where tensor work is synchronous.
+    The one host join of the port's scheduler (``TxnService``): every join
+    goes through this attribute, so a test can count them."""
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        torch.cuda.current_stream(x.device).synchronize()
+    return x

@@ -6,10 +6,22 @@ and instants are no-ops with zero host syncs; enabled it records each
 span's synchronised wall time (``span_durations``), each instant's name,
 host time and fields (``instants``) and, with ``annotate=True``, opens a
 ``torch.profiler.record_function`` range per span. ``NULL_AUDIT`` is the
-inert lifecycle auditor; ``scheduler_health`` is the serving plane's
-host-only gauge dict. The tracer's event ring, anomaly detector and
-Chrome-trace export, the flight recorder, the lifecycle auditor and the
-health monitor are later slices (ROADMAP.md, queue 1 slice E).
+inert lifecycle auditor.
+
+``flight``     ``FlightRecorder``: per-ticket lifecycle records through
+               the out-of-order scheduler, telescoping latency
+               breakdowns, conflict attribution with footprint
+               witnesses and per-class quantile digests (OFF = one
+               attribute test per hook, zero fences on or off).
+``quantiles``  ``LogHistogram``: streaming p50/p99 with bounded relative
+               error.
+``health``     MVCC gauges computed from store state on demand
+               (``engine_health``, ``service_health``) and the serving
+               plane's host-only ``scheduler_health``.
+
+The tracer's event ring, anomaly detector and Chrome-trace export (and
+with it ``stitch_chrome_trace``), the lifecycle auditor and the health
+monitor are later slices (ROADMAP.md, queue 1 slice E).
 """
 from __future__ import annotations
 
@@ -18,6 +30,10 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.obs.flight import NULL_FLIGHT, FlightRecorder, TicketFlight
+from repro_torch.obs.health import (engine_health, scheduler_health,
+                                    service_health)
+from repro_torch.obs.quantiles import LogHistogram
 from repro_torch.obs.registry import MetricsRegistry, MetricsView
 
 
@@ -132,32 +148,7 @@ class _NullAudit:
 
 NULL_AUDIT = _NullAudit()
 
-
-def scheduler_health(sched) -> Dict[str, object]:
-    """Serving-plane gauges for a ``repro_torch.serving.BohmScheduler``
-    (duck-typed): slot and page occupancy, queue depth, the Condition-3
-    pending-free backlog and the prefix-cache footprint, plus the
-    cumulative serving counters. Host-only state — never synchronises."""
-    pending = sum(len(p) for _, p in sched.pending_free)
-    return {
-        "active_slots": sched.num_active,
-        "slots": sched.slots,
-        "slot_fill": round(sched.num_active / max(sched.slots, 1), 6),
-        "queue_depth": len(sched.queue),
-        "free_pages": len(sched.free_pages),
-        "pages_total": sched.num_pages,
-        "page_fill": round(
-            1.0 - len(sched.free_pages) / max(sched.num_pages, 1), 6),
-        "pending_free_pages": pending,
-        "cached_pages": len(sched.cached_pages),
-        "prefix_cache_entries": len(sched.prefix_cache),
-        "ts_counter": sched.ts_counter,
-        "admitted": sched.stats["admitted"],
-        "completed": sched.stats["completed"],
-        "prefix_hits": sched.stats["prefix_hits"],
-        "pages_recycled": sched.stats["pages_recycled"],
-    }
-
-
-__all__ = ["MetricsRegistry", "MetricsView", "NULL_AUDIT", "NULL_SPAN",
-           "PhaseTracer", "scheduler_health"]
+__all__ = ["FlightRecorder", "LogHistogram", "MetricsRegistry",
+           "MetricsView", "NULL_AUDIT", "NULL_FLIGHT", "NULL_SPAN",
+           "PhaseTracer", "TicketFlight", "engine_health",
+           "scheduler_health", "service_health"]

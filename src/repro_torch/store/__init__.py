@@ -12,9 +12,13 @@
 ``policy``   adaptive-K reassignment (numpy host code at GC boundaries,
              page-quantized for the paged store, optional EWMA pressure
              decay).
-``sharded``  ``ShardedVersionStore`` (one shard in this port so far):
-             primary (rings or pages) + spill — commit, GC and the
-             two-level snapshot read through the resolve kernels.
+``sharded``  ``ShardedVersionStore``: ``n_shards`` logical shards on one
+             device (global record r at shard r % n), primary (rings or
+             pages) + spill — commit, GC and the two-level snapshot read
+             through the resolve kernels, reading the store in place.
+
+Not ported yet: the lifecycle-audit taps (``with_audit=True`` raises)
+and the mesh substrate (``shard_map`` over a device mesh).
 """
 from repro_torch.store.pages import (PageSlab, commit_paged, free_page_count,
                                      gather_windows_paged, gc_pages,

@@ -94,3 +94,34 @@ def assert_dicts_same(ref: dict, port: dict, msg: str = "",
 def dataclass_arrays(obj) -> dict:
     return {f.name: np_(getattr(obj, f.name))
             for f in dataclasses.fields(obj)}
+
+
+def inc_workloads(ops: int, payload_words: int = 2):
+    """The scheduler tests' increment workload, as (reference, port): type
+    0 adds ``args[0]`` to word 0 of every read record, type 1 only reads.
+    The reference's branches run per transaction, the port's batched."""
+    import jax.numpy as jnp
+    from repro.core.txn import Workload as RefWorkload
+    from repro_torch.core.txn import Workload
+
+    def ref_rmw(vals, args):
+        return vals.at[..., 0].add(args[0]), jnp.zeros((), bool)
+
+    def ref_read(vals, args):
+        return vals, jnp.zeros((), bool)
+
+    def rmw(vals, args):
+        out = vals.clone()
+        out[..., 0] += args[:, :1]
+        return out, torch.zeros(vals.shape[0], dtype=torch.bool,
+                                device=vals.device)
+
+    def read(vals, args):
+        return vals, torch.zeros(vals.shape[0], dtype=torch.bool,
+                                 device=vals.device)
+
+    return (RefWorkload(name="inc", n_read=ops, n_write=ops,
+                        payload_words=payload_words,
+                        branches=(ref_rmw, ref_read)),
+            Workload(name="inc", n_read=ops, n_write=ops,
+                     payload_words=payload_words, branches=(rmw, read)))

@@ -754,3 +754,93 @@ def test_attention_kernels_repeat_bit_equal(attn_cuda, which, dtype):
     first = fn(*args)
     for _ in range(3):
         assert torch.equal(fn(*args), first)
+
+
+# ---------------------------------------------------------------------------
+# the scheduler and the baselines on the card against their CPU runs
+# ---------------------------------------------------------------------------
+def _svc_stream(seed, R, t, n):
+    """Batches over 8 disjoint key stripes with a 3-batch burst on one
+    stripe every 8 batches (``benchmarks/admission.py``'s mixed stream)."""
+    from repro_torch.core.txn import make_batch
+    rng = np.random.default_rng(seed)
+    width = R // 8
+    out, cold = [], 0
+    for i in range(n):
+        if i % 8 < 3:
+            stripe = (i // 8) % 3
+        else:
+            stripe, cold = 3 + cold % 5, cold + 1
+        lo = stripe * width
+        recs = rng.integers(lo, lo + width, (t, 4))
+        out.append(make_batch(recs, recs.copy(), np.zeros(t), np.zeros((t, 1)),
+                              device="cpu"))
+    return out
+
+
+def _svc_run(device, batches, R):
+    from repro_torch.core.carry import store_to_numpy
+    from repro_torch.core.engine import BohmEngine
+    from repro_torch.core.workloads import gen_scan_batch, make_ycsb
+    from repro_torch.service import TxnService
+    eng = BohmEngine(R, make_ycsb(payload_words=8, ops=4), device=device)
+    svc = TxnService(eng, max_inflight=4, admission_window=16,
+                     max_inflight_execs=4)
+    tickets = []
+    for i, b in enumerate(batches):
+        tickets.append(svc.submit(b))
+        if i == 5:
+            pin = svc.begin_snapshot()
+    reads = [svc.wait(t).read_vals.cpu() for t in tickets]
+    svc.drain()
+    scan = gen_scan_batch(np.random.default_rng(1), 64, R, ops=4,
+                          device=device)
+    vals, found, _ = svc.run_readonly_batch(scan, pin)
+    return (reads, svc.dispatch_log, dict(svc.stats),
+            store_to_numpy(eng.store), vals.cpu(), found.cpu())
+
+
+def test_service_out_of_order_matches_cpu(cuda):
+    """TxnService (out of order, chained execs) over an engine on the card
+    equals the same service on the CPU: per-ticket reads, dispatch log,
+    counters, store arrays and the pinned read-only batch; the reads went
+    through the in-place resolve kernels."""
+    R = 4096
+    batches = _svc_stream(3, R, 64, 16)
+    before = dict(mod.LAUNCHES)
+    gpu = _svc_run("cuda", batches, R)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES["mvcc_resolve/rows"] > before["mvcc_resolve/rows"]
+    assert mod.LAUNCHES["mvcc_resolve/windows"] == \
+        before["mvcc_resolve/windows"]
+    cpu = _svc_run("cpu", batches, R)
+    for a, b in zip(gpu[0], cpu[0]):
+        assert torch.equal(a, b)
+    assert gpu[1] == cpu[1] and gpu[2] == cpu[2]
+    assert gpu[2]["merged_batches"] > 0 and gpu[2]["hopped_batches"] > 0
+    for k in cpu[3]:
+        np.testing.assert_array_equal(gpu[3][k], cpu[3][k], err_msg=k)
+    assert torch.equal(gpu[4], cpu[4]) and torch.equal(gpu[5], cpu[5])
+
+
+@pytest.mark.parametrize("name", ["2pl", "occ", "si", "hekaton"])
+def test_baseline_matches_cpu(cuda, name):
+    """Each baseline protocol on the card equals its CPU run: base, reads
+    and every stat, dtype included."""
+    from repro_torch.core import baselines
+    from repro_torch.core.workloads import gen_ycsb_batch, make_ycsb
+    run = getattr(baselines, {"2pl": "run_2pl", "occ": "run_occ",
+                              "si": "run_si", "hekaton": "run_hekaton"}[name])
+    R = 65536
+    batch = gen_ycsb_batch(np.random.default_rng(42), 512, R, theta=0.9,
+                           mix="10rmw", device="cpu")
+    wl = make_ycsb(payload_words=8)
+    base = torch.zeros((R, 8), dtype=torch.int32)
+    cpu = run(base, batch, wl, R)
+    gpu = run(base.cuda(), batch.to("cuda"), wl, R)
+    assert torch.equal(gpu[0].cpu(), cpu[0])
+    assert torch.equal(gpu[1].cpu(), cpu[1])
+    assert set(gpu[2]) == set(cpu[2])
+    for k, v in cpu[2].items():
+        assert gpu[2][k].dtype == v.dtype and gpu[2][k].is_cuda, k
+        assert torch.equal(gpu[2][k].cpu(), v), k
