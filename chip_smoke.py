@@ -122,7 +122,25 @@ the JAX package. Phases, each of which must pass:
    (twice, the second timed) and on the CPU: base, reads and every stat
    byte-equal. Prints rounds, aborts, waits and committed txn/s beside
    Bohm's ``run_batch`` on the same batch (a fresh engine, the second of
-   two timed).
+   two timed);
+11. arena: (a) ``run_gauntlet(default_scenarios())`` through all six
+   adapters and ``si-schedule`` on the card: every row as expected, SI
+   flagged exactly on the write-skew scenarios and ``si-schedule`` on
+   write skew and the read-only anomaly, rows equal to a CPU run in
+   every field; (b) the headline cell ``ycsb-10rmw-z0.9`` at the main
+   path's scale (1,000,000 records, 8 payload words, 3 batches of 1024
+   zipfian theta=0.9 10-RMW transactions) through ``run_cell(iters=1)``
+   over the six protocols (``make_protocols``): every verdict
+   serial-equivalent and exact, each protocol's certification stream
+   (committed count, commit masks, read tags, final tags) equal to a CPU
+   replay; prints the pivot, the rounds or waves of each row with the ms
+   each took, and the headline (best Bohm variant against Hekaton and
+   OCC; a miss warns, as in ``benchmarks/arena.py``); (c)
+   ``scan-pinned-z0.9`` at 1,000,000 records (2 update batches, each
+   followed by a pinned 1024 x 10 scan) through ``run_cell`` and a
+   second stream whose scan reads and final store must equal the CPU's.
+   Launches are counted from zero over (b) and (c): Bohm's scans read
+   through rows 1-2 in their in-place forms only.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
@@ -146,7 +164,14 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from benchmarks_torch.arena import check_headline, markdown_pivot  # noqa: E402
+from benchmarks_torch.common import round_table  # noqa: E402
+from repro_torch.arena import (PROTOCOL_NAMES, ArenaCell,  # noqa: E402
+                               default_scenarios, make_protocols, run_cell,
+                               run_gauntlet)
+from repro_torch.arena.matrix import tag_replay  # noqa: E402
 from repro_torch.configs.bohm_workloads import YCSB_HIGH_10RMW, build  # noqa: E402
 from repro_torch.core.baselines import (run_2pl, run_hekaton,  # noqa: E402
                                         run_occ, run_si)
@@ -161,7 +186,8 @@ from repro_torch.kernels import mvcc_resolve as kmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
-from repro_torch.obs import FlightRecorder, PhaseTracer  # noqa: E402
+from repro_torch.obs import (FlightRecorder, MetricsRegistry,  # noqa: E402
+                             PhaseTracer)
 from repro_torch.serving import STATE_DONE, ServeEngine  # noqa: E402
 from repro_torch.serving import engine as serve_mod  # noqa: E402
 from repro_torch.service import TxnService  # noqa: E402
@@ -1444,6 +1470,131 @@ def baselines_phase(device="cuda"):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the protocol arena (phase 11)
+# ---------------------------------------------------------------------------
+ARENA_BATCHES, ARENA_SCAN_BATCHES = 3, 2
+
+
+def gauntlet_phase(device="cuda"):
+    """Phase 11a: the standing gauntlet through all six adapters and the
+    SI schedule interpreter on the card, against its ground truth and a
+    CPU run (every field)."""
+    scenarios = default_scenarios(device=device)
+    gpu = run_gauntlet(scenarios, device=device)
+    bad = [(r["cell"], r["protocol"], r["verdict"]) for r in gpu
+           if not r["as_expected"]]
+    if bad:
+        raise AssertionError(f"gauntlet: unexpected verdicts {bad}")
+    flagged = {(r["cell"], r["protocol"]) for r in gpu
+               if r["verdict"] != "serial-equivalent"}
+    want = {(f"gauntlet:{sc.name}", p) for sc in scenarios
+            for p, kinds in (("si", ("write-skew",)),
+                             ("si-schedule", ("write-skew",
+                                              "read-only-anomaly")))
+            if sc.name.startswith(kinds)}
+    if flagged != want:
+        raise AssertionError(f"gauntlet flagged {sorted(flagged)}, "
+                             f"expected {sorted(want)}")
+    if gpu != run_gauntlet(default_scenarios(device="cpu"), device="cpu"):
+        raise AssertionError("gauntlet: card rows != cpu rows")
+    return gpu, flagged
+
+
+def arena_cells(R: int, t: int, seed: int = 0):
+    """The headline cell ``ycsb-10rmw-z0.9`` (``ARENA_BATCHES`` batches)
+    and ``scan-pinned-z0.9`` (``ARENA_SCAN_BATCHES`` update batches, each
+    followed by a pinned ``t`` x ``OPS`` scan), built on the host."""
+    theta = YCSB_HIGH_10RMW.theta
+    rng = np.random.default_rng(seed)
+    head = ArenaCell("ycsb-10rmw-z0.9", "ycsb", R,
+                     [gen_ycsb_batch(rng, t, R, theta=theta, mix="10rmw",
+                                     device="cpu")
+                      for _ in range(ARENA_BATCHES)],
+                     theta=theta, mix="10rmw")
+    scan = ArenaCell("scan-pinned-z0.9", "scan", R,
+                     [gen_ycsb_batch(rng, t, R, theta=theta, mix="10rmw",
+                                     device="cpu")
+                      for _ in range(ARENA_SCAN_BATCHES)],
+                     theta=theta, mix="10rmw",
+                     scans=[gen_scan_batch(rng, t, R, ops=OPS, theta=theta,
+                                           device="cpu")
+                            for _ in range(ARENA_SCAN_BATCHES)])
+    return head, scan
+
+
+def cell_to(cell, device):
+    return dataclasses.replace(
+        cell, batches=[b.to(device) for b in cell.batches],
+        scans=[b.to(device) for b in cell.scans])
+
+
+def replay_stream(protos, cell):
+    """Per protocol: the certification stream's committed count, commit
+    masks, read tags and final tags, on the host."""
+    out = {}
+    for name, proto in protos.items():
+        _, outs, final = tag_replay(proto, list(cell.batches))
+        masks = [o.commit_mask.cpu().numpy() for o in outs]
+        out[name] = {"committed": int(sum(m.sum() for m in masks)),
+                     "masks": masks, "final": final,
+                     "tags": [o.read_vals[:, :, 0].cpu().numpy()
+                              for o in outs]}
+    return out
+
+
+def scan_stream(protos, cell):
+    """Per protocol: submit each update batch, then the pinned scan after
+    it; the scans' reads and the final store on the host."""
+    out = {}
+    for name, proto in protos.items():
+        proto.reset()
+        reads = []
+        for batch, scan in zip(cell.batches, cell.scans):
+            proto.submit(batch)
+            reads.append(proto.run_scan(scan).cpu().numpy())
+        out[name] = {"scans": reads, "final": proto.finish().cpu().numpy()}
+    return out
+
+
+def arena_phase(R: int = YCSB_HIGH_10RMW.num_records,
+                t: int = YCSB_HIGH_10RMW.batch_size, device="cuda"):
+    """Phase 11b-c (see the module doc) on ``device``, against the CPU.
+    Returns the rows of both cells, the launches of the card's arena path
+    and the CPU replay's seconds."""
+    head, scan = arena_cells(R, t)
+    wl = make_ycsb(payload_words=YCSB_HIGH_10RMW.payload_words, ops=OPS)
+    kmod.reset_launches()                  # counts start at 0 for the path
+    registry = MetricsRegistry()
+    protos = make_protocols(R, wl, registry, device=device)
+    g_head, g_scan = cell_to(head, device), cell_to(scan, device)
+    rows = run_cell(g_head, protos, iters=1, registry=registry)
+    for r in rows:
+        if (r["verdict"], r["exact"]) != ("serial-equivalent", True):
+            raise AssertionError(f"{r['protocol']}: {r['verdict']}, exact "
+                                 f"{r['exact']}")
+    gpu_replay = replay_stream(protos, g_head)
+    rows += run_cell(g_scan, protos, iters=1, registry=registry)
+    gpu_scans = scan_stream(protos, g_scan)
+    launches = dict(kmod.LAUNCHES)
+    check_in_place("arena path", launches, ("mvcc_resolve",
+                                            "mvcc_resolve_masked"))
+    del protos
+    t0 = time.perf_counter()
+    cpu = make_protocols(R, wl, device="cpu")
+    cpu_replay = replay_stream(cpu, head)
+    for name in gpu_replay:
+        np.testing.assert_equal(gpu_replay[name], cpu_replay[name],
+                                err_msg=f"arena {name}")
+        row = next(r for r in rows if r["protocol"] == name)
+        if row["committed"] != gpu_replay[name]["committed"]:
+            raise AssertionError(f"{name}: row committed {row['committed']}"
+                                 f" != replay {gpu_replay[name]['committed']}")
+    np.testing.assert_equal(gpu_scans, scan_stream(cpu, scan),
+                            err_msg="arena scans")
+    return rows, launches, time.perf_counter() - t0
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -1656,6 +1807,24 @@ def main() -> int:
             f"(warm) = {rate:.1f} committed txn/s; card == cpu "
             f"(base, reads, stats)")
     log(f"baselines: {time.perf_counter() - t0:.1f} s")
+
+    # -- the protocol arena, counted from zero -----------------------------
+    t0 = time.perf_counter()
+    grows, flagged = gauntlet_phase()
+    log(f"arena gauntlet: {len(grows)} rows, all as expected; flagged "
+        f"{sorted(flagged)}; card == cpu in every field "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    rows_a, launches, replay_s = arena_phase()
+    log(f"arena path: launches {launches}; ycsb-10rmw-z0.9 serial-equivalent"
+        f" and exact for all {len(PROTOCOL_NAMES)} protocols; certification"
+        f" streams (committed, masks, read tags, final tags) and the pinned"
+        f" scans card == cpu ({replay_s:.1f} s of cpu replay)")
+    log(markdown_pivot(rows_a))
+    for line in round_table(rows_a):
+        log(f"arena {line}")
+    check_headline(rows_a)
+    log(f"arena: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -18,6 +18,9 @@ inert lifecycle auditor.
 ``health``     MVCC gauges computed from store state on demand
                (``engine_health``, ``service_health``) and the serving
                plane's host-only ``scheduler_health``.
+``meta``       ``run_metadata()``: the provenance block of every
+               benchmark and arena artifact (torch and CUDA versions,
+               device, git SHA, timestamp).
 
 The tracer's event ring, anomaly detector and Chrome-trace export (and
 with it ``stitch_chrome_trace``), the lifecycle auditor and the health
@@ -33,6 +36,7 @@ import torch
 from repro_torch.obs.flight import NULL_FLIGHT, FlightRecorder, TicketFlight
 from repro_torch.obs.health import (engine_health, scheduler_health,
                                     service_health)
+from repro_torch.obs.meta import git_sha, run_metadata
 from repro_torch.obs.quantiles import LogHistogram
 from repro_torch.obs.registry import MetricsRegistry, MetricsView
 
@@ -150,5 +154,5 @@ NULL_AUDIT = _NullAudit()
 
 __all__ = ["FlightRecorder", "LogHistogram", "MetricsRegistry",
            "MetricsView", "NULL_AUDIT", "NULL_FLIGHT", "NULL_SPAN",
-           "PhaseTracer", "TicketFlight", "engine_health",
-           "scheduler_health", "service_health"]
+           "PhaseTracer", "TicketFlight", "engine_health", "git_sha",
+           "run_metadata", "scheduler_health", "service_health"]

@@ -92,11 +92,13 @@ class MetricsRegistry:
     # -- the single host-transfer point ------------------------------------
     def snapshot(self, include_gauges: bool = True) -> Dict[str, object]:
         """Realise every metric on the host: scalar counters as Python
-        numbers, vector counters as numpy arrays, then host counters and
-        gauge evaluations."""
+        numbers, vector counters as numpy arrays (in sorted name order, the
+        order of the reference's ``jax.device_get`` over the counter
+        dict), then host counters and gauge evaluations."""
         with self._lock:
             device = dict(self._device)
-        out: Dict[str, object] = {k: _host(v) for k, v in device.items()}
+        out: Dict[str, object] = {k: _host(v)
+                                  for k, v in sorted(device.items())}
         out.update(self._host)
         if include_gauges:
             for k, fn in self._gauges.items():

@@ -6,7 +6,9 @@ accounting, and byte equality of ``(base, reads, stats)`` with the
 reference on the same seeded batches at (R, T, theta, mix) in
 {(512, 64, 0.9, 10rmw), (256, 48, 0.95, 10rmw), (64, 64, 0.9, 2rmw8r)}.
 Every stat keeps the reference's dtype (0-d int32 counts, a [T] bool
-commit mask). The MVSG ``certify`` cases wait for the arena.
+commit mask). The MVSG cases of ``tests/test_baselines.py`` run the
+port's runners under the port's tag workload and hold their committed
+output to the port's own certifier (``repro_torch.arena.certify``).
 """
 import functools
 
@@ -20,6 +22,7 @@ from _torch_parity import assert_same, np_, port_batch
 from repro.core import baselines as ref_bl
 from repro.core.txn import make_batch as ref_make_batch
 from repro.core.workloads import gen_ycsb_batch, make_ycsb as ref_make_ycsb
+from repro_torch.arena import certify, make_tag_workload, tag_batch
 from repro_torch.core.baselines import run_2pl, run_hekaton, run_occ, run_si
 from repro_torch.core.workloads import make_ycsb
 from repro_torch.obs import MetricsRegistry
@@ -154,3 +157,46 @@ def test_repeated_writes_take_the_last_column():
         got = _run(name, dup)
         assert_same(ref[0], got[0], f"{name}: base")
         assert_same(ref[1], got[1], f"{name}: reads")
+
+
+# ---------------------------------------------------------------------------
+# Graph checker as the semantic oracle over random streams
+# ---------------------------------------------------------------------------
+def _certified(name, batch, n_rec):
+    """``name``'s runner on the tag-instrumented ``batch`` from a zero
+    store, its output certified."""
+    wl = make_tag_workload(batch.n_read, batch.n_write)
+    pb = port_batch(batch)
+    final, reads, m = RUNNERS[name](torch.zeros((n_rec, 1),
+                                                dtype=torch.int32),
+                                    tag_batch(pb, 0, device="cpu"), wl,
+                                    n_rec)
+    return certify(pb, reads[:, :, 0], m["commit_mask"], final[:, 0])
+
+
+@pytest.mark.parametrize("name", ["2pl", "occ", "hekaton"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_serial_equivalence_oracle(name, seed):
+    """Whatever the models' round counts do, committed output on a
+    contended RMW stream must certify as serial-equivalent."""
+    batch = gen_ycsb_batch(np.random.default_rng(seed), 48, 256,
+                           theta=0.95, mix="10rmw")
+    v = _certified(name, batch, 256)
+    assert v.serializable and v.exact, (name, seed, v)
+
+
+def test_si_oracle_on_rmw_stream():
+    """Pure RMW: SI's committed subset (write = read set) is
+    record-disjoint, hence serializable — the checker must agree."""
+    batch = gen_ycsb_batch(np.random.default_rng(11), 48, 256,
+                           theta=0.95, mix="10rmw")
+    assert _certified("si", batch, 256).serializable
+
+
+def test_si_write_skew_not_serializable():
+    """2RMW-8R creates read-write overlap with disjoint writes — SI
+    commits write-skewed pairs and the checker flags the output (the
+    anomaly the arena matrix surfaces on ycsb-2rmw8r cells)."""
+    batch = gen_ycsb_batch(np.random.default_rng(2), 64, 64, theta=0.9,
+                           mix="2rmw8r")
+    assert not _certified("si", batch, 64).serializable

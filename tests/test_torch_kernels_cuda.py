@@ -844,3 +844,42 @@ def test_baseline_matches_cpu(cuda, name):
     for k, v in cpu[2].items():
         assert gpu[2][k].dtype == v.dtype and gpu[2][k].is_cuda, k
         assert torch.equal(gpu[2][k].cpu(), v), k
+
+
+# ---------------------------------------------------------------------------
+# the protocol arena on the card against its CPU runs
+# ---------------------------------------------------------------------------
+def test_gauntlet_matches_cpu(cuda):
+    """The standing gauntlet through all six adapters on the card gives
+    the CPU's rows in every field, each as expected."""
+    from repro_torch.arena import default_scenarios, run_gauntlet
+    gpu = run_gauntlet(default_scenarios(device="cuda"), device="cuda")
+    cpu = run_gauntlet(default_scenarios(device="cpu"), device="cpu")
+    assert gpu == cpu
+    assert all(r["as_expected"] for r in gpu)
+
+
+def test_run_cell_matches_cpu(cuda):
+    """One small ``run_cell`` (the scan cell: update batches with pinned
+    scans) gives the CPU's rows apart from the wall-clock fields; Bohm's
+    scans read through the in-place resolve kernels."""
+    from repro_torch.arena import arena_matrix, make_protocols, run_cell
+    from repro_torch.core.workloads import make_ycsb
+    kw = dict(num_records=4096, batch_size=64, n_batches=2, seed=1)
+    rows = {}
+    before = dict(mod.LAUNCHES)
+    for device in ("cuda", "cpu"):
+        cell = next(c for c in arena_matrix(device=device, **kw)
+                    if c.name == "scan-pinned-z0.9")
+        protos = make_protocols(4096, make_ycsb(2, ops=10), device=device)
+        rows[device] = [{k: v for k, v in r.items()
+                         if k not in ("time_s", "txn_s")}
+                        for r in run_cell(cell, protos, iters=1)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert mod.LAUNCHES["mvcc_resolve/rows"] > \
+                before["mvcc_resolve/rows"]
+            assert mod.LAUNCHES["mvcc_resolve/windows"] == \
+                before["mvcc_resolve/windows"]
+    assert rows["cuda"] == rows["cpu"]
+    assert all(r["verdict"] == "serial-equivalent" for r in rows["cpu"])
