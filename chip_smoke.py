@@ -140,7 +140,33 @@ the JAX package. Phases, each of which must pass:
    followed by a pinned 1024 x 10 scan) through ``run_cell`` and a
    second stream whose scan reads and final store must equal the CPU's.
    Launches are counted from zero over (b) and (c): Bohm's scans read
-   through rows 1-2 in their in-place forms only.
+   through rows 1-2 in their in-place forms only;
+12. audited store: (a) ``BohmEngine(1_000_000, make_ycsb(8), auditor=
+   LifecycleAuditor(capacity=1 << 20, per_record_cap=1 << 13))`` with the
+   dense path's defaults over ``YCSB_HIGH_10RMW``'s stream: 9 batches, a
+   pin after batch 3, ``gc_sweep`` after batches 6 and 9, then
+   ``snapshot_read`` of the stream's 4096 most-written records at the
+   pin, release and a sweep. An unaudited twin on the same seed must give
+   byte-equal reads, pinned reads, store and launches, as many
+   ``device.fence`` + ``torch.cuda.synchronize`` calls and as many
+   synchronising operations inside ``run_batch`` (``torch.cuda.
+   set_sync_debug_mode("warn")``). At the pin, every found=False must be
+   explained by a drop event covering it and a sample of found reads must
+   resolve to ``resident_*``; ``telescope()`` balanced and
+   ``gc_report()["pin_stabbed_reclaims"] == 0`` at the pin and after the
+   release, the delay histogram summing to ``reclaimed``. The default
+   store keeps every pinned version here, so the same stream also runs
+   with the spill tier cut to 128 buckets x 8 slots, where the pinned
+   reads must miss and every miss must be explained; (b) the same on
+   phase 6's paged engine (row 3 in place only); (c) ``TxnService`` in
+   phase 9's ``ooo`` mode over 8 ``mixed`` batches on an audited engine
+   with an enabled tracer, a ``FlightRecorder`` and a ``HealthMonitor``
+   ticked after each wait: ``stitch_chrome_trace(tracer, flight,
+   monitor=)`` must validate with spans, async lanes and counter tracks;
+   (d) the first 4 batches of (a) and a sweep on the card and on the
+   CPU: harvested events, state counts, GC report and telescope equal.
+   Prints the events by state, the found=False reasons, harvest ms and
+   the audited against the unaudited median batch ms.
 
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
@@ -150,6 +176,7 @@ card's name and power limit; the last line is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -157,6 +184,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -186,8 +214,10 @@ from repro_torch.kernels import mvcc_resolve as kmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
-from repro_torch.obs import (FlightRecorder, MetricsRegistry,  # noqa: E402
-                             PhaseTracer)
+from repro_torch import device as device_mod  # noqa: E402
+from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
+                             LifecycleAuditor, MetricsRegistry, PhaseTracer,
+                             stitch_chrome_trace, validate_chrome_trace)
 from repro_torch.serving import STATE_DONE, ServeEngine  # noqa: E402
 from repro_torch.serving import engine as serve_mod  # noqa: E402
 from repro_torch.service import TxnService  # noqa: E402
@@ -1595,6 +1625,385 @@ def arena_phase(R: int = YCSB_HIGH_10RMW.num_records,
     return rows, launches, time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# the audited store (phase 12)
+# ---------------------------------------------------------------------------
+AUDIT_KW = dict(capacity=1 << 20, per_record_cap=1 << 13)
+AUDIT_SWEEPS, AUDIT_TOP, AUDIT_SAMPLE = (6, 9), 4096, 64
+# the spill tier cut so that one held pin saturates it (the default pool
+# of R/4 buckets x 8 slots never drops a pinned version on this stream)
+AUDIT_SATURATE = dict(spill_buckets=128)
+SVC_AUDIT_BATCHES = 8
+
+
+class Joins:
+    """Counts the host joins a run makes: ``repro_torch.device.fence`` and
+    ``torch.cuda.synchronize`` calls (patched while the block runs), and
+    with ``sync_debug`` the synchronising CUDA operations that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports inside ``hot()``
+    blocks."""
+
+    def __init__(self):
+        self.calls = 0
+        self.hot_syncs = 0
+        self.hot_sites = collections.Counter()
+        if torch.cuda.is_available():
+            # the mode's first switch in a process may warn once by itself;
+            # take that here, outside any count
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                torch.cuda.set_sync_debug_mode("warn")
+                torch.cuda.set_sync_debug_mode(0)
+
+    def __enter__(self):
+        self._fence, self._sync = device_mod.fence, torch.cuda.synchronize
+
+        def fence(x):
+            self.calls += 1
+            return self._fence(x)
+
+        def sync(*a, **k):
+            self.calls += 1
+            return self._sync(*a, **k)
+
+        device_mod.fence, torch.cuda.synchronize = fence, sync
+        return self
+
+    def __exit__(self, *exc):
+        device_mod.fence, torch.cuda.synchronize = self._fence, self._sync
+        return False
+
+    def hot(self, fn, *args):
+        """``fn(*args)`` with the CUDA sync-debug warnings counted."""
+        if not torch.cuda.is_available():
+            return fn(*args)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        for w in seen:
+            if "called a synchronizing CUDA operation" in str(w.message):
+                self.hot_syncs += 1
+                self.hot_sites[f"{Path(w.filename).name}:{w.lineno}"] += 1
+        return out
+
+
+def audit_stream(cfg: dict, audited: bool, device: str, R: int,
+                 t: int, n_batches: int = N_BATCHES, seed: int = 0,
+                 sweeps=AUDIT_SWEEPS, release: bool = True,
+                 need_misses: bool = False, count_syncs: bool = True,
+                 traced: bool = False):
+    """YCSB_HIGH_10RMW's stream (zipfian theta=0.9 10-RMW batches of ``t``
+    over ``R`` records, 8 words) through ``BohmEngine(R, make_ycsb(8),
+    **cfg)``, with a ``LifecycleAuditor(**AUDIT_KW)`` when ``audited``: a
+    pin after batch ``PIN_AFTER``, ``gc_sweep`` after each batch in
+    ``sweeps``, then ``snapshot_read`` of the stream's ``AUDIT_TOP``
+    most-written records at the pin, explained by the auditor while the
+    pin holds (``explain_at_pin``); with ``release`` the pin is released
+    and swept. ``count_syncs`` counts the synchronising operations inside
+    ``run_batch`` (which slows it: time with it off); ``traced`` times the
+    phases with an enabled tracer. Returns the engine, what the checks
+    compare and the timings."""
+    wc = YCSB_HIGH_10RMW
+    aud = LifecycleAuditor(**AUDIT_KW) if audited else None
+    eng = BohmEngine(R, make_ycsb(payload_words=wc.payload_words),
+                     auditor=aud, device=device,
+                     tracer=PhaseTracer(enabled=traced), **cfg)
+    harvest = {"s": 0.0, "n": 0, "events": 0}
+    if aud is not None:
+        real = aud.harvest
+
+        def timed_harvest():
+            t0 = time.perf_counter()
+            n = real()
+            if n:
+                harvest["s"] += time.perf_counter() - t0
+                harvest["n"] += 1
+                harvest["events"] += n
+            return n
+        aud.harvest = timed_harvest
+    rng = np.random.default_rng(seed)
+    out = {"reads": [], "batch_ms": [], "harvest": harvest}
+    written = np.zeros(R, np.int64)
+    with Joins() as joins:
+        for i in range(n_batches):
+            batch = gen_ycsb_batch(rng, t, R, theta=wc.theta, mix=wc.mix,
+                                   device=device)
+            w = batch.write_set.reshape(-1).cpu().numpy()
+            np.add.at(written, w[w >= 0], 1)
+            t0 = time.perf_counter()
+            reads, _ = (joins.hot(eng.run_batch, batch) if count_syncs
+                        else eng.run_batch(batch))
+            _sync(device)
+            out["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["reads"].append(reads.cpu().numpy())
+            if i + 1 == PIN_AFTER:
+                pin = eng.begin_snapshot()
+            if i + 1 in sweeps:
+                eng.gc_sweep()
+        top = np.argsort(-written, kind="stable")[:AUDIT_TOP]
+        vals, found = eng.snapshot_read(torch.from_numpy(top).to(device),
+                                        pin)
+        out["pinned"] = (vals.cpu().numpy(), found.cpu().numpy())
+        out["pinned_store"] = store_to_numpy(eng.store)
+        if aud is not None:            # the account while the pin holds
+            out["reasons"] = explain_at_pin(aud, pin.ts, top,
+                                            out["pinned"][1], need_misses)
+            out["at_pin"] = (aud.telescope(), aud.gc_report())
+        if release:
+            eng.release_snapshot(pin)
+            eng.gc_sweep()
+        eng.snapshot()
+    out["phase_ms"] = {k: [x * 1e3 for x in v] for k, v in
+                       eng.tracer.span_durations().items() if k in PHASES}
+    out.update(eng=eng, pin=pin, top=top, joins=joins.calls,
+               hot_syncs=joins.hot_syncs, hot_sites=joins.hot_sites,
+               store=store_to_numpy(eng.store))
+    return out
+
+
+def explain_at_pin(aud, ts: int, top, found, need_misses: bool):
+    """The auditor's account of the pinned reads, while the pin holds:
+    every found=False explained by a drop event covering the pin (with
+    ``need_misses`` there must be some), a sample of found reads resolved
+    to a resident version. Returns the reasons counted."""
+    misses = np.nonzero(~found)[0]
+    if need_misses and misses.size == 0:
+        raise AssertionError("the stream never saturated the store")
+    reasons = {}
+    for i in misses:
+        exp = aud.explain_read(int(top[i]), ts)
+        ev = exp["event"]
+        if exp["found"] or ev is None or not ev.covers(ts):
+            raise AssertionError(f"record {top[i]} missed at the pin "
+                                 f"without a covering drop event: {exp}")
+        reasons[exp["reason"]] = reasons.get(exp["reason"], 0) + 1
+    hits = np.nonzero(found)[0]
+    sample = hits[np.linspace(0, hits.size - 1, min(AUDIT_SAMPLE, hits.size)
+                              ).astype(int)] if hits.size else hits
+    for i in sample:
+        exp = aud.explain_read(int(top[i]), ts)
+        if not (exp["found"] and exp["reason"].startswith("resident_")):
+            raise AssertionError(f"found read of {top[i]} not resident: "
+                                 f"{exp}")
+        reasons[exp["reason"]] = reasons.get(exp["reason"], 0) + 1
+    return reasons
+
+
+def audit_checks(run: dict, what: str):
+    """The telescope balanced and no sweep reclaiming a pinned version,
+    at the pin (before the release) and again after it, the delay
+    histogram summing to the reclaimed count. Returns the event counts by
+    state, the telescope and the GC report."""
+    aud = run["eng"].auditor
+    tel, gc = aud.telescope(), aud.gc_report()
+    for when, (t_, g_) in (("at the pin", run["at_pin"]),
+                           ("after the release", (tel, gc))):
+        if not t_["balanced"] or g_["pin_stabbed_reclaims"] != 0:
+            raise AssertionError(f"{what} {when}: telescope {t_}, gc {g_}")
+    if sum(gc["delay_hist_log2"]) != gc["reclaimed"] or gc["reclaimed"] <= 0:
+        raise AssertionError(f"{what}: gc report {gc}")
+    states = {}
+    for e in aud.events():
+        states[e.state_name] = states.get(e.state_name, 0) + 1
+    return states, tel, gc
+
+
+def audited_path(cfg: dict, what: str, device="cuda",
+                 R=YCSB_HIGH_10RMW.num_records,
+                 t=YCSB_HIGH_10RMW.batch_size):
+    """Phase 12 (a) / (b) on one configuration: the audited run, its
+    unaudited twin (reads, pinned reads, store and launches byte-equal,
+    as many host joins, as many synchronising operations inside
+    ``run_batch``), the audit checks, then the same stream on the spill
+    tier cut by ``AUDIT_SATURATE``, whose misses must all be explained.
+    Returns what the phase prints."""
+    runs, launches = {}, {}
+    for audited in (True, False):
+        kmod.reset_launches()
+        runs[audited] = audit_stream(cfg, audited, device, R, t)
+        _sync(device)
+        launches[audited] = dict(kmod.LAUNCHES)
+        if not audited:
+            del runs[audited]["eng"]
+    on, off = runs[True], runs[False]
+    for i, (a, b) in enumerate(zip(on["reads"], off["reads"])):
+        np.testing.assert_array_equal(a, b, err_msg=f"{what}: batch {i}")
+    for a, b in zip(on["pinned"], off["pinned"]):
+        np.testing.assert_array_equal(a, b, err_msg=f"{what}: pinned")
+    for key in ("pinned_store", "store"):
+        for name in on[key]:
+            np.testing.assert_array_equal(on[key][name], off[key][name],
+                                          err_msg=f"{what}: {key}/{name}")
+    if launches[True] != launches[False]:
+        raise AssertionError(f"{what}: launches {launches}")
+    if (on["joins"], on["hot_syncs"]) != (off["joins"], off["hot_syncs"]):
+        raise AssertionError(
+            f"{what}: host joins audited {on['joins']} / {on['hot_syncs']} "
+            f"against unaudited {off['joins']} / {off['hot_syncs']}; sync "
+            f"sites only audited {dict(on['hot_sites'] - off['hot_sites'])}"
+            f", only unaudited {dict(off['hot_sites'] - on['hot_sites'])}; "
+            f"all {dict(on['hot_sites'])}")
+    primary = "mvcc_resolve_paged" if cfg.get("paged") else "mvcc_resolve"
+    if device == "cuda":
+        check_in_place(what, launches[True], (primary,
+                                              "mvcc_resolve_masked"))
+    states, tel, gc = audit_checks(on, what)
+    kmod.reset_launches()
+    sat = audit_stream(dict(cfg, **AUDIT_SATURATE), True, device, R, t,
+                       need_misses=True)
+    _sync(device)
+    sat_launches = dict(kmod.LAUNCHES)
+    if device == "cuda":
+        check_in_place(f"{what} (saturated)", sat_launches,
+                       (primary, "mvcc_resolve_masked"))
+    sat_states, _, sat_gc = audit_checks(sat, f"{what} (saturated)")
+    sat_reasons, sat_found = sat["reasons"], float(sat["pinned"][1].mean())
+    del sat
+    # the timed runs: traced, without the sync count, unaudited and
+    # audited alternating (off, on, on, off); per run the median batch and
+    # phase ms of batches 3-9
+    timed = {False: [], True: []}
+    for audited in (False, True, True, False):
+        run = audit_stream(cfg, audited, device, R, t, count_syncs=False,
+                           traced=True)
+        timed[audited].append(
+            {"batch": statistics.median(run["batch_ms"][2:]),
+             **{k: statistics.median(v[2:])
+                for k, v in run["phase_ms"].items()}})
+        del run
+    return {"launches": launches[True], "joins": on["joins"],
+            "hot_syncs": on["hot_syncs"], "states": states,
+            "reasons": on["reasons"], "gc": gc, "telescope": tel,
+            "harvest": on["harvest"],
+            "timed": timed,
+            "sat_reasons": sat_reasons, "sat_states": sat_states,
+            "sat_gc": sat_gc, "sat_launches": sat_launches,
+            "sat_found": sat_found}
+
+
+def audited_service(device="cuda", R=YCSB_HIGH_10RMW.num_records,
+                    t=YCSB_HIGH_10RMW.batch_size):
+    """Phase 12 (c): ``TxnService`` in phase 9's ``ooo`` mode over
+    ``SVC_AUDIT_BATCHES`` batches of its ``mixed`` stream, on an audited
+    engine with an enabled tracer, a ``FlightRecorder`` and a
+    ``HealthMonitor`` ticked after each ticket's wait; the stitched trace
+    must validate with spans, async lanes and counter tracks, and the
+    audit's invariants must hold after the drain."""
+    batches = mixed_stream(np.random.default_rng(47), R, SVC_AUDIT_BATCHES,
+                           t, OPS)
+    eng = BohmEngine(R, make_ycsb(payload_words=YCSB_HIGH_10RMW
+                                  .payload_words),
+                     auditor=LifecycleAuditor(**AUDIT_KW),
+                     tracer=PhaseTracer(enabled=True), device=device)
+    flight = FlightRecorder(enabled=True)
+    svc = TxnService(eng, flight=flight, **OOO_KW)
+    monitor = HealthMonitor(svc, cadence_s=0.0)
+    kmod.reset_launches()
+    tickets = [svc.submit(b) for b in batches]
+    pin = svc.begin_snapshot()
+    for tk in tickets:
+        svc.wait(tk)
+        monitor.tick()
+    svc.drain()
+    scan = gen_scan_batch(np.random.default_rng(48), N_SCANS, R, ops=OPS,
+                          theta=YCSB_HIGH_10RMW.theta, device=device)
+    svc.run_readonly_batch(scan, pin)
+    svc.release_snapshot(pin)
+    eng.gc_sweep()
+    monitor.sample()
+    _sync(device)
+    launches = dict(kmod.LAUNCHES)
+    if device == "cuda":
+        check_in_place("audited service", launches, ("mvcc_resolve",
+                                                     "mvcc_resolve_masked"))
+    trace = stitch_chrome_trace(eng.tracer, flight, monitor=monitor)
+    counts = validate_chrome_trace(json.loads(json.dumps(trace)))
+    if min(counts["spans"], counts["async_lanes"], counts["counters"]) <= 0:
+        raise AssertionError(f"audited service: stitched trace {counts}")
+    aud = eng.auditor
+    tel, gc = aud.telescope(), aud.gc_report()
+    if not tel["balanced"] or gc["pin_stabbed_reclaims"] != 0:
+        raise AssertionError(f"audited service: {tel}, {gc}")
+    return {"counts": counts, "epochs": len(svc.dispatch_log),
+            "stats": {k: svc.stats[k] for k in SVC_COUNTERS},
+            "alerts": monitor.alerts, "samples": monitor.samples,
+            "events": len(aud.events()), "launches": launches}
+
+
+def audit_replay(device="cuda", R=YCSB_HIGH_10RMW.num_records,
+                 t=YCSB_HIGH_10RMW.batch_size, n_batches=4):
+    """Phase 12 (d): (a)'s first ``n_batches`` batches (the pin after
+    ``PIN_AFTER``) and a sweep on ``device`` and on the CPU: harvested
+    events, state counts, the GC report and the telescope equal."""
+    side = {}
+    for dev in (device, "cpu"):
+        run = audit_stream({}, True, dev, R, t, n_batches=n_batches,
+                           sweeps=(n_batches,), release=False)
+        aud = run["eng"].auditor
+        side[dev] = ([dataclasses.astuple(e) for e in aud.events()],
+                     aud.state_counts(), aud.gc_report(), aud.telescope())
+        del run
+    names = ("events", "state_counts", "gc_report", "telescope")
+    for name, a, b in zip(names, side[device], side["cpu"]):
+        if a != b:
+            raise AssertionError(f"audit replay: {name} differs")
+    return len(side["cpu"][0])
+
+
+def audit_phase(device="cuda", R=YCSB_HIGH_10RMW.num_records,
+                t=YCSB_HIGH_10RMW.batch_size, paged=PAGED):
+    """Phase 12 (see the module doc); logs what it measured."""
+    smi = nvidia_smi() if device == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    for label, cfg in (("dense", {}), ("paged", paged)):
+        t1 = time.perf_counter()
+        res = audited_path(cfg, f"audited {label} path", device, R, t)
+        h = res["harvest"]
+
+        def ms(audited, key):
+            return [round(r[key], 3) for r in res["timed"][audited]]
+        log(f"audited {label} path: twin byte-equal (reads, pinned reads, "
+            f"store, launches {res['launches']}); host joins "
+            f"{res['joins']} and syncs inside run_batch {res['hot_syncs']}"
+            f", equal off and on; events by state {res['states']}; pinned "
+            f"reads of the {AUDIT_TOP} most-written records {res['reasons']}"
+            f"; gc {res['gc']}; telescope balanced "
+            f"({res['telescope']['lhs_committed_total']} versions)")
+        log(f"audited {label} path: traced runs off, on, on, off — median "
+            f"ms of batches 3-{N_BATCHES}, audited against unaudited: batch "
+            f"{ms(True, 'batch')} against {ms(False, 'batch')}; "
+            f"commit_phase {ms(True, 'commit_phase')} against "
+            f"{ms(False, 'commit_phase')}; plan_phase "
+            f"{ms(True, 'plan_phase')} against {ms(False, 'plan_phase')}; "
+            f"exec_phase {ms(True, 'exec_phase')} against "
+            f"{ms(False, 'exec_phase')}; harvest "
+            f"{h['s'] * 1e3:.1f} ms for {h['events']} events in {h['n']} "
+            f"harvests; saturated spill ({AUDIT_SATURATE}): found "
+            f"{res['sat_found']:.4f}, every miss explained "
+            f"{res['sat_reasons']}, events by state {res['sat_states']}, "
+            f"gc pin-stabbed {res['sat_gc']['pin_stabbed_reclaims']}, "
+            f"launches "
+            f"{res['sat_launches']} ({time.perf_counter() - t1:.1f} s; "
+            f"{smi})")
+    t1 = time.perf_counter()
+    svc = audited_service(device, R, t)
+    log(f"audited service (ooo, {SVC_AUDIT_BATCHES} mixed batches): "
+        f"stitched trace valid {svc['counts']}; epochs {svc['epochs']}; "
+        f"{svc['stats']}; monitor samples {svc['samples']}, alerts "
+        f"{svc['alerts']}; audit events {svc['events']}; launches "
+        f"{svc['launches']} ({time.perf_counter() - t1:.1f} s; {smi})")
+    t1 = time.perf_counter()
+    n_events = audit_replay(device, R, t)
+    log(f"audit cpu replay (4 batches, a pin after 3, a sweep): {n_events} "
+        f"events, state counts, gc report and telescope card == cpu "
+        f"({time.perf_counter() - t1:.1f} s)")
+    log(f"audited store: {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -1825,6 +2234,9 @@ def main() -> int:
         log(f"arena {line}")
     check_headline(rows_a)
     log(f"arena: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
+
+    # -- the audited store, counted from zero per path ---------------------
+    audit_phase()
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -24,11 +24,15 @@ The phase functions are also bound on the engine as ``_plan``, ``_exec``
 (workload bound) and ``_commit``, with the reference's argument order;
 the scheduler (``repro_torch.service.TxnService``) calls them with its
 own interleaving. ``health()`` reads the MVCC gauges
-(``repro_torch.obs.health``).
+(``repro_torch.obs.health``). An enabled ``PhaseTracer`` records the
+phases as spans (``repro_torch.obs.trace``); an enabled
+``LifecycleAuditor`` makes every commit emit the audit arrays, runs the
+audited sweep in ``gc_sweep`` and harvests at ``gc_sweep`` /
+``snapshot()`` (``repro_torch.obs.lifecycle``), with no host join added
+between them.
 
-Not ported yet (each raises ``NotImplementedError``): ``mesh=`` and a
-lifecycle ``auditor`` (ROADMAP.md, queue 1). An enabled ``PhaseTracer``
-times the phases (``repro_torch.obs``).
+Not ported yet (raises ``NotImplementedError``): ``mesh=`` (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -46,10 +50,11 @@ from repro_torch.core.execute import (Store, commit, execute_plan,
 from repro_torch.core.plan import MAX_BATCH_TXNS, Plan, cc_plan
 from repro_torch.core.txn import TxnBatch, Workload
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.obs import (NULL_AUDIT, MetricsRegistry, PhaseTracer,
-                             engine_health)
+from repro_torch.obs import (NULL_AUDIT, LifecycleAuditor, MetricsRegistry,
+                             PhaseTracer, engine_health)
 from repro_torch.store import (INF_TS, decay_pressure, from_global,
                                gather_windows_sharded, gc_sharded,
+                               gc_sharded_audited,
                                reassign_k, reassign_stats, resolve_sharded,
                                store_occupancy, to_global)
 from repro_torch.store.ring import i32
@@ -85,9 +90,10 @@ class BohmEngine:
                  k_quantum: Optional[int] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[PhaseTracer] = None,
-                 auditor=None, device: DeviceLike = None):
-        """Arguments as in ``repro.core.engine.BohmEngine`` (the options
-        of the unported paths — ``mesh``, an ``auditor`` — raise), plus
+                 auditor: Optional[LifecycleAuditor] = None,
+                 device: DeviceLike = None):
+        """Arguments as in ``repro.core.engine.BohmEngine`` (``mesh``,
+        the unported path, raises), plus
         ``device``: default the GPU, which
         raises when there is none; pass ``device="cpu"`` for the plain
         PyTorch path.
@@ -110,8 +116,6 @@ class BohmEngine:
         quantum (default ``page_slots`` when paged, else 1)."""
         if mesh is not None:
             raise _unported("mesh=")
-        if auditor is not None:
-            raise _unported("auditor=")
         if num_records > (1 << 20):
             raise ValueError("composite uint32 keys require R <= 2^20")
         if ring_slots < 1:
@@ -172,14 +176,15 @@ class BohmEngine:
             else MetricsRegistry()
         self.tracer = tracer if tracer is not None \
             else PhaseTracer(enabled=False)
-        self.auditor = NULL_AUDIT
+        self.auditor = auditor if auditor is not None else NULL_AUDIT
         self._declare_metrics()
         self._reset_policy()
         # the phase graph, bound as in the reference (the scheduler calls
         # the same three with its own interleaving)
         self._plan = plan_phase
         self._exec = functools.partial(exec_phase, workload=workload)
-        self._commit = commit_phase
+        self._commit = functools.partial(commit_phase,
+                                         with_audit=self.auditor.enabled)
 
     def _reset_policy(self) -> None:
         """Restart the adaptive-K policy's host state (at init,
@@ -210,6 +215,9 @@ class BohmEngine:
             m.declare(f"engine/{name}", scalar)
         m.set("engine/commits", 0)
         m.set("engine/txns_committed", 0)
+        if self.auditor.enabled:
+            # lifecycle counters share the store's lifecycle too
+            self.auditor.bind_engine(self)
 
     # -- update path -------------------------------------------------------
     def run_batch(self, batch: TxnBatch
@@ -247,6 +255,8 @@ class BohmEngine:
         return metrics
 
     def snapshot(self) -> torch.Tensor:
+        if self.auditor.enabled:
+            self.auditor.harvest()
         return self.store.base
 
     def reset_store(self, base: torch.Tensor,
@@ -327,8 +337,14 @@ class BohmEngine:
         reclaimed; synchronises on it."""
         wm_host = self.watermark()
         with self.tracer.span("gc_sweep", watermark=wm_host) as sp:
-            versions, evicted = gc_sharded(self.store.versions,
-                                           i32(wm_host, self.device))
+            wm = i32(wm_host, self.device)
+            if self.auditor.enabled:
+                versions, evicted, gc_audit = gc_sharded_audited(
+                    self.store.versions, wm, self.pin_array(),
+                    event_cap=self.auditor.gc_event_cap)
+                self.auditor.on_gc(gc_audit, wm_host)
+            else:
+                versions, evicted = gc_sharded(self.store.versions, wm)
             if self.adaptive_k and self._commits_since_sweep > 0:
                 versions = self._run_policy(versions)
             self.store = dataclasses.replace(self.store, versions=versions)
@@ -336,6 +352,10 @@ class BohmEngine:
             sp.note(reclaimed=evicted)
         self.metrics.inc("engine/gc_sweeps")
         self.metrics.inc("engine/gc_reclaimed", evicted)
+        # the sweep is a harvest boundary (one transfer; the hot path
+        # between sweeps never joins the host for the audit)
+        if self.auditor.enabled:
+            self.auditor.harvest()
         return evicted
 
     def _run_policy(self, versions):
@@ -467,6 +487,8 @@ class BohmEngine:
         m.inc("engine/commits")
         m.inc("engine/txns_committed", n_txns)
         self._commits_since_sweep += 1
+        # stash the audit_* tensors (popped, so result fan-out never
+        # carries them) and fold the lifecycle counters, on the device
         self.auditor.on_commit(metrics)
 
     def overflow_by_record(self) -> torch.Tensor:
@@ -559,6 +581,16 @@ class BohmEngine:
         transfer — see ``repro_torch.obs.health``. Synchronises."""
         return engine_health(self)
 
+    def inspect_record(self, record: int):
+        """Time-travel inspector for one record (requires an enabled
+        ``auditor``): resident versions across ring/slab/spill merged
+        with the harvested transition events — see
+        ``repro_torch.obs.LifecycleAuditor.inspect_record``."""
+        if not self.auditor.enabled:
+            raise RuntimeError(
+                "inspect_record requires BohmEngine(auditor=...)")
+        return self.auditor.inspect_record(record)
+
 
 def _layout(store: Store) -> Tuple:
     """Shapes that fix an engine's configuration: heads, the primary
@@ -603,10 +635,11 @@ def exec_phase(plan: Plan, batch: TxnBatch, store: Store, *,
 
 def commit_phase(plan: Plan, batch: TxnBatch, store: Store,
                  w_data: torch.Tensor, watermark=None, ts_window=None,
-                 pin_ts: Optional[torch.Tensor] = None):
+                 pin_ts: Optional[torch.Tensor] = None, *,
+                 with_audit: bool = False):
     """Watermark-driven commit of an executed batch."""
     return commit(plan, batch, store, w_data, watermark,
-                  ts_window=ts_window, pin_ts=pin_ts)
+                  ts_window=ts_window, pin_ts=pin_ts, with_audit=with_audit)
 
 
 def _readonly_resolve(versions, read_set: torch.Tensor, ts: torch.Tensor):

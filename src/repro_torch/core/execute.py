@@ -128,12 +128,13 @@ def execute_plan(plan: Plan, batch: TxnBatch, store: Store,
 
 def commit(plan: Plan, batch: TxnBatch, store: Store, w_data: torch.Tensor,
            watermark=None, ts_window: Optional[Tuple] = None,
-           pin_ts: Optional[torch.Tensor] = None
+           pin_ts: Optional[torch.Tensor] = None,
+           with_audit: bool = False
            ) -> Tuple[Store, Dict[str, torch.Tensor]]:
     """Batch barrier: fold each record's batch-final version into the head
     cache AND commit every batch version into the persistent rings (see
     ``repro.core.execute.commit`` for ``watermark`` / ``ts_window`` /
-    ``pin_ts``)."""
+    ``pin_ts``; ``with_audit`` adds the lifecycle audit arrays)."""
     if watermark is None:
         watermark = store.ts_counter
     if ts_window is None:
@@ -147,7 +148,7 @@ def commit(plan: Plan, batch: TxnBatch, store: Store, w_data: torch.Tensor,
     versions, ring_metrics = commit_sharded(
         store.versions, plan.w_rec, plan.w_key, plan.w_valid,
         plan.w_begin_ts, plan.w_end_ts, w_data, watermark,
-        ts_window=ts_window, pin_ts=pin_ts)
+        ts_window=ts_window, pin_ts=pin_ts, with_audit=with_audit)
     return Store(base=base, base_ts=base_ts,
                  ts_counter=i32(ts_window[1], store.base.device),
                  versions=versions), ring_metrics

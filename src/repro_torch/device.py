@@ -5,10 +5,12 @@ Every entry point (``BohmEngine``, ``build``, the batch generators) takes
 There is no silent fallback: asking for the card on a machine without
 one raises, so a run that was meant to measure the GPU can never finish
 on the CPU by accident. ``fence`` is the one host join of the
-scheduler (``repro_torch.service``).
+scheduler (``repro_torch.service``) and of an enabled tracer's spans
+(``repro_torch.obs.trace``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -29,12 +31,33 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def _cuda_leaf(x) -> Optional[torch.Tensor]:
+    """The first CUDA tensor in ``x``: a tensor, or a dataclass / tuple /
+    list / dict holding tensors (searched depth-first); else None."""
+    if isinstance(x, torch.Tensor):
+        return x if x.is_cuda else None
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        for item in x:
+            leaf = _cuda_leaf(item)
+            if leaf is not None:
+                return leaf
+    return None
+
+
 def fence(x):
-    """Wait until the work that produces ``x`` (a tensor) has finished, and
-    return ``x``: the current stream's ``synchronize()`` when ``x`` lies on
-    a CUDA device, nothing on the CPU, where tensor work is synchronous.
-    The one host join of the port's scheduler (``TxnService``): every join
-    goes through this attribute, so a test can count them."""
-    if isinstance(x, torch.Tensor) and x.is_cuda:
-        torch.cuda.current_stream(x.device).synchronize()
+    """Wait until the work that produces ``x`` has finished, and return
+    ``x``: the current stream's ``synchronize()`` when ``x`` (a tensor, or
+    a dataclass / tuple / list / dict holding tensors) lies on a CUDA
+    device, nothing on the CPU, where tensor work is synchronous. One
+    stream wait covers every tensor of ``x``, all enqueued on that
+    stream. The one host join of the port's scheduler (``TxnService``)
+    and of an enabled tracer's spans: every join goes through this
+    attribute, so a test can count them."""
+    leaf = _cuda_leaf(x)
+    if leaf is not None:
+        torch.cuda.current_stream(leaf.device).synchronize()
     return x

@@ -1,5 +1,5 @@
 """FlightRecorder: per-ticket lifecycle tracing for the OOO scheduler
-(port of ``repro.obs.flight``, a copy minus ``stitch_chrome_trace``).
+(port of ``repro.obs.flight``).
 
 The phase tracer (``repro_torch.obs.PhaseTracer``) answers "how long do
 plan / exec / commit take"; after out-of-order admission that is not
@@ -38,9 +38,9 @@ that cost the most reordering show up by name.
 Export: ``to_async_events`` renders each completed ticket as a Chrome
 ``trace_event`` *nestable async* lane (``ph`` b/n/e, ``cat="flight"``,
 ``id`` = ticket) — one horizontal lane per ticket with its four phase
-slices and blocked-instant markers. Stitching the lanes into a
-``PhaseTracer`` Chrome export (``stitch_chrome_trace``) waits for the
-tracer's event ring and export (ROADMAP.md, queue 1, slice E).
+slices and blocked-instant markers. ``stitch_chrome_trace`` merges the
+lanes into the tracer's phase spans (and a health monitor's counter
+tracks) on one time origin.
 """
 from __future__ import annotations
 
@@ -320,6 +320,37 @@ class FlightRecorder:
         return events
 
 
+def stitch_chrome_trace(tracer, recorder: FlightRecorder,
+                        monitor=None) -> Dict:
+    """One Chrome trace: the tracer's phase spans / instants plus the
+    recorder's per-ticket async lanes and, when a
+    ``repro_torch.obs.monitor.HealthMonitor`` is passed, its gauge series
+    as counter tracks (``ph: "C"``), on a SHARED time origin (the
+    earliest stamp any side recorded) and globally sorted by timestamp.
+    Passes ``validate_chrome_trace`` including the async b/n/e
+    invariants."""
+    sources = [tracer._t0, recorder.earliest_ts()]
+    if monitor is not None:
+        sources.append(monitor.earliest_ts())
+    t0s = [t for t in sources if t is not None]
+    t0 = min(t0s) if t0s else 0.0
+    trace = tracer.to_chrome_trace(t0=t0)
+    events = trace["traceEvents"] + recorder.to_async_events(t0)
+    if monitor is not None:
+        events += monitor.to_counter_events(t0)
+    # stable sort: each source is already monotonic, ties keep source
+    # order (sync B/E stacks and async lane stacks both survive)
+    events.sort(key=lambda e: e["ts"])
+    trace["traceEvents"] = events
+    trace["otherData"]["flight_tickets"] = recorder.completed
+    trace["otherData"]["flight_dropped"] = recorder.dropped
+    if monitor is not None:
+        trace["otherData"]["health_samples"] = monitor.samples
+        trace["otherData"]["health_alerts"] = sum(
+            monitor.alerts.values())
+    return trace
+
+
 #: shared disabled recorder — the scheduler's default, so every hook is a
-#: single attribute test on the hot path (mirrors ``obs.NULL_SPAN``)
+#: single attribute test on the hot path (mirrors ``trace.NULL_SPAN``)
 NULL_FLIGHT = FlightRecorder(capacity=1, enabled=False)

@@ -19,8 +19,8 @@ The device gauges cross to the host in one transfer per call — a
 diagnostic surface that synchronises when CALLED and costs nothing when
 it isn't. ``BohmEngine.health()`` and ``TxnService.health()`` are the
 public entry points; ``scheduler_health`` is the serving plane's
-host-only gauge dict. The reference's lifecycle-auditor block waits for
-the auditor (ROADMAP.md, queue 1, slice E).
+host-only gauge dict. With an enabled lifecycle auditor the engine's
+gauges add its ``lifecycle_*`` block (a harvest boundary).
 """
 from __future__ import annotations
 
@@ -90,6 +90,21 @@ def engine_health(engine) -> Dict[str, object]:
     health.update(_percentiles(pressure.astype(np.float64), "pressure"))
     for k, v in host.items():
         health[f"{k}_by_shard"] = [round(float(x), 6) for x in v.ravel()]
+    aud = getattr(engine, "auditor", None)
+    if aud is not None and aud.enabled:
+        # lifecycle audit plane: cumulative state counters, the GC
+        # delay/pin certification, and the audit ring's own health
+        gc = aud.gc_report()
+        health.update({
+            "lifecycle_states": aud.state_counts(),
+            "lifecycle_gc_reclaimed": gc["reclaimed"],
+            "lifecycle_gc_delay_mean": round(gc["delay_mean"], 3),
+            "lifecycle_gc_delay_max": gc["delay_max"],
+            "lifecycle_gc_pin_stabbed": gc["pin_stabbed_reclaims"],
+            "lifecycle_audit_events": len(aud._events),
+            "lifecycle_audit_dropped": (aud.events_dropped
+                                        + aud.pending_dropped),
+        })
     return health
 
 

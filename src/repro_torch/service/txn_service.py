@@ -311,6 +311,10 @@ class TxnService:
         self._inflight.clear()
         self._results.clear()
         self._ready.clear()
+        if self.engine.auditor.enabled:
+            # the drain is a pipeline boundary: realise the stashed
+            # lifecycle audit arrays in one transfer
+            self.engine.auditor.harvest()
 
     def health(self) -> Dict[str, object]:
         """Engine MVCC health gauges plus scheduler queue depths, hop /

@@ -264,7 +264,7 @@ class ServeEngine:
                     self._mark_state(req, STATE_ACTIVE)
             with tr.span("serve/state_flush") as sp:
                 self._flush_state()
-                sp.fence(None)
+                sp.fence(self.state.store.base)
             self.sched.end_batch()
         return self.sched.finished
 

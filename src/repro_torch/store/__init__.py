@@ -17,8 +17,10 @@
              pages) + spill — commit, GC and the two-level snapshot read
              through the resolve kernels, reading the store in place.
 
-Not ported yet: the lifecycle-audit taps (``with_audit=True`` raises)
-and the mesh substrate (``shard_map`` over a device mesh).
+Every commit path takes ``with_audit=True`` for the lifecycle audit
+taps (``repro_torch.obs.lifecycle``); ``gc_sharded_audited`` is the
+audited sweep. Not ported yet: the mesh substrate (``shard_map`` over a
+device mesh).
 """
 from repro_torch.store.pages import (PageSlab, commit_paged, free_page_count,
                                      gather_windows_paged, gc_pages,
@@ -38,7 +40,9 @@ from repro_torch.store.ring import (AUDIT_COMMITTED, AUDIT_GC_RECLAIMED,
                                     ring_fill_fraction, ring_occupancy)
 from repro_torch.store.sharded import (ShardedVersionStore, commit_sharded,
                                        from_global, gather_windows_sharded,
-                                       gc_sharded, init_sharded_store,
+                                       gc_sharded, gc_sharded_audited,
+                                       global_record_ids,
+                                       init_sharded_store,
                                        resolve_sharded, store_health,
                                        store_occupancy, to_global, unshard)
 from repro_torch.store.spill import (SpillPool, gc_spill, init_spill_pool,
@@ -49,6 +53,7 @@ __all__ = [
     "AUDIT_COMMITTED", "AUDIT_GC_RECLAIMED", "AUDIT_OVERWROTE_DEAD",
     "AUDIT_OVERWROTE_LIVE", "AUDIT_PAGE_DROPPED", "AUDIT_SPILL_DROPPED",
     "AUDIT_SPILL_OVERWROTE", "AUDIT_SPILLED", "AUDIT_STATE_NAMES",
+    "gc_sharded_audited", "global_record_ids",
     "INF_TS", "VersionRing", "commit_versions", "gather_windows",
     "gc_ring", "init_ring", "pin_stabbed", "ring_fill_fraction",
     "ring_occupancy", "ShardedVersionStore", "commit_sharded",

@@ -48,8 +48,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.store.ring import (INF_TS, i32, isum, pin_stabbed,
-                                    scatter_count, scatter_set)
+from repro_torch.store.ring import (AUDIT_COMMITTED, AUDIT_OVERWROTE_DEAD,
+                                    AUDIT_OVERWROTE_LIVE,
+                                    AUDIT_PAGE_DROPPED, INF_TS, i32, isum,
+                                    pin_stabbed, scatter_count,
+                                    scatter_set)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,11 +222,9 @@ def commit_paged(slab: PageSlab, w_rec: torch.Tensor, w_key: torch.Tensor,
     A version whose page request cannot be satisfied is dropped like a
     within-batch ring overflow: counted, its liveness assessed
     pin-precisely and, with ``with_evictees``, offered to the spill tier.
+    ``with_audit=True`` adds the dense ring's lifecycle tap, except that
+    a drop caused by free-list exhaustion is stamped PAGE_DROPPED.
     """
-    if with_audit:
-        raise NotImplementedError(
-            "with_audit lifecycle taps are not ported yet (ROADMAP.md, "
-            "queue 1 slice E)")
     P, S = slab.begin.shape
     R, MaxP = slab.page_table.shape
     dev = slab.begin.device
@@ -333,6 +334,25 @@ def commit_paged(slab: PageSlab, w_rec: torch.Tensor, w_key: torch.Tensor,
             evict_end=torch.cat([tgt_end, end_s]),
             evict_payload=torch.cat([tgt_payload, data_s]),
             evict_valid=torch.cat([hit_live, drop_live]))
+
+    if with_audit:
+        # the allocator, not K-overflow, destroyed an alloc-failed insert
+        alloc_fail = keep & ~landed
+        zero = torch.zeros_like(rec_s)
+        ins_state = torch.where(valid_s, AUDIT_COMMITTED, zero)
+        vic_state = torch.where(hit_live, AUDIT_OVERWROTE_LIVE,
+                                torch.where(hit_dead, AUDIT_OVERWROTE_DEAD,
+                                            zero))
+        drop_state = torch.where(
+            alloc_fail, AUDIT_PAGE_DROPPED,
+            torch.where(drop_live, AUDIT_OVERWROTE_LIVE,
+                        torch.where(drop_dead, AUDIT_OVERWROTE_DEAD, zero)))
+        metrics_ev.update(
+            ring_committed=isum(valid_s),
+            audit_rec=torch.cat([safe_rec, safe_rec, safe_rec]),
+            audit_begin=torch.cat([beg_s, tgt_begin, beg_s]),
+            audit_end=torch.cat([end_s, tgt_end, end_s]),
+            audit_state=torch.cat([ins_state, vic_state, drop_state]))
 
     begin = scatter_set(begin.reshape(-1), flat, beg_s).reshape(P, S)
     end = scatter_set(end.reshape(-1), flat, end_s).reshape(P, S)

@@ -33,9 +33,10 @@ import torch
 
 INF_TS = 2 ** 31 - 1     # int32 max: empty slot / still-open version
 
-# Version-lifecycle audit state codes (the reference stamps them when
-# ``with_audit=True``; the audit taps are not ported yet, the codes are
-# kept so the port's public names match).
+# Version-lifecycle audit state codes, stamped on the device by the
+# commit paths when ``with_audit=True`` (``repro_torch.obs.lifecycle``
+# re-exports them; the store does not import the obs layer). Code 0 =
+# masked / no event.
 AUDIT_COMMITTED = 1
 AUDIT_OVERWROTE_LIVE = 2
 AUDIT_OVERWROTE_DEAD = 3
@@ -165,11 +166,11 @@ def commit_versions(ring: VersionRing, w_rec: torch.Tensor,
          the newest k_eff per record when a segment overflows the ring.
 
     ``w_key`` is the plan's int64 (record, ts) key (same order as the
-    reference's uint32 key, pads 0xFFFFFFFF)."""
-    if with_audit:
-        raise NotImplementedError(
-            "with_audit lifecycle taps are not ported yet (ROADMAP.md, "
-            "queue 1 slice E)")
+    reference's uint32 key, pads 0xFFFFFFFF). ``with_audit=True`` adds
+    ``ring_committed`` and the lifecycle tap's [3N] ``audit_rec`` /
+    ``audit_begin`` / ``audit_end`` / ``audit_state`` arrays (insert,
+    eviction victim, overflow drop per sorted placeholder; state 0 where
+    masked)."""
     R, K = ring.begin.shape
     dev = ring.begin.device
     watermark = i32(watermark, dev)
@@ -251,6 +252,24 @@ def commit_versions(ring: VersionRing, w_rec: torch.Tensor,
             evict_end=torch.cat([tgt_end, end_s]),
             evict_payload=torch.cat([tgt_payload, data_s]),
             evict_valid=torch.cat([hit_live, drop_live]))
+
+    if with_audit:
+        # victim rows carry the DESTROYED version's window (gathered
+        # before the scatter); drop rows the never-inserted version's own
+        zero = torch.zeros_like(rec_s)
+        ins_state = torch.where(valid_s, AUDIT_COMMITTED, zero)
+        vic_state = torch.where(hit_live, AUDIT_OVERWROTE_LIVE,
+                                torch.where(hit_dead, AUDIT_OVERWROTE_DEAD,
+                                            zero))
+        drop_state = torch.where(drop_live, AUDIT_OVERWROTE_LIVE,
+                                 torch.where(drop_dead,
+                                             AUDIT_OVERWROTE_DEAD, zero))
+        metrics_ev.update(
+            ring_committed=isum(valid_s),
+            audit_rec=torch.cat([safe_rec, safe_rec, safe_rec]),
+            audit_begin=torch.cat([beg_s, tgt_begin, beg_s]),
+            audit_end=torch.cat([end_s, tgt_end, end_s]),
+            audit_state=torch.cat([ins_state, vic_state, drop_state]))
 
     begin = scatter_set(begin.reshape(-1), flat, beg_s).reshape(R, K)
     end = scatter_set(end.reshape(-1), flat, end_s).reshape(R, K)

@@ -43,9 +43,13 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.store.pages import (PageSlab, commit_paged, gc_pages,
                                      init_page_slab, mask_gathered_windows,
-                                     paged_occupancy, slab_fill_fraction)
-from repro_torch.store.ring import (INF_TS, VersionRing, commit_versions,
-                                    gc_ring, i32, ring_occupancy)
+                                     page_owner_index, paged_occupancy,
+                                     slab_fill_fraction)
+from repro_torch.store.ring import (AUDIT_SPILL_DROPPED,
+                                    AUDIT_SPILL_OVERWROTE, AUDIT_SPILLED,
+                                    INF_TS, VersionRing, commit_versions,
+                                    gc_ring, i32, isum, pin_stabbed,
+                                    ring_occupancy)
 from repro_torch.store.spill import (SpillPool, gc_spill, init_spill_pool,
                                      spill_commit, spill_fill_fraction,
                                      spill_occupancy)
@@ -312,17 +316,23 @@ def _mask_to_shard(n: int, shard: int, w_rec, w_key, w_valid):
 def _commit_one_shard(ring_s, spill_s: Optional[SpillPool],
                       k_eff_s: torch.Tensor, rec_l, key_l, owned,
                       w_begin_ts, w_end_ts, w_data, watermark, ts_window,
-                      pin_ts):
+                      pin_ts, with_audit: bool = False):
     """One shard's commit: primary maintenance (dense ring or paged slab
     — same contract, dispatched on the type), then its live evictees
-    into the spill pool at the same clamped watermark."""
+    into the spill pool at the same clamped watermark.
+
+    ``with_audit=True`` emits the lifecycle audit arrays
+    (``audit_rec/begin/end/state``, shard-LOCAL record ids): the
+    primary's 3 segments plus, with a spill pool, each evictee's
+    placement (SPILLED / SPILL_DROPPED) and the spill versions those
+    placements destroyed (SPILL_OVERWROTE)."""
     with_spill = spill_s is not None
     commit_fn = commit_paged if isinstance(ring_s, PageSlab) \
         else commit_versions
     ring_o, m = commit_fn(ring_s, rec_l, key_l, owned, w_begin_ts,
                           w_end_ts, w_data, watermark, ts_window=ts_window,
                           k_eff=k_eff_s, pin_ts=pin_ts,
-                          with_evictees=with_spill)
+                          with_evictees=with_spill, with_audit=with_audit)
     if with_spill:
         ev = {k: m.pop(k) for k in _EVICT_KEYS}
         wm = i32(watermark, w_data.device)
@@ -331,7 +341,23 @@ def _commit_one_shard(ring_s, spill_s: Optional[SpillPool],
         spill_s, sm = spill_commit(spill_s, ev["evict_rec"],
                                    ev["evict_begin"], ev["evict_end"],
                                    ev["evict_payload"], ev["evict_valid"],
-                                   wm, pin_ts=pin_ts)
+                                   wm, pin_ts=pin_ts, with_audit=with_audit)
+        if with_audit:
+            placed = sm.pop("spill_audit_placed")
+            v_valid = sm.pop("spill_victim_valid")
+            v_rec = sm.pop("spill_victim_rec")
+            v_begin = sm.pop("spill_victim_begin")
+            v_end = sm.pop("spill_victim_end")
+            zero = torch.zeros_like(v_rec)
+            sp_state = torch.where(
+                placed, AUDIT_SPILLED,
+                torch.where(ev["evict_valid"], AUDIT_SPILL_DROPPED, zero))
+            vic_state = torch.where(v_valid, AUDIT_SPILL_OVERWROTE, zero)
+            for key, seg in (("audit_rec", (ev["evict_rec"], v_rec)),
+                             ("audit_begin", (ev["evict_begin"], v_begin)),
+                             ("audit_end", (ev["evict_end"], v_end)),
+                             ("audit_state", (sp_state, vic_state))):
+                m[key] = torch.cat([m[key], *seg])
         m.update(sm)
     return ring_o, spill_s, m
 
@@ -341,14 +367,17 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
                    w_begin_ts: torch.Tensor, w_end_ts: torch.Tensor,
                    w_data: torch.Tensor, watermark, mesh=None,
                    ts_window: Optional[Tuple] = None,
-                   pin_ts: Optional[torch.Tensor] = None
+                   pin_ts: Optional[torch.Tensor] = None,
+                   with_audit: bool = False
                    ) -> Tuple[ShardedVersionStore, Dict[str, torch.Tensor]]:
     """Commit ALL batch versions into the primary (and live evictees
     into the spill pool). Each shard commits only the records it owns;
     the metrics aggregate to the single-primary contract, except
     ``ring_overwrote_rec`` / ``ring_overwrote_dead_rec``, which keep the
     per-shard [n, Rl] layout as in the reference; a paged store adds the
-    allocator's counters."""
+    allocator's counters. ``with_audit=True`` adds ``ring_committed`` and
+    the lifecycle audit arrays flattened over shards, record ids GLOBAL
+    (-1 where the state is 0) — device tensors; nothing synchronises."""
     if mesh is not None:
         raise _unported("the mesh= substrate")
     n = store.n_shards
@@ -356,9 +385,12 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
         ring, spill0, metrics = _commit_one_shard(
             _ring0(store), _take_spill(store, 0), store.k_eff[0], w_rec,
             w_key, w_valid, w_begin_ts, w_end_ts, w_data, watermark,
-            ts_window, pin_ts)
+            ts_window, pin_ts, with_audit=with_audit)
         for k in ("ring_overwrote_rec", "ring_overwrote_dead_rec"):
             metrics[k] = metrics[k][None]
+        if with_audit:
+            metrics["audit_rec"] = torch.where(
+                metrics["audit_state"] > 0, metrics["audit_rec"], -1)
         new_spill = None if spill0 is None else _map(lambda x: x[None],
                                                      spill0)
         return dataclasses.replace(
@@ -371,7 +403,7 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
         prim_s, spill_s, m = _commit_one_shard(
             _take_shard(store, s), _take_spill(store, s), store.k_eff[s],
             rec_l, key_l, owned, w_begin_ts, w_end_ts, w_data, watermark,
-            ts_window, pin_ts)
+            ts_window, pin_ts, with_audit=with_audit)
         prims.append(prim_s)
         spills.append(spill_s)
         per.append(m)
@@ -403,6 +435,19 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
                   "spill_occupancy"):
             metrics[k] = total(k)
         new_spill = _stack(spills)
+    if with_audit:
+        metrics["ring_committed"] = total("ring_committed")
+        # shard-local ids -> global (r = local * n + shard), flattened
+        # over the shard axis; masked entries stay rec = -1
+        state = torch.stack([m["audit_state"] for m in per])
+        shard_ix = torch.arange(n, dtype=torch.int32,
+                                device=state.device)[:, None]
+        rec = torch.stack([m["audit_rec"] for m in per])
+        metrics["audit_rec"] = torch.where(
+            state > 0, rec * n + shard_ix, -1).reshape(-1)
+        for k in ("audit_begin", "audit_end"):
+            metrics[k] = torch.stack([m[k] for m in per]).reshape(-1)
+        metrics["audit_state"] = state.reshape(-1)
     return dataclasses.replace(_with_primary(store, _stack(prims)),
                                spill=new_spill), metrics
 
@@ -425,6 +470,111 @@ def gc_sharded(store: ShardedVersionStore, watermark
         evicted = evicted + freed
     return dataclasses.replace(_with_primary(store, prim),
                                spill=spill), evicted
+
+
+def _audit_dead_flat(store: ShardedVersionStore, watermark
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Flatten every version the sweep at ``watermark`` is about to
+    reclaim — primary (dense or paged) plus spill — into parallel
+    (rec_global, begin, end, dead) arrays. Record ids are global (-1
+    where not reclaimed / unowned)."""
+    n, Rl = store.n_shards, store.records_per_shard
+    dev = _primary_key(store).device
+    wm = i32(watermark, dev)
+    parts = []
+    if store.rings is not None:
+        r = store.rings
+        dead = (r.begin != INF_TS) & (r.end <= wm)         # [n, Rl, K]
+        rec_g = global_record_ids(n, Rl, dev)[..., None].expand(dead.shape)
+        parts.append((rec_g, r.begin, r.end, dead))
+    else:
+        p = store.pages
+        dead = (p.begin != INF_TS) & (p.end <= wm)         # [n, P, S]
+        owner = torch.stack([page_owner_index(p.page_table[s],
+                                              p.num_pages)[0]
+                             for s in range(n)])           # [n, P]
+        shard = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+        rec_g = torch.where(owner >= 0, owner * n + shard, -1)
+        rec_g = rec_g[..., None].expand(dead.shape)
+        parts.append((rec_g, p.begin, p.end, dead & (rec_g >= 0)))
+    if store.spill is not None:
+        sp = store.spill
+        dead = (sp.rec >= 0) & (sp.end <= wm)              # [n, B, S]
+        shard = torch.arange(n, dtype=torch.int32,
+                             device=dev)[:, None, None]
+        rec_g = torch.where(sp.rec >= 0, sp.rec * n + shard, -1)
+        parts.append((rec_g, sp.begin, sp.end, dead))
+    rec = torch.cat([torch.where(d, r, -1).reshape(-1)
+                     for r, _, _, d in parts])
+    begin = torch.cat([b.reshape(-1) for _, b, _, _ in parts])
+    end = torch.cat([e.reshape(-1) for _, _, e, _ in parts])
+    dead = torch.cat([d.reshape(-1) for _, _, _, d in parts])
+    return rec, begin, end, dead
+
+
+def _first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.nonzero(mask, size=size, fill_value=len(mask))[0]``: the
+    first ``size`` true positions in ascending order, padded with
+    ``len(mask)``. A cumsum compaction, so it never synchronises (
+    ``torch.nonzero`` would, to size its output)."""
+    n_flat = mask.shape[0]
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    take = mask & (pos < size)
+    out = torch.full((size + 1,), n_flat, dtype=torch.int64,
+                     device=mask.device)
+    out.index_copy_(0, torch.where(take, pos, size),
+                    torch.arange(n_flat, device=mask.device))
+    return out[:size]
+
+
+def gc_sharded_audited(store: ShardedVersionStore, watermark,
+                       pin_ts: Optional[torch.Tensor] = None,
+                       event_cap: int = 256
+                       ) -> Tuple[ShardedVersionStore, torch.Tensor,
+                                  Dict[str, torch.Tensor]]:
+    """``gc_sharded`` plus the GC audit: the death->reclamation delay
+    of each reclaimed version and a certification that no registered
+    pin could still stab one (see ``repro.store.sharded
+    .gc_sharded_audited``). Returns ``(store, evicted, audit)``; every
+    audit value is a device tensor:
+
+      gc_watermark      []    the sweep's watermark
+      gc_dead_total     []    versions reclaimed by this sweep
+      gc_delay_sum/max  []    sum / max of (watermark - end) over them
+      gc_delay_hist     [16]  log2-bucketed delay histogram
+      gc_pin_stabbed    []    reclaimed versions a pin stabs (cert == 0)
+      gc_event_rec/begin/end [event_cap]  the first ``event_cap``
+                        reclaimed versions (global rec, -1/INF padded)
+    """
+    wm = i32(watermark, _primary_key(store).device)
+    rec, begin, end, dead = _audit_dead_flat(store, wm)
+    delay = torch.where(dead, wm - end, 0)
+    # float32 log2, as the reference computes the bucket
+    bucket = torch.floor(torch.log2(delay.to(torch.float32) + 1.0)) \
+        .clamp(0, 15).to(torch.int64)
+    hist = torch.zeros(17, dtype=torch.int32, device=wm.device)
+    hist.index_add_(0, torch.where(dead, bucket, 16),
+                    torch.ones_like(bucket, dtype=torch.int32))
+    stabbed = dead & pin_stabbed(begin, end, pin_ts)
+    idx = _first_true(dead, int(event_cap))
+
+    def take(x, fill):
+        return torch.cat([x, torch.full((1,), fill, dtype=x.dtype,
+                                        device=x.device)])[idx]
+
+    audit = {
+        "gc_watermark": wm,
+        "gc_dead_total": isum(dead),
+        "gc_delay_sum": isum(delay),
+        "gc_delay_max": delay.max(),
+        "gc_delay_hist": hist[:16],
+        "gc_pin_stabbed": isum(stabbed),
+        "gc_event_rec": take(rec, -1),
+        "gc_event_begin": take(begin, INF_TS),
+        "gc_event_end": take(end, INF_TS),
+    }
+    new_store, evicted = gc_sharded(store, wm)
+    return new_store, evicted, audit
 
 
 # ---------------------------------------------------------------------------

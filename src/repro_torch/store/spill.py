@@ -102,12 +102,16 @@ def gc_spill(pool: SpillPool, watermark) -> Tuple[SpillPool, torch.Tensor]:
 def spill_commit(pool: SpillPool, ev_rec: torch.Tensor,
                  ev_begin: torch.Tensor, ev_end: torch.Tensor,
                  ev_payload: torch.Tensor, ev_valid: torch.Tensor,
-                 watermark, pin_ts: Optional[torch.Tensor] = None
+                 watermark, pin_ts: Optional[torch.Tensor] = None,
+                 with_audit: bool = False
                  ) -> Tuple[SpillPool, Dict[str, torch.Tensor]]:
     """Absorb one commit's live evictees into the pool: (1) free dead
     slots at the watermark, (2) place evictees newest-first per bucket
     into victim-ordered slots, (3) report what was absorbed, overwritten
-    and dropped."""
+    and dropped. ``with_audit=True`` adds the lifecycle tap: each
+    evictee's placement (``spill_audit_placed``) and the (rec, begin,
+    end) of the spill-resident version it destroyed (``spill_victim_*``),
+    in INPUT order so the caller pairs them with its ``ev_*`` arrays."""
     B, S = pool.begin.shape
     dev = pool.begin.device
 
@@ -164,4 +168,23 @@ def spill_commit(pool: SpillPool, ev_rec: torch.Tensor,
         "spill_overwrote_pinned": isum(victim_pinned),
         "spill_occupancy": spill_occupancy(new_pool),
     }
+    if with_audit:
+        def to_input(sorted_vals, fill):
+            out = torch.full(sorted_vals.shape, fill,
+                             dtype=sorted_vals.dtype, device=dev)
+            out[order] = sorted_vals
+            return out
+
+        v_rec = pool.rec.reshape(-1)[safe]
+        v_begin = pool.begin.reshape(-1)[safe]
+        v_end = pool.end.reshape(-1)[safe]
+        metrics.update(
+            spill_audit_placed=to_input(placed, False),
+            spill_victim_valid=to_input(victim_occ, False),
+            spill_victim_rec=to_input(
+                torch.where(victim_occ, v_rec, -1), -1),
+            spill_victim_begin=to_input(
+                torch.where(victim_occ, v_begin, INF_TS), INF_TS),
+            spill_victim_end=to_input(
+                torch.where(victim_occ, v_end, INF_TS), INF_TS))
     return new_pool, metrics

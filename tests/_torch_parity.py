@@ -21,16 +21,25 @@ BATCH_FIELDS = ("read_set", "write_set", "txn_type", "args")
 _REF_ENGINES = {}
 
 
-def fresh_ref_engine(num_records: int, name: str, make_workload, **kw):
+def fresh_ref_engine(num_records: int, name: str, make_workload,
+                     auditor=None, **kw):
     """A reference ``BohmEngine`` in its initial state. Engines are cached
     per configuration and reset (store, pins, registry) between uses, so
-    their jitted phases compile once per test process, not per test."""
-    key = (num_records, name, tuple(sorted(kw.items())))
+    their jitted phases compile once per test process, not per test. An
+    enabled ``auditor`` keys the cache by its sweep export width (the one
+    setting the jitted phases bake in) and is bound to the engine
+    returned."""
+    audited = auditor is not None and auditor.enabled
+    key = (num_records, name, tuple(sorted(kw.items())),
+           auditor.gc_event_cap if audited else None)
     eng = _REF_ENGINES.get(key)
     if eng is None:
-        eng = _REF_ENGINES[key] = RefEngine(num_records, make_workload(),
-                                            **kw)
+        eng = _REF_ENGINES[key] = RefEngine(
+            num_records, make_workload(),
+            auditor=auditor if audited else None, **kw)
     else:
+        if audited:
+            eng.auditor = auditor
         eng.metrics = RefRegistry()
         eng.reset_store(np.zeros((num_records, eng.workload.payload_words),
                                  np.int32))

@@ -27,6 +27,8 @@ def _modules():
 def test_package_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.engine" in mods
+    assert {f"repro_torch.obs.{m}" for m in (
+        "ewma", "trace", "lifecycle", "monitor", "regress")} <= set(mods)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -146,11 +148,14 @@ def test_logical_shard_options_run(kwargs):
 @pytest.mark.parametrize("kwargs", [dict(adaptive_k=True, mesh=object()),
                                     dict(mesh=object()),
                                     dict(n_shards=2, mesh=object()),
-                                    dict(auditor=object())])
+                                    dict(auditor="audited", mesh=object())])
 def test_unported_options_raise(kwargs):
-    """Unported options raise, also beside the ported paged, adaptive-K
-    and logical-shard options."""
+    """Unported options raise, also beside the ported paged, adaptive-K,
+    logical-shard and lifecycle-auditor options."""
     from repro_torch.core.engine import BohmEngine
     from repro_torch.core.workloads import make_ycsb
+    from repro_torch.obs import LifecycleAuditor
+    if kwargs.get("auditor") == "audited":
+        kwargs = dict(kwargs, auditor=LifecycleAuditor())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BohmEngine(16, make_ycsb(), device="cpu", **kwargs)

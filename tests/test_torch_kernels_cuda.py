@@ -883,3 +883,155 @@ def test_run_cell_matches_cpu(cuda):
                 before["mvcc_resolve/windows"]
     assert rows["cuda"] == rows["cpu"]
     assert all(r["verdict"] == "serial-equivalent" for r in rows["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the lifecycle auditor on the card
+# ---------------------------------------------------------------------------
+AUDIT_CONFIGS = {
+    # saturating: a 2 x 2 pool under a held pin drops pinned history
+    "dense": dict(ring_slots=2, spill_buckets=2, spill_slots=2),
+    "dense-2-shards": dict(ring_slots=2, spill_buckets=2, spill_slots=2,
+                           n_shards=2),
+    # a few pages over one a record: allocation fails under the pin
+    "paged": dict(ring_slots=4, paged=True, page_slots=2,
+                  pages_per_shard=308, spill_slots=0),
+}
+
+
+def _audit_run(device, kw, audited, monkeypatch=None, R=300):
+    """A hot zipfian stream with a pin held from batch 2 and sweeps after
+    batches 4 and 6; returns the engine, reads, the pin, the pinned reads
+    of every record, the store and the joins (``device.fence`` +
+    ``torch.cuda.synchronize`` calls) it made."""
+    import repro_torch.device
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.carry import store_to_numpy
+    from repro_torch.core.engine import BohmEngine
+    from repro_torch.obs import LifecycleAuditor
+
+    joins = {"n": 0}
+    if monkeypatch is not None:
+        real_fence, real_sync = repro_torch.device.fence, \
+            torch.cuda.synchronize
+
+        def fence(x):
+            joins["n"] += 1
+            return real_fence(x)
+
+        def sync(*a, **k):
+            joins["n"] += 1
+            return real_sync(*a, **k)
+
+        monkeypatch.setattr(repro_torch.device, "fence", fence)
+        monkeypatch.setattr(torch.cuda, "synchronize", sync)
+    aud = LifecycleAuditor(capacity=1 << 16, pending_cap=1 << 10,
+                           per_record_cap=1 << 12) if audited else None
+    eng = BohmEngine(R, wl.make_ycsb(payload_words=4, ops=4), device=device,
+                     auditor=aud, **kw)
+    rng = np.random.default_rng(5)
+    reads = []
+    for i in range(6):
+        reads.append(eng.run_batch(wl.gen_ycsb_batch(
+            rng, 64, R, theta=1.1, ops=4, device=device))[0].cpu())
+        if i == 1:
+            pin = eng.begin_snapshot()
+        if i in (3, 5):
+            eng.gc_sweep()
+    vals, found = eng.snapshot_read(torch.arange(R), pin)
+    out = (eng, reads, pin, vals.cpu(), found.cpu(),
+           store_to_numpy(eng.store), joins["n"])
+    if monkeypatch is not None:
+        monkeypatch.undo()
+    return out
+
+
+@pytest.mark.parametrize("name", list(AUDIT_CONFIGS))
+def test_audited_engine_equals_unaudited_on_card(cuda, monkeypatch, name):
+    """An audited engine on the card gives the unaudited one's reads,
+    pinned reads and store byte for byte, launches the same kernels the
+    same number of times (the in-place forms only) and makes as many
+    host joins."""
+    kw = AUDIT_CONFIGS[name]
+    runs = {}
+    for audited in (False, True):
+        mod.reset_launches()
+        runs[audited] = _audit_run("cuda", kw, audited, monkeypatch)
+        torch.cuda.synchronize()
+        runs[audited] += (dict(mod.LAUNCHES),)
+    off, on = runs[False], runs[True]
+    for a, b in zip(off[1], on[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(off[3], on[3]) and torch.equal(off[4], on[4])
+    for k in off[5]:
+        np.testing.assert_array_equal(off[5][k], on[5][k], err_msg=k)
+    assert off[6] == on[6]
+    assert off[7] == on[7]
+    for form in ("mvcc_resolve", "mvcc_resolve_masked",
+                 "mvcc_resolve_paged"):
+        assert on[7][f"{form}/windows"] == 0
+        assert on[7][f"{form}/rows"] == on[7][form]
+    assert on[0].auditor.telescope()["balanced"]
+
+
+@pytest.mark.parametrize("name", list(AUDIT_CONFIGS))
+def test_every_miss_explained_on_card(cuda, name):
+    """Every found=False at the held pin is explained by a drop event
+    covering it, found reads resolve to a resident version, and the
+    explanations, events, telescope and GC report equal the CPU run's;
+    no sweep reclaimed a pinned version."""
+    import dataclasses
+    kw = AUDIT_CONFIGS[name]
+    gpu = _audit_run("cuda", kw, True)
+    cpu = _audit_run("cpu", kw, True)
+    assert torch.equal(gpu[4], cpu[4]) and torch.equal(gpu[3], cpu[3])
+    ga, ca = gpu[0].auditor, cpu[0].auditor
+    assert [dataclasses.astuple(e) for e in ga.events()] == \
+        [dataclasses.astuple(e) for e in ca.events()]
+    assert ga.state_counts() == ca.state_counts()
+    assert ga.telescope() == ca.telescope()
+    assert ga.gc_report() == ca.gc_report()
+    found, ts = gpu[4].numpy(), gpu[2].ts
+    assert not found.all(), "the stream never saturated the store"
+    for r in range(found.shape[0]):
+        exp = ga.explain_read(r, ts)
+        assert exp["found"] == bool(found[r])
+        if found[r]:
+            assert exp["reason"].startswith("resident_")
+        else:
+            assert exp["event"] is not None and exp["event"].covers(ts)
+        want = ca.explain_read(r, ts)
+        assert exp["reason"] == want["reason"]
+    assert ga.telescope()["balanced"]
+    assert ga.gc_report()["pin_stabbed_reclaims"] == 0
+
+
+@pytest.mark.parametrize("name", list(AUDIT_CONFIGS))
+def test_gc_sharded_audited_card_equals_cpu(cuda, name):
+    """``gc_sharded_audited`` on the card returns the CPU's dict (every
+    tensor on the card, int32 as on the CPU) and the same swept store,
+    at the held pin and above it."""
+    import dataclasses
+    from repro_torch.core.carry import store_to_numpy
+    from repro_torch.store import gc_sharded_audited
+    kw = AUDIT_CONFIGS[name]
+    gpu = _audit_run("cuda", kw, False)
+    cpu = _audit_run("cpu", kw, False)
+    for wm, pins in ((gpu[2].ts, [gpu[2].ts]), (gpu[0].current_ts(), [])):
+        outs = []
+        for eng in (gpu[0], cpu[0]):
+            pin_ts = torch.tensor(pins or [2 ** 31 - 1], dtype=torch.int32,
+                                  device=eng.device)
+            v, n, audit = gc_sharded_audited(eng.store.versions, wm, pin_ts,
+                                             event_cap=64)
+            outs.append((v, n, audit, eng))
+        (gv, gn, ga, ge), (cv, cn, ca, ce) = outs
+        assert int(gn) == int(cn) and list(ga) == list(ca)
+        for k in ca:
+            assert ga[k].is_cuda and ga[k].dtype == ca[k].dtype, k
+            assert torch.equal(ga[k].cpu(), ca[k]), k
+        gs = store_to_numpy(dataclasses.replace(ge.store, versions=gv))
+        cs = store_to_numpy(dataclasses.replace(ce.store, versions=cv))
+        for k in cs:
+            np.testing.assert_array_equal(gs[k], cs[k], err_msg=k)
+    assert int(ca["gc_dead_total"]) > 0

@@ -676,8 +676,11 @@ def test_paged_and_adaptive_engines_construct_and_validate():
     slab = pages.init_page_slab(torch.zeros((4, 1), dtype=torch.int32),
                                 torch.zeros(4, dtype=torch.int32),
                                 torch.ones(4, dtype=torch.bool), 8, 2, 2)
+    # the lifecycle tap: [3N] audit arrays (insert / victim / drop), all
+    # masked for an invalid write, and the committed count
     z = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pages.commit_paged(slab, z, z.long(), z.bool(), z, z,
-                           torch.zeros((1, 1), dtype=torch.int32), 1,
-                           with_audit=True)
+    _, m = pages.commit_paged(slab, z, z.long(), z.bool(), z, z,
+                              torch.zeros((1, 1), dtype=torch.int32), 1,
+                              with_audit=True)
+    assert m["audit_state"].shape == (3,) and int(m["ring_committed"]) == 0
+    assert not m["audit_state"].any()
