@@ -25,8 +25,9 @@ scheduler counters: ``txn_s``, ``us_per_txn``, ``merged_batches``,
 ``hopped_batches``, ``overlapped_execs``, ``chain_depth_max``,
 ``window_occupancy``, ``vs_barriered`` and ``vs_fifo4``. Prints the rows
 as a table, then one JSON object with the rows, the device's name and
-``nvidia-smi``'s power limit. Needs a GPU; ``run(device="cpu")`` is the
-rehearsal on the CPU.
+``nvidia-smi``'s power limit; the JSON twins ``admission.json`` and
+``admission_latency.json`` go to ``benchmarks_torch/results/``. Needs a
+GPU; ``run(device="cpu")`` is the rehearsal on the CPU.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+from benchmarks_torch.common import write_csv  # noqa: E402
 from chip_smoke import OOO_KW, mixed_stream, span_batch  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.core.engine import BohmEngine  # noqa: E402
@@ -205,7 +207,10 @@ def run(quick: bool = False, device="cuda") -> list:
     rows = []
     for kind in ("disjoint_cold", "mixed"):
         rows.extend(bench_stream(kind, rng, n_passes, device))
-    rows.extend(bench_latency(rng, max(2, n_passes - 1), device))
+    write_csv("admission", rows, print_rows=False)
+    lat_rows = bench_latency(rng, max(2, n_passes - 1), device)
+    write_csv("admission_latency", lat_rows, print_rows=False)
+    rows += lat_rows
     for r in rows:
         print(" ".join(f"{k}={v}" for k, v in r.items()))
     print(json.dumps({"device": _device_line(device), "rows": rows}))

@@ -77,6 +77,45 @@ def write_json(name: str, rows: List[Dict]) -> Path:
     return path
 
 
+#: row keys that hold a wall time or a ratio of wall times
+WALL_KEYS = ("upd_txn_s", "scan_reads_s", "txn_s", "us_per_txn",
+             "rmw_ops_s", "wall_s", "tok_s", "txn_s_vs_drop",
+             "txn_s_vs_budget", "pipelined_over_barriered")
+#: float row fields, compared to rtol 1e-6 (float32 means and fractions
+#: may be summed in another order)
+FLOAT_KEYS = ("scan_found_frac", "found_rate", "occ_mean",
+              "found_vs_drop", "found_vs_budget")
+
+
+def is_wall_key(key: str) -> bool:
+    return key in WALL_KEYS or key.endswith("_us")
+
+
+def row_mismatches(want: List[Dict], got: List[Dict],
+                   skip=()) -> List[str]:
+    """Where two runs' rows differ in a field that is not a wall time (nor
+    in ``skip``): the same keys in the same order, integers, strings and
+    flags equal, ``FLOAT_KEYS`` to rtol 1e-6. Empty when they agree."""
+    if len(want) != len(got):
+        return [f"{len(want)} rows != {len(got)}"]
+    bad = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        if list(w) != list(g):
+            bad.append(f"row {i}: keys {list(w)} != {list(g)}")
+            continue
+        for k, v in w.items():
+            if is_wall_key(k) or k in skip:
+                continue
+            if k in FLOAT_KEYS and v != "":
+                ok = abs(g[k] - v) <= 1e-6 * abs(v)
+            else:
+                ok = g[k] == v and isinstance(g[k], bool) == \
+                    isinstance(v, (bool, np.bool_))
+            if not ok:
+                bad.append(f"row {i}: {k} {g[k]!r} != {v!r}")
+    return bad
+
+
 def card_line() -> str:
     """``nvidia-smi``'s name and power limit of the card."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -168,6 +168,24 @@ the JAX package. Phases, each of which must pass:
    Prints the events by state, the found=False reasons, harvest ms and
    the audited against the unaudited median batch ms.
 
+13. paper suites (``benchmarks_torch/``): (a) ``snapshot``, ``spill``,
+   ``paged``, ``pipeline``, ``serving`` and ``kernels`` at the
+   reference's points (``--quick`` where a suite has it) on the CPU, then
+   on the card: every row equal in every field that is not a wall time
+   (``common.row_mismatches``; ``backend`` names the device), and
+   ``kernels.py``'s two rows ``allclose``; (b) snapshot's two YCSB cells
+   at 1,000,000 records (2-word payloads, theta 0.6, batches of 512,
+   ring 8, one pass each) on the card and on the CPU, rows equal, and
+   every found scan read of the pinned cell equal to the state at the
+   pin; (c) ``microbench`` at its 1,000,000 records, card rows equal to
+   the CPU's. Launches are counted from zero over the card runs of (a)
+   without ``kernels.py`` (whose resolve row is the windows form by
+   design), (b) and (c): rows 1-3 in their in-place forms only, and each
+   of the five kernels launched. Prints every suite's rows beside the
+   card's name and power limit, the twins as ``summarize.py`` renders
+   them, and the headline metrics ``bench_history.py`` records (into a
+   temporary directory).
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -177,12 +195,16 @@ card's name and power limit; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import importlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -194,8 +216,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from benchmarks_torch import bench_history, summarize  # noqa: E402
+from benchmarks_torch import snapshot as snapshot_suite  # noqa: E402
 from benchmarks_torch.arena import check_headline, markdown_pivot  # noqa: E402
-from benchmarks_torch.common import round_table  # noqa: E402
+from benchmarks_torch.common import (card_line, round_table,  # noqa: E402
+                                     row_mismatches)
 from repro_torch.arena import (PROTOCOL_NAMES, ArenaCell,  # noqa: E402
                                default_scenarios, make_protocols, run_cell,
                                run_gauntlet)
@@ -2004,6 +2029,76 @@ def audit_phase(device="cuda", R=YCSB_HIGH_10RMW.num_records,
     log(f"audited store: {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# ---------------------------------------------------------------------------
+# the paper's remaining suites (phase 13)
+# ---------------------------------------------------------------------------
+# the suites whose card runs are counted, at the reference's points
+PATH_SUITES = ("snapshot", "spill", "paged", "pipeline", "serving")
+SNAPSHOT_R = 1_000_000
+
+
+def suite_rows(name: str, device: str) -> list:
+    """A suite's rows at the reference's points, ``--quick`` where the
+    suite has it."""
+    suite = importlib.import_module(f"benchmarks_torch.{name}")
+    if name in ("spill", "paged", "pipeline"):
+        return suite.run(quick=True, device=device)
+    return suite.run(device=device)
+
+
+def snapshot_at_scale(device: str, probe=None) -> list:
+    """Snapshot's two YCSB cells (unpinned, pinned) at ``SNAPSHOT_R``
+    records from one ``default_rng(29)``; ``probe`` goes to the pinned
+    cell."""
+    rng = np.random.default_rng(29)
+    return [snapshot_suite.bench_cell("ycsb", pinned, rng, SNAPSHOT_R,
+                                      device, probe if pinned else None)
+            for pinned in (False, True)]
+
+
+def check_rows(what: str, cpu: list, gpu: list) -> None:
+    bad = row_mismatches(cpu, gpu, skip=("backend",))
+    if bad:
+        raise AssertionError(f"{what}: card rows differ from the cpu's: "
+                             f"{bad}")
+
+
+def suites_phase(device="cuda"):
+    """Phase 13; returns the card's rows by suite and the launches
+    (``device="cpu"`` rehearses it on the CPU against itself)."""
+    with contextlib.redirect_stdout(io.StringIO()):   # the suites print
+        cpu = {name: suite_rows(name, "cpu") for name in PATH_SUITES}
+        cpu["snapshot_1m"] = snapshot_at_scale("cpu")
+        cpu["microbench"] = suite_rows("microbench", "cpu")
+        cpu["kernels"] = suite_rows("kernels", "cpu")
+        kmod.reset_launches()                 # counts start at 0 here
+        gpu = {name: suite_rows(name, device) for name in PATH_SUITES}
+        probe = {}
+        gpu["snapshot_1m"] = snapshot_at_scale(device, probe)
+        gpu["microbench"] = suite_rows("microbench", device)
+        _sync(device)
+        launches = dict(kmod.LAUNCHES)
+        gpu["kernels"] = suite_rows("kernels", device)
+    check_in_place("paper suites", launches, (
+        "mvcc_resolve", "mvcc_resolve_masked", "mvcc_resolve_paged",
+        "decode_attention", "flash_attention_causal"))
+    for name in cpu:
+        check_rows(name, cpu[name], gpu[name])
+    if not all(r["allclose"] for r in gpu["kernels"]):
+        raise AssertionError(f"kernels.py: {gpu['kernels']}")
+    n_found = 0
+    for scan, vals, found in probe["scans"]:
+        want = probe["at_pin"][scan.read_set.long()]
+        if not torch.equal(vals[found], want[found]):
+            raise AssertionError("snapshot at 1M: a pinned scan read "
+                                 "differs from the state at the pin")
+        n_found += int(found.sum())
+    log(f"snapshot at {SNAPSHOT_R:,} records: {n_found} of "
+        f"{sum(f.numel() for _, _, f in probe['scans'])} pinned scan reads "
+        f"found, each equal to the state at the pin")
+    return gpu, launches
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -2237,6 +2332,23 @@ def main() -> int:
 
     # -- the audited store, counted from zero per path ---------------------
     audit_phase()
+
+    # -- the paper's remaining suites, counted from zero --------------------
+    t0 = time.perf_counter()
+    suites, launches = suites_phase()
+    card = card_line()
+    log(f"paper suites: launches {launches}; every suite's card rows equal "
+        f"its cpu rows outside the wall times; kernels.py allclose")
+    for name, srows in suites.items():
+        for r in srows:
+            log(f"suite {name}: "
+                f"{' '.join(f'{k}={v}' for k, v in r.items())}; {card}")
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        summarize.print_bench_tables()
+        with tempfile.TemporaryDirectory() as root:
+            bench_history.append_suites(root=Path(root))
+    log(text.getvalue().rstrip())
+    log(f"paper suites: {time.perf_counter() - t0:.1f} s; {card}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

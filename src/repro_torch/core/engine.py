@@ -21,7 +21,9 @@ device (global record ``r`` at shard ``r % n``, local ``r // n``), as
 the reference's no-mesh substrate does.
 
 The phase functions are also bound on the engine as ``_plan``, ``_exec``
-(workload bound) and ``_commit``, with the reference's argument order;
+(workload bound) and ``_commit``, with the reference's argument order,
+and their composition as ``_step`` (``bohm_step``, which leaves the
+engine's store as it was);
 the scheduler (``repro_torch.service.TxnService``) calls them with its
 own interleaving. ``health()`` reads the MVCC gauges
 (``repro_torch.obs.health``). An enabled ``PhaseTracer`` records the
@@ -185,6 +187,7 @@ class BohmEngine:
         self._exec = functools.partial(exec_phase, workload=workload)
         self._commit = functools.partial(commit_phase,
                                          with_audit=self.auditor.enabled)
+        self._step = functools.partial(bohm_step, workload=workload)
 
     def _reset_policy(self) -> None:
         """Restart the adaptive-K policy's host state (at init,
@@ -640,6 +643,28 @@ def commit_phase(plan: Plan, batch: TxnBatch, store: Store,
     """Watermark-driven commit of an executed batch."""
     return commit(plan, batch, store, w_data, watermark,
                   ts_window=ts_window, pin_ts=pin_ts, with_audit=with_audit)
+
+
+def exec_commit_phase(plan: Plan, batch: TxnBatch, store: Store,
+                      watermark=None, pin_ts: Optional[torch.Tensor] = None,
+                      *, workload: Workload):
+    """Exec + commit composed (the reference's fused twin, which
+    ``bohm_step`` builds on). Returns (new_store, read_vals, metrics)."""
+    w_data, read_vals, metrics = exec_phase(plan, batch, store,
+                                            workload=workload)
+    new_store, ring_metrics = commit_phase(plan, batch, store, w_data,
+                                           watermark, pin_ts=pin_ts)
+    return new_store, read_vals, dict(metrics, **ring_metrics)
+
+
+def bohm_step(store: Store, batch: TxnBatch, watermark=None,
+              pin_ts: Optional[torch.Tensor] = None, *, workload: Workload):
+    """One batch through plan, exec and commit on ``store``, without
+    touching an engine's state (what ``benchmarks_torch/microbench.py``
+    times, as the reference times ``BohmEngine._step``)."""
+    plan = plan_phase(batch, store.ts_counter)
+    return exec_commit_phase(plan, batch, store, watermark, pin_ts,
+                             workload=workload)
 
 
 def _readonly_resolve(versions, read_set: torch.Tensor, ts: torch.Tensor):

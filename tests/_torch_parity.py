@@ -134,3 +134,17 @@ def inc_workloads(ops: int, payload_words: int = 2):
                         branches=(ref_rmw, ref_read)),
             Workload(name="inc", n_read=ops, n_write=ops,
                      payload_words=payload_words, branches=(rmw, read)))
+
+
+def assert_rows_same(ref_rows, port_rows, msg: str = "",
+                     renamed=None, dropped=()) -> None:
+    """Benchmark rows of ``benchmarks/`` and ``benchmarks_torch/`` equal
+    in every field that is not a wall time
+    (``benchmarks_torch.common.row_mismatches``), after ``renamed`` {ref
+    key: port key} and without the reference's ``dropped`` keys."""
+    from benchmarks_torch.common import row_mismatches
+    renamed = renamed or {}
+    ref_rows = [{renamed.get(k, k): v for k, v in r.items()
+                 if k not in dropped} for r in ref_rows]
+    bad = row_mismatches(ref_rows, port_rows)
+    assert not bad, f"{msg}: {bad}"

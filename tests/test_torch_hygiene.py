@@ -1,5 +1,6 @@
 """Package rules of the port: it imports neither ``jax`` nor ``repro``
-(nor do ``chip_smoke.py`` and ``benchmarks_torch/``), and its entry
+(nor do ``chip_smoke.py``, ``benchmarks_torch/`` and ``examples_torch/``,
+which also import nothing of the reference's ``benchmarks``), and its entry
 points never fall back to the CPU — without a GPU they raise unless the
 caller asks for the CPU."""
 import os
@@ -14,8 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|benchmarks)\b(?!_torch)", re.MULTILINE)
 
 
 def _modules():
@@ -41,7 +42,7 @@ def test_package_imports_without_jax_or_repro():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [
         *PKG.rglob("*.py"), *(ROOT / "benchmarks_torch").rglob("*.py"),
-        ROOT / "chip_smoke.py"]))
+        *(ROOT / "examples_torch").glob("*.py"), ROOT / "chip_smoke.py"]))
 def test_no_jax_or_repro_import_statement(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 
@@ -159,3 +160,21 @@ def test_unported_options_raise(kwargs):
         kwargs = dict(kwargs, auditor=LifecycleAuditor())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BohmEngine(16, make_ycsb(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("target", [
+    "benchmarks_torch.snapshot", "benchmarks_torch.spill",
+    "benchmarks_torch.paged", "benchmarks_torch.pipeline",
+    "benchmarks_torch.microbench", "benchmarks_torch.kernels",
+    "benchmarks_torch.serving", "examples_torch.quickstart",
+    "examples_torch.serve_batched"])
+def test_suites_and_examples_raise_without_gpu(monkeypatch, target):
+    """The paper's suites and the examples run on the card by default:
+    without a GPU ``run()`` / ``main()`` raise instead of measuring the
+    CPU."""
+    import importlib
+    mod = importlib.import_module(target)
+    entry = getattr(mod, "run", None) or mod.main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()

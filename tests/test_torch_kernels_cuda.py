@@ -16,6 +16,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import mvcc_resolve as mod
+# ops binds the plain versions at its import: import it here, before any
+# fixture patches them (a later first import would keep the patch)
+from repro_torch.kernels import ops  # noqa: F401
 
 INF = np.iinfo(np.int32).max
 SHAPES = [(7, 4, 3), (64, 8, 16), (300, 16, 250), (1, 1, 1), (129, 2, 129),
@@ -1035,3 +1038,67 @@ def test_gc_sharded_audited_card_equals_cpu(cuda, name):
         for k in cs:
             np.testing.assert_array_equal(gs[k], cs[k], err_msg=k)
     assert int(ca["gc_dead_total"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the paper's benchmark suites (benchmarks_torch/) on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def card(monkeypatch, tmp_path):
+    """Skips without a GPU; the suites' JSON twins go to ``tmp_path``.
+    (``kernels.py`` calls the plain versions on CUDA tensors on purpose,
+    so the ``cuda`` fixture's guard does not apply here.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from benchmarks_torch import common
+    monkeypatch.setattr(common, "RESULTS_DIR", tmp_path)
+
+
+def _suite_rows(name, device, monkeypatch):
+    import importlib
+    suite = importlib.import_module(f"benchmarks_torch.{name}")
+    if name == "microbench":
+        monkeypatch.setattr(suite, "N_RECORDS", 65536)
+        return suite.run(device=device)
+    if name in ("spill", "paged", "pipeline"):
+        return suite.run(quick=True, device=device)
+    return suite.run(device=device)
+
+
+@pytest.mark.parametrize("name", ["snapshot", "spill", "paged", "pipeline",
+                                  "microbench", "kernels", "serving"])
+def test_bench_suite_card_equals_cpu(card, monkeypatch, name):
+    """A suite's rows on the card equal its CPU rows in every field that
+    is not a wall time (``backend`` names the device); the resolve
+    kernels launched in place only, except ``kernels.py``'s windows-form
+    row."""
+    from benchmarks_torch.common import row_mismatches
+    mod.reset_launches()
+    gpu = _suite_rows(name, "cuda", monkeypatch)
+    torch.cuda.synchronize()
+    launches = dict(mod.LAUNCHES)
+    cpu = _suite_rows(name, "cpu", monkeypatch)
+    assert not row_mismatches(cpu, gpu, skip=("backend",))
+    if name != "kernels":
+        for k in ("mvcc_resolve", "mvcc_resolve_masked",
+                  "mvcc_resolve_paged"):
+            assert launches[f"{k}/windows"] == 0, launches
+    want = {"snapshot": "mvcc_resolve_masked", "paged":
+            "mvcc_resolve_paged", "serving": "decode_attention",
+            "kernels": "mvcc_resolve/windows"}.get(name)
+    if want:
+        assert launches[want] > 0, launches
+
+
+def test_snapshot_pinned_scans_on_card(card):
+    """The pinned YCSB cell at 65,536 records: every found scan read
+    equals the state at the pin."""
+    from benchmarks_torch import snapshot
+    probe = {}
+    row = snapshot.bench_cell("ycsb", True, np.random.default_rng(29),
+                              65536, "cuda", probe=probe)
+    assert row["scan_found_frac"] > 0
+    for scan, vals, found in probe["scans"]:
+        want = probe["at_pin"][scan.read_set.long()]
+        assert torch.equal(vals[found], want[found])
