@@ -30,7 +30,9 @@ the JAX package. Phases, each of which must pass:
    attention kernel (``decode_attention``, ``flash_attention_causal``)
    agrees with its plain version in float32 (1e-5) and bfloat16 (2e-2
    decode, 3e-2 prefill) at the reference tests' shapes, the serving
-   path's shapes and odd shapes, gives the same bits on a second call,
+   path's shapes, odd shapes and every shape phase 14 gives the kernels
+   (deepseek-v2-lite's MLA prefill at Dh = 192, G = 5 and 6, seamless's
+   4,096-frame cross-attention), gives the same bits on a second call,
    ignores a poisoned cache tail (decode), and is timed beside its plain
    version, its bound and one
    ``scaled_dot_product_attention(enable_gqa=True)`` call (the
@@ -186,6 +188,40 @@ the JAX package. Phases, each of which must pass:
    them, and the headline metrics ``bench_history.py`` records (into a
    temporary directory).
 
+14. models path: each of mamba2-370m, hymba-1.5b,
+   seamless-m4t-large-v2, llava-next-mistral-7b, deepseek-v2-lite-16b
+   (whole) and grok-1-314b (2 of 64 layers: the whole model needs 8
+   cards) at full width through ``repro_torch.models``, one at a time,
+   freed before the next. In bf16 from a seeded ``torch.Generator``:
+   ``loss_fn`` and 3 timed ``prefill`` runs at B=2, S=512 (llava: 2,304
+   patches + 256 tokens; seamless: 512 frames + 512 tokens), then
+   ``init_cache(B=2, max_len=1024)`` and 32 timed ``decode_step``s, all
+   finite; one more warm step under ``torch.cuda.set_sync_debug_mode``
+   must make no synchronising operation. Launches counted from zero per
+   configuration must be exactly one ``flash_attention_causal`` (wgmma
+   route) per causal unwindowed self-attention layer and forward (MLA's
+   at Dh = 192 included) and one ``decode_attention`` per GQA decode
+   attention (self and cross) and step; exactly the hymba windowed
+   layers' and seamless's encoder and cross-attention calls per forward
+   run the blockwise torch code, and no decode call does. The latest
+   launch of each kernel at each shape and dtype in the loss, in the
+   warm step (over 33 keys; seamless's 4,096-frame encoder cache drawn
+   from a seed, here and in the replay) and in the replay is held
+   against its plain version on the same card tensors at phase 3's
+   tolerances, and each bf16 shape must be one of phase 3's cases.
+   Then a float32 replay (TF32
+   off) at 2 layers (grok 1; the encoder cut alike): the last logits of
+   a decode over a 64-token prompt (256, one SSD chunk, with SSM heads;
+   text only; MoE at a capacity that drops nothing, since a prefill
+   drops tokens past an expert's capacity and a one-token step never
+   does) equal its ``prefill`` logits on the card (not enc-dec, whose
+   prefill keeps no cache), and the card's loss, prefill logits
+   and 8 decode steps equal a CPU run of the same weights within 1e-3
+   of the largest magnitude (not grok: one float32 layer of its
+   experts is 19.3 GB). Prints each configuration's median prefill and
+   decode-step ms, peak memory, launches, blockwise calls and each held
+   launch's error beside the card's name and power limit.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -238,6 +274,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mvcc_resolve as kmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import transformer as models_tf  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
@@ -948,20 +986,36 @@ def check_replay(gpu, cpu):
 # decode (B, KvH, G, Dh, T) and prefill (B, S, KvH, G, Dh): the reference
 # tests' sweeps (tests/test_kernels.py:52-55, :106-109), the serving
 # path's shapes (8 slots and one prefix hit over MaxP * page = 1024
-# positions; prompts of 128-512) and an odd one (T, S not multiples of a
-# tile or block)
+# positions; prompts of 128-512), an odd one (T, S not multiples of a
+# tile or block) and every shape phase 14's bf16 runs give the kernels
+# (``models``; model_bf16 fails on a shape missing here)
 DECODE_CASES = [((1, 1, 1, 64, 64), "tests"), ((3, 2, 4, 64, 257), "tests"),
                 ((2, 5, 3, 128, 1024), "tests"),
                 ((4, 8, 1, 128, 96), "tests"),
                 ((8, 5, 3, 64, 1024), "serving"),
                 ((1, 5, 3, 64, 1024), "serving"),
-                ((5, 3, 7, 40, 1000), "odd")]
+                ((5, 3, 7, 40, 1000), "odd"),
+                # hymba's global caches and its ring (kv_len = min(len, t))
+                ((2, 5, 5, 64, 1024), "models"),
+                # seamless's self-attention cache, its cross-attention
+                # over 4,096 frames
+                ((2, 16, 1, 64, 1024), "models"),
+                ((2, 16, 1, 64, 4096), "models"),
+                ((2, 8, 4, 128, 1024), "models"),        # llava
+                ((2, 8, 6, 128, 1024), "models")]        # grok
 FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
                ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
                ((1, 128, 5, 3, 64), "serving"),
                ((1, 384, 5, 3, 64), "serving"),
                ((1, 512, 5, 3, 64), "serving"), ((1, 300, 5, 3, 64), "odd"),
-               ((2, 77, 2, 4, 40), "odd")]
+               ((2, 77, 2, 4, 40), "odd"),
+               ((2, 512, 5, 5, 64), "models"),           # hymba's globals
+               ((2, 512, 16, 1, 64), "models"),          # seamless
+               ((2, 2560, 8, 4, 128), "models"),         # llava
+               # deepseek-v2-lite's MLA prefill: 16 heads of 128 + 64,
+               # v padded to it (G = 1)
+               ((2, 512, 16, 1, 192), "models"),
+               ((2, 512, 8, 6, 128), "models")]          # grok
 # the kernels line carries each kernel at its busiest serving shape, bf16
 ROW_CASE = {"decode_attention": (8, 5, 3, 64, 1024),
             "flash_attention_causal": (1, 512, 5, 3, 64)}
@@ -2099,6 +2153,378 @@ def suites_phase(device="cuda"):
     return gpu, launches
 
 
+# ---------------------------------------------------------------------------
+# the models path: every family's loss, prefill and decode step (phase 14)
+# ---------------------------------------------------------------------------
+# (architecture, depth cut or None): each at full width, whole but grok,
+# whose 64 layers (~628 GB in bf16) need 8 cards
+MODEL_ARCHS = (("mamba2-370m", None), ("hymba-1.5b", None),
+               ("seamless-m4t-large-v2", None),
+               ("llava-next-mistral-7b", None),
+               ("deepseek-v2-lite-16b", None), ("grok-1-314b", 2))
+MODEL_B, MODEL_S, MODEL_MAX_LEN, MODEL_STEPS, MODEL_PREFILLS = \
+    2, 512, 1024, 32, 3
+# the float32 replay: 2 layers (grok 1: one float32 layer of its experts
+# is 19.3 GB, so it runs on the card only), a prompt of 64 tokens, or one
+# SSD chunk (256) where the model has SSM heads, 8 decode steps against
+# the CPU
+REPLAY_DEPTH = {"grok-1-314b": 1}
+REPLAY_PROMPT, SSD_PROMPT, REPLAY_STEPS, REPLAY_TOL = 64, 256, 8, 1e-3
+CARD_ONLY = ("grok-1-314b",)
+
+
+def model_batch(cfg, n_tokens: int, n_extra: int, seed: int, device,
+                labels: bool = True):
+    """Random tokens (and labels) [B, n_tokens]; ``n_extra`` image
+    patches (vlm) or audio frames (enc-dec) in the config's dtype; drawn
+    with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def ints(n):
+        return torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (MODEL_B, n)).astype(np.int32)).to(device)
+
+    batch = {"tokens": ints(n_tokens)}
+    if labels:
+        batch["labels"] = ints(n_tokens)
+    feat = {"patches": models_tf.VISION_EMBED_DIM,
+            "frames": models_tf.AUDIO_FEAT_DIM}.get(cfg.frontend)
+    if feat:
+        x = rng.standard_normal((MODEL_B, n_extra, feat)).astype(np.float32)
+        batch[cfg.frontend] = torch.from_numpy(x).to(
+            device, getattr(torch, cfg.dtype))
+    return batch
+
+
+def fill_encoder_cache(cache, cfg, seed: int):
+    """An enc-dec cache's ``enc_k`` / ``enc_v`` (zeros from
+    ``init_cache``) drawn with numpy from ``seed``, the same values on
+    any device, so cross-attention decode attends to data as a served
+    request's encoder output would give it."""
+    if cfg.enc_dec:
+        rng = np.random.default_rng(seed)
+        for name in ("enc_k", "enc_v"):
+            x = rng.standard_normal(cache[name].shape).astype(np.float32)
+            cache[name].copy_(torch.from_numpy(x))
+
+
+def full_batch(cfg, device, labels=True):
+    """B=2, S=512: llava 2,304 patches + 256 text tokens; seamless 512
+    frames + 512 tokens."""
+    if cfg.frontend == "patches":
+        return model_batch(cfg, MODEL_S // 2, cfg.num_patches, 0, device,
+                           labels)
+    return model_batch(cfg, MODEL_S, MODEL_S, 0, device, labels)
+
+
+def attention_layers(cfg):
+    """(causal self-attention layers with no window: one
+    flash_attention_causal launch each per forward; GQA decode attention
+    calls per decode step: one decode_attention launch each; the other
+    flash_attention calls per forward, which run the blockwise torch
+    code: hymba's windowed layers, seamless's encoder and
+    cross-attention)."""
+    if cfg.family == "ssm":
+        return 0, 0, 0
+    if cfg.hybrid:
+        n_global = len(cfg.global_attn_layers)
+        return n_global, cfg.num_layers, cfg.num_layers - n_global
+    if cfg.attention == "mla":
+        return cfg.num_layers, 0, 0               # absorbed decode: einsums
+    if cfg.enc_dec:
+        return (cfg.num_layers, 2 * cfg.num_layers,
+                cfg.encoder_layers + cfg.num_layers)
+    return cfg.num_layers, cfg.num_layers, 0
+
+
+class HeldCalls:
+    """While open, wraps ``flash_attention_causal`` and
+    ``decode_attention`` (the module attributes that ``models.layers``
+    calls): records the (name, shape) of every launch, and while
+    ``armed`` keeps the inputs and output of the latest launch at each
+    shape and dtype (a decode cache is written in place, so they are
+    copied); ``check`` then holds each kept output against the kernel's
+    plain version on the same card tensors at phase 3's tolerances. Adds
+    no launch."""
+    NAMES = ("flash_attention_causal", "decode_attention")
+
+    def __enter__(self):
+        self.kept, self.shapes, self.armed = {}, set(), True
+        self._saved = {n: getattr(ops, n) for n in self.NAMES}
+
+        def keeper(name, kernel):
+            def call(*args):
+                out = kernel(*args)
+                q, k = args[0], args[1]
+                shape = (tuple(q.shape) if name == "flash_attention_causal"
+                         else tuple(q.shape) + (k.shape[1],))
+                self.shapes.add((name, shape))
+                if self.armed:
+                    self.kept[(name, shape, q.dtype)] = (
+                        [a.clone() for a in args], out.clone())
+                return out
+            return call
+
+        for n, fn in self._saved.items():
+            setattr(ops, n, keeper(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(ops, n, fn)
+        return False
+
+    def check(self, what: str):
+        """{"name shape dtype": max_abs_err} over the kept launches;
+        raises where one disagrees with its plain version."""
+        errs = {}
+        for (name, shape, dtype), (args, out) in self.kept.items():
+            ref = getattr(ops, name + "_plain")(*args)
+            tol = ATT_TOL[(name, dtype)]
+            torch.testing.assert_close(
+                out.float(), ref.float(), rtol=tol, atol=tol,
+                msg=lambda m: f"{what}: {name} {shape} {dtype}: {m}")
+            errs[f"{name} {list(shape)} {str(dtype)[6:]}"] = \
+                (out.float() - ref.float()).abs().max().item()
+        self.kept = {}
+        return errs
+
+
+def phase3_shapes():
+    """The (name, shape) pairs phase 3 holds in both dtypes."""
+    return {("decode_attention", c) for c, _ in DECODE_CASES} | \
+        {("flash_attention_causal", c) for c, _ in FLASH_CASES}
+
+
+def _finite(x, what):
+    if not torch.isfinite(x).all():
+        raise AssertionError(f"{what}: not finite")
+
+
+def model_bf16(name: str, depth, device="cuda"):
+    """One configuration at full width in bf16: loss, MODEL_PREFILLS
+    timed prefills, init_cache and MODEL_STEPS timed decode steps, then
+    one warm step under the sync-debug mode. Launches and blockwise calls
+    counted from zero; each kernel's latest launch at each shape in the
+    loss and in the warm step (over MODEL_STEPS + 1 keys; seamless's
+    encoder cache drawn from a seed) is held against its plain version,
+    and every shape launched must be one phase 3 holds in both dtypes."""
+    cfg = get_config(name)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in flatten(params).values())
+    batch = full_batch(cfg, device)
+    with HeldCalls() as held:
+        ops.reset_launches()
+        model_layers.reset_blockwise()
+        loss = models_tf.loss_fn(params, batch, cfg)
+        _finite(loss, f"{name} loss")
+        batch.pop("labels")
+        held.armed = False               # the timed runs copy nothing
+        prefill_ms = []
+        for _ in range(MODEL_PREFILLS):
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, _ = models_tf.prefill(params, batch, cfg)
+            _sync(device)
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            _finite(logits, f"{name} prefill logits")
+        cache = models_tf.init_cache(cfg, MODEL_B, MODEL_MAX_LEN,
+                                     torch.bfloat16, device)
+        fill_encoder_cache(cache, cfg, 3)
+        toks = model_batch(cfg, MODEL_STEPS + 1, 0, 1, device,
+                           labels=False)["tokens"]
+        decode_ms, bad = [], []
+        for i in range(MODEL_STEPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, cache = models_tf.decode_step(params, cache,
+                                                  toks[:, i:i + 1], cfg)
+            _sync(device)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            bad.append((~torch.isfinite(logits)).sum())
+        if int(torch.stack(bad).sum()):
+            raise AssertionError(f"{name}: non-finite decode logits")
+        joins = Joins()
+        held.armed = True                # decode over MODEL_STEPS + 1 keys
+        logits, cache = joins.hot(models_tf.decode_step, params, cache,
+                                  toks[:, -1:], cfg)
+        _finite(logits, f"{name} warm decode logits")
+        _sync(device)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    blockwise = dict(model_layers.BLOCKWISE)
+    n_flash, n_decode, n_blockwise = attention_layers(cfg)
+    forwards = 1 + MODEL_PREFILLS
+    want = {"flash_attention_causal": n_flash * forwards,
+            "flash_attention_causal/wgmma": n_flash * forwards,
+            "decode_attention": n_decode * (MODEL_STEPS + 1)}
+    want = {k: v for k, v in want.items() if v and on_card}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    want = {"flash": n_blockwise * forwards, "decode": 0}
+    if on_card and blockwise != want:
+        raise AssertionError(f"{name}: blockwise calls {blockwise}, "
+                             f"expected {want}")
+    missing = held.shapes - phase3_shapes()
+    if missing:
+        raise AssertionError(f"{name}: kernel shapes phase 3 does not "
+                             f"hold: {sorted(missing)}")
+    held_errs = held.check(f"{name} bf16")
+    if joins.hot_syncs:
+        raise AssertionError(f"{name}: {joins.hot_syncs} synchronising "
+                             f"operations in a warm decode_step "
+                             f"{dict(joins.hot_sites)}")
+    out = {"cfg": cfg, "init_s": init_s, "n_params": n_params,
+           "loss": float(loss), "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "launches": launches,
+           "blockwise": blockwise, "held": held_errs,
+           "syncs": joins.hot_syncs,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if on_card else 0.0),
+           "seq": (batch["tokens"].shape[1]
+                   + (cfg.num_patches if cfg.frontend == "patches" else 0))}
+    del params, cache, batch, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity that drops nothing (capacity_factor =
+    num_experts: C = tokens x k). A prefill over a prompt drops tokens
+    past an expert's capacity, as the reference does, where a one-token
+    decode step never does, so decode equals prefill only without
+    drops."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+
+def replay_run(params, cfg, device, whole_prompt: bool):
+    """The float32 replay's outputs on ``device``: loss and prefill logits
+    on a batch with extras, the logits of REPLAY_STEPS decode steps over
+    its tokens from an empty cache, and with ``whole_prompt`` (not
+    enc-dec) the last logits of a decode over the whole text-only prompt
+    beside its prefill logits, both without MoE drops (``no_drop``)."""
+    n = SSD_PROMPT if cfg.ssm is not None else REPLAY_PROMPT
+    batch = model_batch(cfg, n, REPLAY_PROMPT, 2, device)
+    out = {"loss": models_tf.loss_fn(params, batch, cfg)}
+    batch.pop("labels")
+    out["prefill"] = models_tf.prefill(params, batch, cfg)[0]
+    cache = models_tf.init_cache(cfg, MODEL_B, n, torch.float32, device)
+    fill_encoder_cache(cache, cfg, 4)
+    steps = []
+    for i in range(REPLAY_STEPS):
+        logits, cache = models_tf.decode_step(
+            params, cache, batch["tokens"][:, i:i + 1], cfg)
+        steps.append(logits)
+    out["decode"] = torch.stack(steps)
+    if whole_prompt and not cfg.enc_dec:     # text only: decode == prefill
+        tcfg = no_drop(cfg)
+        text = {"tokens": batch["tokens"]}
+        if cfg.frontend == "patches":
+            text["patches"] = batch["patches"][:, :0]
+        out["text_prefill"] = models_tf.prefill(params, text, tcfg)[0]
+        cache = models_tf.init_cache(cfg, MODEL_B, n, torch.float32, device)
+        for i in range(n):
+            logits, cache = models_tf.decode_step(
+                params, cache, batch["tokens"][:, i:i + 1], tcfg)
+        out["text_decode"] = logits
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def model_replay(name: str, device="cuda"):
+    """``name`` at full width, REPLAY_DEPTH layers (2; the encoder cut
+    alike), float32 with TF32 off: decode == prefill on the card, and the
+    card against the CPU on the same weights (but grok)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    depth = REPLAY_DEPTH.get(name, 2)
+    cfg = dataclasses.replace(get_config(name), num_layers=depth,
+                              dtype="float32")
+    if cfg.enc_dec:
+        cfg = dataclasses.replace(cfg, encoder_layers=depth)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device)
+    before = dict(ops.LAUNCHES)
+    with HeldCalls() as held:
+        gpu = replay_run(params, cfg, device, True)
+    moved = {k: ops.LAUNCHES[k] - before[k] for k in before
+             if ops.LAUNCHES[k] != before[k]}
+    res = {"depth": depth, "launches": moved,
+           "held": held.check(f"{name} float32")}
+    if "text_decode" in gpu:
+        res["decode_vs_prefill"] = _rel(gpu["text_decode"],
+                                        gpu["text_prefill"])
+        if res["decode_vs_prefill"] > REPLAY_TOL:
+            raise AssertionError(f"{name}: decode over the prompt differs "
+                                 f"from prefill by {res['decode_vs_prefill']:.3g}")
+    if name not in CARD_ONLY:
+        params_cpu = unflatten({k: v.cpu() for k, v in
+                                flatten(params).items()})
+        del params
+        torch.cuda.empty_cache()
+        cpu = replay_run(params_cpu, cfg, "cpu", False)
+        res["card_vs_cpu"] = {k: _rel(gpu[k], cpu[k]) for k in cpu}
+        worst = max(res["card_vs_cpu"].values())
+        if worst > REPLAY_TOL:
+            raise AssertionError(f"{name}: card against cpu "
+                                 f"{res['card_vs_cpu']}")
+    else:
+        del params
+    for k, v in gpu.items():
+        _finite(v, f"{name} replay {k}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def models_phase(device="cuda"):
+    """Phase 14: every configuration of MODEL_ARCHS, one at a time."""
+    smi = nvidia_smi()
+    total = collections.Counter()
+    for name, depth in MODEL_ARCHS:
+        t0 = time.perf_counter()
+        r = model_bf16(name, depth, device)
+        total.update(r["launches"])
+        cfg = r["cfg"]
+        cut = (f"{cfg.num_layers} of {get_config(name).num_layers} layers "
+               "(cut)" if depth else f"{cfg.num_layers} layers (whole)")
+        log(f"models {name}: full width, {cut}, bf16, {r['n_params']:,} "
+            f"parameters (init {r['init_s']:.2f} s); B={MODEL_B} S="
+            f"{r['seq']}: loss {r['loss']:.4f}; prefill ms "
+            f"{[round(x, 3) for x in r['prefill_ms']]} median "
+            f"{statistics.median(r['prefill_ms']):.3f}; {MODEL_STEPS} "
+            f"decode steps (max_len {MODEL_MAX_LEN}) median "
+            f"{statistics.median(r['decode_ms']):.3f} ms (min "
+            f"{min(r['decode_ms']):.3f}, max {max(r['decode_ms']):.3f}); "
+            f"peak device memory {r['peak_gib']:.3f} GiB; launches "
+            f"{r['launches']}; blockwise calls {r['blockwise']}; each "
+            f"kernel shape against its plain version (max_abs_err) "
+            f"{r['held']}; synchronising ops in a warm decode_step "
+            f"{r['syncs']}; {smi}")
+        rep = model_replay(name, device)
+        log(f"models {name} replay: float32, {rep['depth']} layers: "
+            f"decode over the prompt against prefill "
+            f"{rep.get('decode_vs_prefill', 'n/a (enc-dec)')}; card "
+            f"against cpu {rep.get('card_vs_cpu', 'n/a (card only)')} "
+            f"(limit {REPLAY_TOL} of the largest magnitude); launches "
+            f"{rep['launches']}, each shape against its plain version "
+            f"(max_abs_err) {rep['held']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return dict(total)
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -2349,6 +2775,14 @@ def main() -> int:
             bench_history.append_suites(root=Path(root))
     log(text.getvalue().rstrip())
     log(f"paper suites: {time.perf_counter() - t0:.1f} s; {card}")
+
+    # -- the models path, counted from zero per configuration ---------------
+    t0 = time.perf_counter()
+    model_launches = models_phase()
+    for name in ("decode_attention", "flash_attention_causal"):
+        rows[name]["models_launches"] = model_launches.get(name, 0)
+    log(f"models path: bf16 launches over the six configurations "
+        f"{model_launches}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

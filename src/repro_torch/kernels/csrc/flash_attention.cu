@@ -21,7 +21,9 @@
 // head, key <= query) pair, S (S + 1) / 2 pairs a head; the bytes (q, k,
 // v read once, out written once) the H100 moves in about a microsecond
 // at the serving shapes (B = 1, S = 128-512, KvH = 5, G = 3, Dh = 64).
-// Two kernels, chosen by the wrapper by dtype and Dh:
+// Dh runs to 192 on both routes: DeepSeek-V2's MLA attends at 128 + 64
+// (q_nope | q_rope) with v zero-padded to it, G = 1. Two kernels, chosen
+// by the wrapper by dtype and Dh:
 //
 // * flash_wgmma_kernel (bf16, Dh % 16 == 0): the tensor cores. One
 //   producer warp streams 64-key K and V tiles with TMA into a ring of
@@ -94,7 +96,8 @@ int launch_dpl(const T* q, const T* k, const T* v, T* out, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shapes are checked by the Python wrapper: 1 <= G <= 32, 1 <= Dh <= 128.
+// Shapes are checked by the Python wrapper: 1 <= G <= 32, 1 <= Dh <= 192
+// (MLA's 128 + 64); DPL = ceil(Dh / 32) rounded up to 1, 2, 4 or 6.
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* out, int B, int S, int kvh,
            int g, int dh, float scale, void* stream) {
@@ -103,7 +106,9 @@ int launch(const T* q, const T* k, const T* v, T* out, int B, int S, int kvh,
     return launch_dpl<T, 1>(q, k, v, out, B, S, kvh, g, dh, scale, s);
   if (dh <= 64)
     return launch_dpl<T, 2>(q, k, v, out, B, S, kvh, g, dh, scale, s);
-  return launch_dpl<T, 4>(q, k, v, out, B, S, kvh, g, dh, scale, s);
+  if (dh <= 128)
+    return launch_dpl<T, 4>(q, k, v, out, B, S, kvh, g, dh, scale, s);
+  return launch_dpl<T, 6>(q, k, v, out, B, S, kvh, g, dh, scale, s);
 }
 
 // -- the tensor-core kernel (bf16, Dh % 16 == 0) ----------------------------
@@ -115,11 +120,16 @@ constexpr int kWgThreads = kConsumers + 32;   // + the producer warp
 constexpr uint32_t kPanel = 64 * hopper::kRowBytes;  // [64 rows][64 cols]
 
 // Dynamic shared memory of a block with NP 64-column panels: Q, the K and
-// V rings, 2 * kStages mbarriers, and 1024 bytes to align the tiles.
+// V rings, 2 * kStages mbarriers, and 1024 bytes to align the tiles. At
+// NP = 3 (Dh 129-192) that is 222,272 bytes, under the 232,448 a block
+// may take on an H100.
 template <int NP>
 constexpr size_t wgmma_smem_bytes() {
   return 1024 + kPanel * NP * (1 + 2 * kStages) + 2 * kStages * 8;
 }
+
+static_assert(wgmma_smem_bytes<3>() <= 232448,
+              "NP = 3 must fit an H100 block's shared memory");
 
 template <int NP>   // Dh padded to 64 * NP columns
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -277,8 +287,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                                           kPanel, hopper::kAtomBytes);
       if constexpr (NP == 1)
         hopper::wgmma_m64n64k16_rs_tb(o, pa[kk], dv);
-      else
+      else if constexpr (NP == 2)
         hopper::wgmma_m64n128k16_rs_tb(o, pa[kk], dv);
+      else
+        hopper::wgmma_m64n192k16_rs_tb(o, pa[kk], dv);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
@@ -353,7 +365,7 @@ int flash_attention_causal_bf16(const bf16* q, const bf16* k, const bf16* v,
   return launch<bf16>(q, k, v, out, B, S, kvh, g, dh, scale, stream);
 }
 
-// The tensor-core route: bf16, Dh % 16 == 0 (Dh <= 128), q, k, v and out
+// The tensor-core route: bf16, Dh % 16 == 0 (Dh <= 192), q, k, v and out
 // 16-byte aligned (checked by the wrapper).
 int flash_attention_causal_bf16_wgmma(const bf16* q, const bf16* k,
                                       const bf16* v, bf16* out, int B,
@@ -362,7 +374,9 @@ int flash_attention_causal_bf16_wgmma(const bf16* q, const bf16* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh <= 64)
     return launch_wgmma<1>(q, k, v, out, B, S, kvh, g, dh, scale, s);
-  return launch_wgmma<2>(q, k, v, out, B, S, kvh, g, dh, scale, s);
+  if (dh <= 128)
+    return launch_wgmma<2>(q, k, v, out, B, S, kvh, g, dh, scale, s);
+  return launch_wgmma<3>(q, k, v, out, B, S, kvh, g, dh, scale, s);
 }
 
 }  // extern "C"

@@ -109,15 +109,16 @@ def check_attention_inputs(name: str, q, k, v, q_dims: int) -> None:
         raise ValueError(f"{name}: all inputs must be on one device")
 
 
-def check_kernel_limits(name: str, tensors, g: int, dh: int) -> None:
+def check_kernel_limits(name: str, tensors, g: int, dh: int,
+                        max_dh: int) -> None:
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device "
                          f"{tensors[0].device}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if not (1 <= g <= MAX_G and 1 <= dh <= MAX_DH):
+    if not (1 <= g <= MAX_G and 1 <= dh <= max_dh):
         raise ValueError(f"{name}: the kernel takes 1 <= G <= {MAX_G} and "
-                         f"1 <= Dh <= {MAX_DH}, got G={g}, Dh={dh}")
+                         f"1 <= Dh <= {max_dh}, got G={g}, Dh={dh}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,7 +132,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = kv_len_vector(kv_len, b, q.device)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len)
-    check_kernel_limits("decode_attention", (q, k, v), g, dh)
+    check_kernel_limits("decode_attention", (q, k, v), g, dh, MAX_DH)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

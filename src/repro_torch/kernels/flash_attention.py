@@ -20,8 +20,8 @@ tensors it launches one of two hand-written kernels of
 ``csrc/flash_attention.cu`` (built on first use by ``_build``) or raises;
 ``flash_route`` picks it:
 
-* ``"wgmma"`` — bf16 with Dh a multiple of 16 and 16-byte aligned
-  tensors: the tensor cores (wgmma, TMA loads into a ring of tiles, the
+* ``"wgmma"`` — bf16 with Dh a multiple of 16 (up to 192) and 16-byte
+  aligned tensors: the tensor cores (wgmma, TMA loads into a ring of tiles, the
   softmax in registers), P rounded to bf16 for the P.V product;
 * ``"cuda_cores"`` — float32 (TF32 would not hold its 1e-5 tolerance) and
   bf16 with any other Dh: the float32 CUDA-core kernel of
@@ -46,6 +46,10 @@ from repro_torch.kernels.decode_attention import (_SUFFIX,
                                                   check_attention_inputs,
                                                   check_kernel_limits,
                                                   online_softmax_step)
+
+#: the flash kernels' head-dim limit, above decode's 128: DeepSeek-V2's
+#: MLA prefill attends at 128 + 64 = 192 (csrc/flash_attention.cu)
+MAX_DH = 192
 
 
 def flash_attention_causal_plain(q: torch.Tensor, k: torch.Tensor,
@@ -98,7 +102,7 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
                          f"not match k {tuple(k.shape)}")
     if q.device.type == "cpu":
         return flash_attention_causal_plain(q, k, v)
-    check_kernel_limits("flash_attention_causal", (q, k, v), g, dh)
+    check_kernel_limits("flash_attention_causal", (q, k, v), g, dh, MAX_DH)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

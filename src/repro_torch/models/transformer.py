@@ -1,85 +1,148 @@
-"""Model parameters of the dense decoder family: the port of
-``repro.models.transformer``'s param schema, init and layer slicing.
+"""Model assembly for every architecture family: the port of
+``repro.models.transformer``.
 
-Parameters are a nested dict of tensors with the reference's
-layer-stacked layout: ``params["layers"]["attn"]["wq"]`` is
-[L, d_model, q_dim], norms are float32 and every other weight is
-``cfg.dtype`` (``ParamDef.dtype``). Only the family that
-``repro_torch.serving.ServeEngine`` accepts is ported — full attention,
-dense FFN, no encoder-decoder, no hybrid SSM heads; every other family
-raises ``NotImplementedError`` (ROADMAP.md, queue 1).
+- dense / vlm / moe / mla archs: pre-norm residual blocks over a stacked
+  layer tree (+ an optional leading unstacked dense layer for DeepSeek's
+  ``first_moe_layer=1``), run as a loop over the layers' slices.
+- ssm (Mamba-2): pure SSD blocks.
+- hybrid (Hymba): parallel attention + SSM heads; layers are unrolled
+  (``layer_{i:02d}``) because the per-layer window (SWA against the
+  global layers) and the per-layer decode caches differ.
+- audio (Seamless): encoder-decoder; a bidirectional encoder stack over
+  frame embeddings, the decoder adds cross-attention.
+- vlm (LLaVA): a patch-embedding adapter prepended to the text stream.
 
-``init_params`` draws its own weights from a ``torch.Generator`` (JAX's
-random bits cannot be replayed in PyTorch); ``params_from_reference``
-adopts the JAX package's parameter tree, as numpy arrays, checked by
-name, shape and dtype — the route every parity test takes.
+API (functions of (params, batch), as the reference's; ``decode_step``
+writes the cache in place and returns it, where the reference returns a
+fresh cache):
+  param_defs / init_params / abstract_params / params_from_reference
+  loss_fn(params, batch, cfg)               -> scalar  (forward only)
+  prefill(params, batch, cfg)               -> (last_logits, None)
+  init_cache(cfg, batch, max_len, dtype)    -> zero decode cache
+  decode_step(params, cache, tokens, cfg)   -> (logits, cache)
+
+Parameters are a nested dict of tensors with the reference's names and
+layouts (``params["layers"]["attn"]["wq"]`` is [L, d_model, q_dim]);
+norms are float32 and every other weight ``cfg.dtype`` unless its
+``ParamDef`` says otherwise. ``init_params`` draws its own weights from a
+``torch.Generator`` (JAX's random bits cannot be replayed);
+``params_from_reference`` adopts the JAX package's tree as numpy arrays,
+checked by name, shape and dtype — the route every parity test takes.
+
+Left out until the training slice: ``_maybe_remat`` / ``checkpoint_name``
+(rematerialisation only changes what a backward pass keeps) and the
+``repro.parallel.constraints`` sharding hints. ``loss_fn`` is held to the
+reference's value; its gradient comes with training.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.layers import ParamDef, Params, flatten, unflatten
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (_DTYPES, ParamDef, Params, flatten,
+                                       init_from_defs, rms_norm, unflatten)
 
 VISION_EMBED_DIM = 1152     # stubbed vision tower output (SigLIP-like)
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of the ported dense decoder family."""
-    if (cfg.attention != "full" or cfg.enc_dec or cfg.hybrid
-            or cfg.moe is not None or cfg.family == "ssm"
-            or cfg.frontend == "frames"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense full-attention decoder family is "
-            "ported (ROADMAP.md, queue 1: the models' forward/training "
-            "families)")
+AUDIO_FEAT_DIM = 160        # stubbed fbank features (80 mel x 2 stacking)
+ENC_LEN_AT_DECODE = 4096    # encoder length used by enc-dec decode shapes
 
 
+# ---------------------------------------------------------------------------
+# Param schema
+# ---------------------------------------------------------------------------
 def _stack(defs: Dict[str, ParamDef], n: int) -> Dict[str, ParamDef]:
     return {k: ParamDef((n,) + d.shape, ("layers",) + d.axes, d.init,
                         d.scale_axis + 1, d.dtype) for k, d in defs.items()}
 
 
-def _layer_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def _norm(d: int) -> ParamDef:
+    return ParamDef((d,), ("embed",), init="ones", dtype="float32")
+
+
+def _layer_defs(cfg: ModelConfig, moe_layer: bool) -> Dict[str, ParamDef]:
     """Defs for one decoder layer (unstacked)."""
     d = cfg.d_model
-    defs: Dict[str, ParamDef] = {
-        "attn_norm": ParamDef((d,), ("embed",), init="ones",
-                              dtype="float32")}
-    for k, v in attn_mod.gqa_defs(cfg).items():
+    defs: Dict[str, ParamDef] = {}
+    if cfg.family == "ssm":
+        defs["ssm_norm_in"] = _norm(d)
+        for k, v in ssm_mod.ssm_defs(cfg).items():
+            defs[f"ssm/{k}"] = v
+        return defs
+    defs["attn_norm"] = _norm(d)
+    amod = attn_mod.mla_defs(cfg) if cfg.attention == "mla" \
+        else attn_mod.gqa_defs(cfg)
+    for k, v in amod.items():
         defs[f"attn/{k}"] = v
-    defs["ffn_norm"] = ParamDef((d,), ("embed",), init="ones",
-                                dtype="float32")
-    for k, v in ffn_mod.dense_defs(cfg).items():
-        defs[f"ffn/{k}"] = v
+    if cfg.hybrid:
+        for k, v in ssm_mod.ssm_defs(cfg).items():
+            defs[f"ssm/{k}"] = v
+        defs["attn_out_norm"] = _norm(d)
+        defs["ssm_out_norm"] = _norm(d)
+    if cfg.enc_dec:
+        defs["cross_norm"] = _norm(d)
+        for k, v in attn_mod.gqa_defs(cfg).items():
+            defs[f"cross/{k}"] = v
+    defs["ffn_norm"] = _norm(d)
+    if moe_layer:
+        for k, v in ffn_mod.moe_defs(cfg).items():
+            defs[f"moe/{k}"] = v
+    else:
+        dff = cfg.moe.dense_d_ff if cfg.moe is not None else 0
+        for k, v in ffn_mod.dense_defs(cfg, dff).items():
+            defs[f"ffn/{k}"] = v
     return defs
 
 
+def _n_prefix(cfg: ModelConfig) -> int:
+    return cfg.moe.first_moe_layer if cfg.moe else 0
+
+
 def param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    """Flat {"a/b": ParamDef} schema, names and shapes as the reference's
-    ``param_defs``."""
-    check_supported(cfg)
+    """Flat {"a/b": ParamDef} schema, as the reference's ``param_defs``."""
     v, d = cfg.padded_vocab, cfg.d_model
     defs: Dict[str, ParamDef] = {
         "embed": ParamDef((v, d), ("vocab", "embed")),
-        "final_norm": ParamDef((d,), ("embed",), init="ones",
-                               dtype="float32"),
+        "final_norm": _norm(d),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"))
-    if cfg.frontend == "patches":
-        defs["adapter/w"] = ParamDef((VISION_EMBED_DIM, d), (None, "embed"))
+    feat = {"patches": VISION_EMBED_DIM, "frames": AUDIO_FEAT_DIM}
+    if cfg.frontend in feat:
+        defs["adapter/w"] = ParamDef((feat[cfg.frontend], d),
+                                     (None, "embed"))
         defs["adapter/b"] = ParamDef((d,), ("embed",), init="zeros")
-    for k, vdef in _stack(_layer_defs(cfg), cfg.num_layers).items():
-        defs[f"layers/{k}"] = vdef
+
+    n_prefix = _n_prefix(cfg)
+    if cfg.hybrid:
+        # unrolled: one subtree per layer (heterogeneous windows/caches)
+        for i in range(cfg.num_layers):
+            for k, vdef in _layer_defs(cfg, moe_layer=False).items():
+                defs[f"layer_{i:02d}/{k}"] = vdef
+    else:
+        for i in range(n_prefix):
+            for k, vdef in _layer_defs(cfg, moe_layer=False).items():
+                defs[f"dense_{i}/{k}"] = vdef
+        for k, vdef in _stack(
+                _layer_defs(cfg, moe_layer=cfg.moe is not None),
+                cfg.num_layers - n_prefix).items():
+            defs[f"layers/{k}"] = vdef
+    if cfg.enc_dec:
+        enc_defs: Dict[str, ParamDef] = {"attn_norm": _norm(d),
+                                         "ffn_norm": _norm(d)}
+        for k, vdef in attn_mod.gqa_defs(cfg).items():
+            enc_defs[f"attn/{k}"] = vdef
+        for k, vdef in ffn_mod.dense_defs(cfg).items():
+            enc_defs[f"ffn/{k}"] = vdef
+        for k, vdef in _stack(enc_defs, cfg.encoder_layers).items():
+            defs[f"encoder/{k}"] = vdef
+        defs["enc_norm"] = _norm(d)
     return defs
 
 
@@ -88,23 +151,19 @@ def _dtype(d: ParamDef, cfg: ModelConfig) -> torch.dtype:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Params:
-    """Fresh parameters on ``device`` (the generator's device): in sorted
-    name order, normal weights scaled by fan_in^-0.5 (drawn in float32,
-    then cast), ones / zeros where the schema says so."""
-    out = {}
-    for name, d in sorted(param_defs(cfg).items()):
-        dt = _dtype(d, cfg)
-        if d.init == "zeros":
-            out[name] = torch.zeros(d.shape, dtype=dt, device=device)
-        elif d.init == "ones":
-            out[name] = torch.ones(d.shape, dtype=dt, device=device)
-        else:
-            fan_in = max(1, d.shape[d.scale_axis])
-            w = torch.randn(d.shape, generator=generator, device=device,
-                            dtype=torch.float32)
-            out[name] = (w * fan_in ** -0.5).to(dt)
-    return unflatten(out)
+                device: DeviceLike = None) -> Params:
+    """Fresh parameters on ``device`` (default the card; the generator's
+    device), drawn as ``layers.init_from_defs`` draws them."""
+    return init_from_defs(param_defs(cfg), generator, _DTYPES[cfg.dtype],
+                          resolve_device(device))
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree's shapes and dtypes as tensors on the ``meta``
+    device: nothing is allocated."""
+    return unflatten({k: torch.empty(d.shape, dtype=_dtype(d, cfg),
+                                     device="meta")
+                      for k, d in param_defs(cfg).items()})
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -116,10 +175,11 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_reference(params_np: Dict[str, Any], cfg: ModelConfig,
-                          device) -> Params:
+                          device: DeviceLike = None) -> Params:
     """The JAX package's parameter tree (nested or "a/b"-flat dict of
-    numpy arrays) as the port's parameters on ``device``. Every name,
-    shape and dtype must be the schema's."""
+    numpy arrays) as the port's parameters on ``device`` (default the
+    card). Every name, shape and dtype must be the schema's."""
+    device = resolve_device(device)
     flat = flatten(params_np) if any(
         isinstance(v, dict) for v in params_np.values()) else dict(params_np)
     defs = param_defs(cfg)
@@ -139,10 +199,315 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ModelConfig,
     return unflatten(out)
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked ``params["layers"]`` subtree."""
-    def take(node):
-        if isinstance(node, dict):
-            return {k: take(v) for k, v in node.items()}
-        return node[i]
-    return take(params["layers"])
+def _take(node, i: int):
+    """Slice ``i`` of every leaf of a stacked subtree (views, no copy)."""
+    if isinstance(node, dict):
+        return {k: _take(v, i) for k, v in node.items()}
+    return node[i]
+
+
+def layer_params(params: Params, i: int, stack: str = "layers") -> Params:
+    """Layer ``i``'s slice of the stacked ``params[stack]`` subtree."""
+    return _take(params[stack], i)
+
+
+def _stacked(trees):
+    """The trees' leaves stacked on a new leading axis (the reference's
+    scan layout)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stacked([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+def _mixer(p, x, cfg: ModelConfig, *, window: int):
+    """Sequence mixer for train / prefill: attention and/or SSM."""
+    if cfg.family == "ssm":
+        h_in = rms_norm(x, p["ssm_norm_in"], cfg.norm_eps)
+        return x + ssm_mod.ssm_fwd(p["ssm"], h_in, cfg)
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    if cfg.attention == "mla":
+        out, _ = attn_mod.mla_fwd(p["attn"], h, cfg)
+    else:
+        out, _ = attn_mod.gqa_fwd(p["attn"], h, cfg, causal=True,
+                                  window=window)
+    if cfg.hybrid:
+        s_out = ssm_mod.ssm_fwd(p["ssm"], h, cfg)
+        out = 0.5 * (rms_norm(out, p["attn_out_norm"], cfg.norm_eps)
+                     + rms_norm(s_out, p["ssm_out_norm"], cfg.norm_eps))
+    return x + out
+
+
+def _ffn_block(p, x, cfg: ModelConfig):
+    """(x + FFN, aux loss); the aux loss is None for a dense FFN."""
+    if cfg.family == "ssm":
+        return x, None
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if "moe" in p:
+        out, aux = ffn_mod.moe_fwd(p["moe"], h, cfg)
+        return x + out, aux
+    return x + ffn_mod.dense_fwd(p["ffn"], h, cfg), None
+
+
+def _decoder_layer(p, x, cfg: ModelConfig, *, window: int = 0,
+                   enc_kv=None):
+    x = _mixer(p, x, cfg, window=window)
+    if cfg.enc_dec and enc_kv is not None:
+        h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        out, _ = attn_mod.gqa_fwd(p["cross"], h, cfg, kv_override=enc_kv,
+                                  rope=False)
+        x = x + out
+    return _ffn_block(p, x, cfg)
+
+
+def _layer_window(cfg: ModelConfig, i: int) -> int:
+    return 0 if i in cfg.global_attn_layers else cfg.window
+
+
+# ---------------------------------------------------------------------------
+# Embedding / loss
+# ---------------------------------------------------------------------------
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's dtype promotion (bf16 @ f32 runs in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _embed_tokens(params, tokens, cfg: ModelConfig):
+    return params["embed"][tokens.long()]
+
+
+def _frontend_concat(params, batch, cfg: ModelConfig):
+    """Returns (x [B,S,D], loss_mask [B,S], labels [B,S])."""
+    tokens = batch["tokens"]
+    x_txt = _embed_tokens(params, tokens, cfg)
+    ones = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    if cfg.frontend == "patches":
+        ad = params["adapter"]
+        emb = _mm(batch["patches"], ad["w"])
+        emb = emb + ad["b"].to(emb.dtype)
+        x = torch.cat([emb.to(x_txt.dtype), x_txt], dim=1)
+        labels = batch["labels"]
+        pad = torch.zeros(emb.shape[:2], dtype=labels.dtype,
+                          device=labels.device)
+        mask = torch.cat([torch.zeros(emb.shape[:2], dtype=torch.bool,
+                                      device=tokens.device), ones], dim=1)
+        return x, mask, torch.cat([pad, labels], dim=1)
+    return x_txt, ones, batch["labels"]
+
+
+def chunked_ce_loss(x, lm_head, labels, mask, chunk: int = 1024):
+    """Cross-entropy in sequence chunks, so the [B, S, V] logits are never
+    alive at once (V can be 256k); float32 logsumexp. As the reference,
+    positions past the last whole chunk (nc * (S // nc)) are not
+    counted."""
+    b, s, d = x.shape
+    nc = max(1, s // chunk)
+    chunk = s // nc
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = (x[:, sl] @ lm_head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, sl, None].long())[..., 0]
+        mb = mask[:, sl]
+        tot = tot + torch.where(mb, lse - gold, 0.0).sum()
+        cnt = cnt + mb.sum()
+    return tot / cnt.clamp(min=1)
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+def _run_encoder(params, frames, cfg: ModelConfig):
+    ad = params["adapter"]
+    x = _mm(frames, ad["w"])
+    x = (x + ad["b"].to(x.dtype)).to(_DTYPES[cfg.dtype])
+    for i in range(cfg.encoder_layers):
+        lp = layer_params(params, i, "encoder")
+        hh = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        out, _ = attn_mod.gqa_fwd(lp["attn"], hh, cfg, causal=False)
+        x = x + out
+        x = x + ffn_mod.dense_fwd(
+            lp["ffn"], rms_norm(x, lp["ffn_norm"], cfg.norm_eps), cfg)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _backbone(params, x, cfg: ModelConfig, enc=None):
+    """Run the decoder stack on x [B,S,D]. Returns (x, aux loss): the
+    prefix layers' aux losses, then the sum over the stack's."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.hybrid:
+        for i in range(cfg.num_layers):
+            x, _ = _decoder_layer(params[f"layer_{i:02d}"], x, cfg,
+                                  window=_layer_window(cfg, i))
+        return x, aux_total
+    for i in range(_n_prefix(cfg)):
+        x, aux = _decoder_layer(params[f"dense_{i}"], x, cfg)
+        if aux is not None:
+            aux_total = aux_total + aux
+    auxs = []
+    for i in range(cfg.num_layers - _n_prefix(cfg)):
+        lp = layer_params(params, i)
+        enc_kv = None
+        if cfg.enc_dec:
+            # per-layer cross KV projected from the shared encoder output
+            shape = (enc.shape[0], enc.shape[1], cfg.num_kv_heads,
+                     cfg.head_dim)
+            enc_kv = ((enc @ lp["cross"]["wk"]).reshape(shape),
+                      (enc @ lp["cross"]["wv"]).reshape(shape))
+        x, aux = _decoder_layer(lp, x, cfg, enc_kv=enc_kv)
+        if aux is not None:
+            auxs.append(aux)
+    if auxs:
+        aux_total = aux_total + torch.stack(auxs).sum()
+    return x, aux_total
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """The training objective's value (forward only): chunked
+    cross-entropy + 0.01 x the MoE aux loss."""
+    if cfg.enc_dec:
+        enc = _run_encoder(params, batch["frames"], cfg)
+        x = _embed_tokens(params, batch["tokens"], cfg)
+        mask = torch.ones(batch["tokens"].shape, dtype=torch.bool,
+                          device=x.device)
+        labels = batch["labels"]
+        x, aux = _backbone(params, x, cfg, enc=enc)
+    else:
+        x, mask, labels = _frontend_concat(params, batch, cfg)
+        x, aux = _backbone(params, x, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = chunked_ce_loss(x, _head(params, cfg), labels, mask)
+    return ce + 0.01 * aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype, device: DeviceLike = None
+               ) -> Dict[str, Any]:
+    """The decode cache, zeros, on ``device`` (default the card): the
+    reference's structure (stacked leaves under ``layers``, one subtree a
+    layer for hybrid, ``enc_k`` / ``enc_v`` of ENC_LEN_AT_DECODE frames
+    for enc-dec); every ``len`` a 0-d int32 device tensor."""
+    device = resolve_device(device)
+    n_prefix = _n_prefix(cfg)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def one_layer(window: int):
+        if cfg.family == "ssm":
+            return {"ssm": ssm_mod.ssm_init_cache(cfg, batch, dtype, device)}
+        if cfg.attention == "mla":
+            m = cfg.mla
+            c = {"ckv": zeros(batch, max_len, m.kv_lora_rank),
+                 "k_rope": zeros(batch, max_len, m.qk_rope_head_dim),
+                 "len": zeros(dt=torch.int32)}
+        else:
+            t = min(window, max_len) if window else max_len
+            c = {"k": zeros(batch, t, cfg.num_kv_heads, cfg.head_dim),
+                 "v": zeros(batch, t, cfg.num_kv_heads, cfg.head_dim),
+                 "len": zeros(dt=torch.int32)}
+        if cfg.hybrid:
+            c = {"attn": c,
+                 "ssm": ssm_mod.ssm_init_cache(cfg, batch, dtype, device)}
+        return c
+
+    cache: Dict[str, Any] = {}
+    if cfg.hybrid:
+        for i in range(cfg.num_layers):
+            cache[f"layer_{i:02d}"] = one_layer(_layer_window(cfg, i))
+        return cache
+    for i in range(n_prefix):
+        cache[f"dense_{i}"] = one_layer(0)
+    cache["layers"] = _stacked([one_layer(0)] * (cfg.num_layers - n_prefix))
+    if cfg.enc_dec:
+        cache["enc_k"] = zeros(cfg.num_layers - n_prefix, batch,
+                               ENC_LEN_AT_DECODE, cfg.num_kv_heads,
+                               cfg.head_dim)
+        cache["enc_v"] = torch.zeros_like(cache["enc_k"])
+    return cache
+
+
+def _layer_decode(p, x, cfg: ModelConfig, cache, *, window: int = 0,
+                  enc_kv=None):
+    """One layer's decode step; ``cache`` (the layer's subtree, or views
+    of its slice of the stacked one) is written in place."""
+    if cfg.family == "ssm":
+        h = rms_norm(x, p["ssm_norm_in"], cfg.norm_eps)
+        out, _ = ssm_mod.ssm_decode(p["ssm"], h, cfg, cache["ssm"])
+        return x + out
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    attn_cache = cache["attn"] if cfg.hybrid else cache
+    if cfg.attention == "mla":
+        out, _ = attn_mod.mla_decode(p["attn"], h, cfg, attn_cache)
+    else:
+        out, _ = attn_mod.gqa_decode(p["attn"], h, cfg, attn_cache,
+                                     window=window)
+    if cfg.hybrid:
+        s_out, _ = ssm_mod.ssm_decode(p["ssm"], h, cfg, cache["ssm"])
+        out = 0.5 * (rms_norm(out, p["attn_out_norm"], cfg.norm_eps)
+                     + rms_norm(s_out, p["ssm_out_norm"], cfg.norm_eps))
+    x = x + out
+    if cfg.enc_dec and enc_kv is not None:
+        h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        x = x + attn_mod.gqa_decode_cross(
+            p["cross"], h, cfg, enc_kv, enc_kv[0].shape[1])
+    x, _ = _ffn_block(p, x, cfg)
+    return x
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens: [B, 1] -> (logits [B, V] float32, cache). Writes the new
+    position into ``cache`` in place (a stacked leaf through its
+    per-layer views), so a step moves one position of each layer's
+    cache, not the whole cache, and returns the same dict. Makes no host
+    join: every cache length stays on the device."""
+    x = _embed_tokens(params, tokens, cfg)
+    if cfg.hybrid:
+        for i in range(cfg.num_layers):
+            name = f"layer_{i:02d}"
+            x = _layer_decode(params[name], x, cfg, cache[name],
+                              window=_layer_window(cfg, i))
+    else:
+        for i in range(_n_prefix(cfg)):
+            x = _layer_decode(params[f"dense_{i}"], x, cfg,
+                              cache[f"dense_{i}"])
+        for i in range(cfg.num_layers - _n_prefix(cfg)):
+            enc_kv = None
+            if cfg.enc_dec:
+                enc_kv = (cache["enc_k"][i], cache["enc_v"][i])
+            x = _layer_decode(layer_params(params, i), x, cfg,
+                              _take(cache["layers"], i), enc_kv=enc_kv)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, 0] @ _head(params, cfg)).float()
+    return logits, cache
+
+
+def prefill(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+    """Full-sequence prefill. Returns (last-position logits, None): as in
+    the reference, the serving layer re-packs KV caches itself."""
+    if cfg.enc_dec:
+        enc = _run_encoder(params, batch["frames"], cfg)
+        x = _embed_tokens(params, batch["tokens"], cfg)
+        x, _ = _backbone(params, x, cfg, enc=enc)
+    else:
+        x, _, _ = _frontend_concat(
+            params, {**batch, "labels": torch.zeros_like(batch["tokens"])},
+            cfg)
+        x, _ = _backbone(params, x, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, -1] @ _head(params, cfg)).float()
+    return logits, None

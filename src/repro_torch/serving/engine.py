@@ -14,11 +14,13 @@ lookups (``lookup``, ``progress_view``) are batched through
 snapshot and read a consistent progress view while decode steps keep
 committing.
 
-Attention runs through the hand-written kernels: every decode step and
-every prefix-hit ``_logits_at`` attends through ``decode_attention``
-(over the page table's gathered view of the cache), every prefill
-through ``flash_attention_causal``; on CPU tensors both take their plain
-versions. The matrix products around them are ``torch.matmul``, as the
+Attention goes through ``models.layers``, as the reference's does: every
+decode step and every prefix-hit ``_logits_at`` calls
+``attention_decode`` (over the page table's gathered view of the
+cache), which launches ``decode_attention`` on the card, and every
+prefill calls ``flash_attention``, which launches
+``flash_attention_causal``; on CPU tensors both run the blockwise torch
+code. The matrix products around them are ``torch.matmul``, as the
 reference leaves them to XLA. PyTorch runs eagerly, so there are no
 jits; the reference's per-``prompt_len`` compilation has no counterpart.
 
@@ -38,16 +40,30 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import BohmEngine, SnapshotHandle
 from repro_torch.core.txn import Workload, make_batch
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import ops
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.models.transformer import check_supported, layer_params
+from repro_torch.models.layers import (apply_rope, attention_decode,
+                                       flash_attention, rms_norm)
+from repro_torch.models.transformer import layer_params
 from repro_torch.serving import pages as pages_mod
 from repro_torch.serving.scheduler import BohmScheduler, Request
 
 # request-state record payload: [seq_len, n_generated, last_token+1, status]
 STATE_WORDS = 4
 STATE_UNKNOWN, STATE_ACTIVE, STATE_DONE = 0, 1, 2
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is of the family the serving path serves: the
+    dense GQA decoder (full attention, dense FFN, no encoder-decoder, no
+    hybrid SSM heads). The reference's ``ServeEngine`` asserts the same
+    but for the FFN; its MoE FFN is not on the port's serving path."""
+    if (cfg.attention != "full" or cfg.enc_dec or cfg.hybrid
+            or cfg.moe is not None or cfg.family == "ssm"
+            or cfg.frontend == "frames"):
+        raise NotImplementedError(
+            f"{cfg.name}: ServeEngine serves the dense GQA decoder family "
+            "only; the other families run through repro_torch.models "
+            "(prefill / decode_step)")
 
 
 def make_state_workload() -> Workload:
@@ -280,7 +296,7 @@ def _head(params, x, cfg):
 
 def _attend_paged(p, h, cfg, kv, layer, positions, active):
     """One layer of paged decode attention for all slots. h: [S, 1, D].
-    ``decode_attention`` masks each slot at its ``seq_len``; an idle
+    ``attention_decode`` masks each slot at its ``seq_len``; an idle
     slot (``seq_len = 0``) attends to nothing and gets zeros."""
     s = h.shape[0]
     q = (h @ p["attn"]["wq"]).reshape(s, 1, cfg.num_heads, cfg.head_dim)
@@ -288,10 +304,7 @@ def _attend_paged(p, h, cfg, kv, layer, positions, active):
         q = rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k_all, v_all = pages_mod.gather_kv(kv, layer)     # [S, T, KvH, Dh]
-    # head h = kvh * G + g
-    out = ops.decode_attention(
-        q.reshape(s, cfg.num_kv_heads, -1, cfg.head_dim).to(k_all.dtype),
-        k_all, v_all, kv.seq_len).to(q.dtype)
+    out = attention_decode(q, k_all, v_all, kv.seq_len)
     return out.reshape(s, 1, cfg.q_dim) @ p["attn"]["wo"]
 
 
@@ -341,10 +354,7 @@ def _paged_prefill(params, kv, prompt, page_table, slot, *, prompt_len: int,
         if cfg.qk_norm:
             q = rms_norm(q, lp["attn"]["q_norm"], cfg.norm_eps)
         q = apply_rope(q, positions, cfg.rope_theta)
-        # head h = kvh * G + g
-        att = ops.flash_attention_causal(
-            q.reshape(1, prompt_len, cfg.num_kv_heads, -1, cfg.head_dim),
-            k.contiguous(), v.contiguous())
+        att = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
         x = x + att.reshape(1, prompt_len, cfg.q_dim) @ lp["attn"]["wo"]
         x = x + ffn_mod.dense_fwd(
             lp["ffn"], rms_norm(x, lp["ffn_norm"], cfg.norm_eps), cfg)

@@ -30,6 +30,8 @@ def test_package_imports_without_jax_or_repro():
     assert "repro_torch.core.engine" in mods
     assert {f"repro_torch.obs.{m}" for m in (
         "ewma", "trace", "lifecycle", "monitor", "regress")} <= set(mods)
+    assert {f"repro_torch.models.{m}" for m in (
+        "layers", "attention", "ffn", "ssm", "transformer")} <= set(mods)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n")

@@ -539,11 +539,14 @@ DECODE_SHAPES = [(1, 1, 1, 64, 64), (3, 2, 4, 64, 257), (2, 5, 3, 128, 1024),
                  (4, 8, 1, 128, 96), (8, 5, 3, 64, 1024), (1, 5, 3, 64, 1024),
                  (5, 3, 7, 40, 1000), (2, 2, 32, 128, 33)]
 # (b, s, kvh, g, dh): tests/test_kernels.py's sweep, the serving prefill
-# shapes and ragged lengths
+# shapes, ragged lengths, and Dh up to 192: deepseek-v2-lite's MLA prefill
+# (KvH = 16 heads, G = 1, Dh = 128 + 64), a padded third panel (160) and
+# a bf16 width off the tensor-core route (184)
 FLASH_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 2, 3, 64), (1, 512, 4, 2, 128),
                 (2, 128, 2, 1, 64), (1, 128, 5, 3, 64), (1, 384, 5, 3, 64),
                 (1, 512, 5, 3, 64), (1, 300, 5, 3, 64), (2, 77, 2, 4, 32),
-                (1, 1, 3, 32, 128)]
+                (1, 1, 3, 32, 128), (2, 512, 16, 1, 192), (1, 77, 2, 2, 192),
+                (1, 130, 2, 3, 160), (1, 100, 2, 2, 184)]
 ATT_DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -655,7 +658,7 @@ def test_attention_kernels_reject_bad_inputs(attn_cuda):
         dmod.decode_attention(torch.zeros((2, 1, 33, 64), device="cuda"),
                               torch.zeros((2, 8, 1, 64), device="cuda"),
                               torch.zeros((2, 8, 1, 64), device="cuda"), kl)
-    with pytest.raises(ValueError, match="Dh <= 128"):
+    with pytest.raises(ValueError, match="Dh <= 192"):
         fmod.flash_attention_causal(
             torch.zeros((1, 4, 1, 1, 256), device="cuda"),
             torch.zeros((1, 4, 1, 256), device="cuda"),
@@ -676,11 +679,11 @@ def _flash_inputs(seed, b, s, kvh, g, dh, dtype):
 
 @pytest.mark.parametrize("s", [1, 77, 300])
 @pytest.mark.parametrize("g", [1, 2, 3, 32])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128, 192])
 def test_flash_wgmma_route_matches_plain(attn_cuda, dh, g, s):
-    """bf16 with Dh % 16 == 0 takes the tensor-core kernel: three panel
-    widths (Dh 32 and 64 in one 64-column panel, 128 in two), G from 1 to
-    32 rows a position, ragged S."""
+    """bf16 with Dh % 16 == 0 takes the tensor-core kernel: every panel
+    count (Dh 32 and 64 in one 64-column panel, 128 in two, MLA's 192 in
+    three), G from 1 to 32 rows a position, ragged S."""
     args = _flash_inputs(dh + g + s, 1, s, 2, g, dh, torch.bfloat16)
     assert fmod.flash_route(*args) == "wgmma"
     expect = attn_cuda["flash"](*args)
@@ -692,7 +695,8 @@ def test_flash_wgmma_route_matches_plain(attn_cuda, dh, g, s):
 
 @pytest.mark.parametrize("dtype,dh,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 40, "cuda_cores"), (torch.float32, 64, "cuda_cores")])
+    (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 40, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 192, "cuda_cores")])
 def test_flash_variant_counters(attn_cuda, dtype, dh, route):
     """Each launch counts once in total and once for the route it took."""
     args = [x.cuda() for x in _flash_inputs(1, 1, 130, 2, 3, dh, dtype)]
@@ -704,6 +708,80 @@ def test_flash_variant_counters(attn_cuda, dtype, dh, route):
              if mod.LAUNCHES[k] != before[k]}
     assert moved == {"flash_attention_causal": 1,
                      f"flash_attention_causal/{route}": 1}
+
+
+# the model path's routes: layers.flash_attention / attention_decode on
+# CUDA tensors launch the kernels where the call's static arguments allow
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+@pytest.mark.parametrize("dh,h,kvh", [(64, 6, 2), (192, 4, 4)])
+def test_model_flash_route_launches_kernel(attn_cuda, dtype, dh, h, kvh):
+    """Causal self-attention with no window launches
+    ``flash_attention_causal`` (q viewed as [B, S, KvH, G, Dh]) and
+    equals the kernel's plain version; a window or a non-causal call runs
+    the blockwise torch code on the card, launching nothing."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(dh + h)
+    q = _randn(rng, (2, 96, h, dh), dtype).cuda()
+    k = _randn(rng, (2, 96, kvh, dh), dtype).cuda()
+    v = _randn(rng, (2, 96, kvh, dh), dtype).cuda()
+    layers.reset_blockwise()
+    before = dict(mod.LAUNCHES)
+    out = layers.flash_attention(q, k, v, causal=True, chunk=32)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES["flash_attention_causal"] == \
+        before["flash_attention_causal"] + 1
+    assert layers.BLOCKWISE["flash"] == 0
+    expect = attn_cuda["flash"](q.cpu().reshape(2, 96, kvh, h // kvh, dh),
+                                k.cpu(), v.cpu()).reshape(2, 96, h, dh)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.cpu().float(), expect.float(), rtol=tol,
+                               atol=tol)
+    before = dict(mod.LAUNCHES)
+    for kw in (dict(causal=True, window=40), dict(causal=False)):
+        got = layers.flash_attention(q, k, v, chunk=32, **kw)
+        want = layers.flash_attention(q.cpu(), k.cpu(), v.cpu(), chunk=32,
+                                      **kw)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+    assert mod.LAUNCHES == before
+    assert layers.BLOCKWISE["flash"] == 4
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_model_decode_route_launches_kernel(attn_cuda, dtype):
+    """``attention_decode`` with no window launches ``decode_attention``
+    (a 0-d device ``kv_len``, a [B] one and a Python int, which becomes a
+    device fill) and equals the CPU's blockwise version; a window runs the
+    blockwise code on the card."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(3)
+    b, t, h, kvh, dh = 3, 300, 6, 2, 64
+    q = _randn(rng, (b, 1, h, dh), dtype).cuda()
+    k = _randn(rng, (b, t, kvh, dh), dtype).cuda()
+    v = _randn(rng, (b, t, kvh, dh), dtype).cuda()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    layers.reset_blockwise()
+    for i, kl in enumerate((
+            torch.tensor(123, dtype=torch.int32, device="cuda"),
+            torch.tensor([5, 300, 77], dtype=torch.int32, device="cuda"),
+            200)):
+        before = mod.LAUNCHES["decode_attention"]
+        out = layers.attention_decode(q, k, v, kl)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES["decode_attention"] == before + 1
+        assert layers.BLOCKWISE["decode"] == i
+        kl_cpu = kl.cpu() if isinstance(kl, torch.Tensor) else kl
+        want = layers.attention_decode(q.cpu(), k.cpu(), v.cpu(), kl_cpu)
+        torch.testing.assert_close(out.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+    assert layers.BLOCKWISE["decode"] == 3       # the CPU's three
+    before = dict(mod.LAUNCHES)
+    got = layers.attention_decode(q, k, v, 250, window=40)
+    want = layers.attention_decode(q.cpu(), k.cpu(), v.cpu(), 250,
+                                   window=40)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert mod.LAUNCHES == before
 
 
 def _decode_chunk(t):

@@ -1,6 +1,8 @@
 """The port's model pieces against the JAX package: the architecture
-table, ``param_defs`` (names, shapes, dtypes, init kinds) of reduced and
-full smollm-360m, ``params_from_reference``, ``init_params``, and the
+table, ``param_defs`` (names, shapes, dtypes, init kinds) of every
+architecture, reduced and full, ``ServeEngine``'s refusal of the
+families it does not serve, ``params_from_reference``, ``init_params``,
+and the
 numerics of ``rms_norm``, ``apply_rope`` and ``dense_fwd`` on the same
 seeded numpy inputs (float32 to 1e-6 / 1e-5: the same arithmetic, summed
 in another order)."""
@@ -34,15 +36,16 @@ def test_architecture_table_is_the_references():
 
 
 @pytest.mark.parametrize("reduced", [True, False])
-def test_param_defs_match_reference(reduced):
+@pytest.mark.parametrize("arch", sorted(ref_archs.ALL_ARCHS))
+def test_param_defs_match_reference(arch, reduced):
     get = "reduced_config" if reduced else "get_config"
-    cfg = getattr(archs, get)("smollm-360m")
-    ref = ref_tf.param_defs(getattr(ref_archs, get)("smollm-360m"))
+    cfg = getattr(archs, get)(arch)
+    ref = ref_tf.param_defs(getattr(ref_archs, get)(arch))
     port = transformer.param_defs(cfg)
     assert set(port) == set(ref)
     for name, d in ref.items():
         assert dataclasses.astuple(port[name]) == dataclasses.astuple(d), name
-    if not reduced:        # full width: shapes only, nothing allocated
+    if not reduced and arch == "smollm-360m":   # shapes only, no allocation
         assert port["layers/attn/wq"].shape == (32, 960, 960)
         assert port["layers/attn/wk"].shape == (32, 960, 320)
         assert port["layers/ffn/w1"].shape == (32, 960, 2560)
@@ -52,9 +55,16 @@ def test_param_defs_match_reference(reduced):
 @pytest.mark.parametrize("name", ["mamba2-370m", "seamless-m4t-large-v2",
                                   "hymba-1.5b", "deepseek-v2-lite-16b",
                                   "grok-1-314b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.param_defs(archs.reduced_config(name))
+def test_serve_engine_refuses_other_families(name):
+    """The models of every family are ported, but ``ServeEngine`` serves
+    the dense GQA decoder only (its inline forward has no MoE, MLA, SSM
+    or encoder)."""
+    from repro_torch.serving import ServeEngine
+    cfg = archs.reduced_config(name)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    with pytest.raises(NotImplementedError, match="dense GQA decoder"):
+        ServeEngine(cfg, params, device="cpu")
 
 
 def _reduced(dtype="float32"):
