@@ -38,7 +38,15 @@ the JAX package. Phases, each of which must pass:
    ``scaled_dot_product_attention(enable_gqa=True)`` call (the
    yardstick; the port never calls it); each case logs the kernel it
    launched (flash: ``wgmma`` for bf16 with Dh % 16 == 0, else
-   ``cuda_cores``; decode: ``split_cluster``);
+   ``cuda_cores``; decode: ``split_cluster``); and the backward of
+   ``flash_attention_causal`` (``flash_attention_causal_bwd``: three
+   kernels, row statistics, dk/dv, dq) against its plain version in
+   float32 and bf16 at the reference tests' shapes, odd S, G = 1 and 3-7,
+   Dh = 32-192 and the training shape (8, 2,048, 5, 3, 64): within 2e-5
+   (float32) and 1e-2 (bf16) of the plain gradient's largest magnitude,
+   the same bits on a second call, one launch of each kernel, timed
+   beside the plain version, its bound (q, k, v, out, dout, dq, dk, dv
+   bytes; 10 Dh flops a visible pair) and one SDPA backward;
 4. main path: ``build(YCSB_HIGH_10RMW, device="cuda")`` — 1,000,000
    records, 8-word payloads, batches of 1024 zipfian (theta=0.9) 10-RMW
    transactions, spill tier on. Batch 1 must equal the serial oracle;
@@ -222,6 +230,28 @@ the JAX package. Phases, each of which must pass:
    decode-step ms, peak memory, launches, blockwise calls and each held
    launch's error beside the card's name and power limit.
 
+15. training path: ``Trainer`` over smollm-360m at full width and depth
+   (32 layers) in bf16 from a seeded ``torch.Generator``, remat "full",
+   AdamW, B=8, S=2,048 (SmolLM's pretraining context) on
+   ``SyntheticTokenSource``, 20 steps: losses finite and the last below
+   the first; every step launches exactly 64 ``flash_attention_causal``
+   (wgmma route; the remat recompute included) and 32
+   ``flash_attention_causal_bwd`` calls (three kernels each), and no
+   blockwise call; at step 10 a save through ``CheckpointManager`` and a
+   restore into a fresh ``Trainer`` give bit-equal parameters and
+   optimizer state, and the next step of both on one batch the same
+   loss; the last step's latest forward and backward launch are held
+   against the plain versions. Then a float32 gradient replay (TF32 off)
+   of smollm, hymba, seamless, llava and deepseek-v2-lite (MLA at Dh =
+   192, MoE at a capacity that drops nothing) at full width and 2 layers,
+   B=1 and 32 tokens (hymba one SSD chunk, 256): the card's loss and
+   gradients equal a CPU run of the same weights within 1e-3 of each
+   leaf's largest magnitude, non-finite at the same places (hymba's SSD
+   chunk overflows in the reference too: ROADMAP.md, known limits).
+   Prints the median step ms, tokens/s, the share of the bf16 peak that
+   6 N tokens / step time reaches, peak memory, launches and the held
+   errors beside the card's name and power limit.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -273,6 +303,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mvcc_resolve as kmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_OPS_PER_S  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import transformer as models_tf  # noqa: E402
@@ -285,21 +319,25 @@ from repro_torch.serving import STATE_DONE, ServeEngine  # noqa: E402
 from repro_torch.serving import engine as serve_mod  # noqa: E402
 from repro_torch.service import TxnService  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SOURCE = "src/repro_torch/kernels/csrc/mvcc_resolve.cu"
-SOURCES = ("mvcc_resolve", "decode_attention", "flash_attention")
+SOURCES = ("mvcc_resolve", "decode_attention", "flash_attention",
+           "flash_attention_bwd")
+# the backward is row 5's gradient: the reference has no Pallas backward
+# (it differentiates its blockwise jnp attention, models/layers.py:114)
 REPLACES = {"mvcc_resolve": "src/repro/kernels/mvcc_resolve.py:81",
             "mvcc_resolve_masked": "src/repro/kernels/mvcc_resolve.py:143",
             "mvcc_resolve_paged": "src/repro/kernels/mvcc_resolve.py:221",
             "decode_attention": "src/repro/kernels/decode_attention.py:63",
             "flash_attention_causal":
+                "src/repro/kernels/flash_attention.py:77",
+            "flash_attention_causal_bwd":
                 "src/repro/kernels/flash_attention.py:77"}
 ATT_SOURCE = {"decode_attention":
               "src/repro_torch/kernels/csrc/decode_attention.cu",
               "flash_attention_causal":
-              "src/repro_torch/kernels/csrc/flash_attention.cu"}
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "flash_attention_causal_bwd":
+              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
 N_BATCHES, PIN_AFTER, N_SCANS, OPS = 9, 3, 1024, 10
 PHASES = ("plan_phase", "exec_phase", "commit_phase")
 # the paged path: YCSB_HIGH_10RMW's data scale with benchmarks/paged.py's
@@ -1147,6 +1185,142 @@ def attention_phase(device="cuda"):
                     "variant": variant,
                     "bytes": nbytes, "flops": flops, "host_ms": host_ms}
     return rows
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_causal's backward (B, S, KvH, G, Dh): the reference
+# tests' shapes, odd ones, G = 1-7, Dh = 32-192 and the training path's
+# shape (phase 15: smollm-360m at B=8, S=2,048)
+# ---------------------------------------------------------------------------
+BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
+             ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
+             ((1, 300, 5, 3, 64), "odd"), ((2, 77, 2, 4, 40), "odd"),
+             ((1, 257, 2, 7, 64), "odd"),
+             ((2, 512, 5, 5, 64), "models"),           # hymba's globals
+             ((2, 512, 8, 6, 128), "models"),          # grok, G = 6
+             ((2, 512, 8, 4, 128), "models"),          # llava's heads
+             ((2, 512, 16, 1, 192), "models"),         # MLA, Dh = 192
+             ((8, 2048, 5, 3, 64), "training")]
+TRAIN_SHAPE = (8, 2048, 5, 3, 64)
+# relative to the plain backward's largest magnitude: float32 sums in
+# another order (measured <= 5e-6 on an H100); bf16 adds one rounding of
+# dq, dk, dv (measured <= 2.8e-3)
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def bwd_need(shape, dtype):
+    """(bytes, flops) of the backward at ``shape``: q, k, v, out, dout
+    read once and dq, dk, dv written once; 10 Dh flops a visible (query
+    head, key) pair (S and dP recomputed, then dv, dk and dq: 2.5x the
+    forward's 4 Dh)."""
+    b, s, kvh, g, dh = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    q_n, k_n = b * s * kvh * g * dh, b * s * kvh * dh
+    return ((4 * q_n + 4 * k_n) * esize,
+            10 * b * kvh * g * dh * s * (s + 1) // 2)
+
+
+def _bwd_inputs(shape, dtype, device="cuda"):
+    """q, k, v, the forward kernel's output and a seeded dout."""
+    b, s, kvh, g, dh = shape
+    g_ = torch.Generator(device=device).manual_seed(sum(shape) + 1)
+
+    def randn(*size):
+        return torch.randn(size, generator=g_, device=device).to(dtype)
+
+    q, k, v = randn(*shape), randn(b, s, kvh, dh), randn(b, s, kvh, dh)
+    with torch.no_grad():
+        out = ops.flash_attention_causal(q, k, v)
+    return [q, k, v, out, randn(*shape)]
+
+
+def _sdpa_bwd_args(q, k, v, dout):
+    """SDPA's inputs in its [B, H, S, Dh] layout with a forward run, for
+    timing its backward (``_sdpa_bwd``) alone."""
+    b, s, kvh, g, dh = q.shape
+    qs = q.reshape(b, s, kvh * g, dh).transpose(1, 2).contiguous()
+    ks, vs = (x.transpose(1, 2).contiguous() for x in (k, v))
+    leaves = [x.detach().requires_grad_(True) for x in (qs, ks, vs)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=True)
+    do = dout.reshape(b, s, kvh * g, dh).transpose(1, 2).contiguous()
+    return out, leaves, do
+
+
+def _sdpa_bwd(out, leaves, do):
+    return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def bwd_attention_phase(device="cuda"):
+    """The backward kernel against the plain backward on the same card
+    inputs at every BWD_CASES shape in float32 and bf16: within BWD_TOL of
+    the plain result's largest magnitude, the same bits on a second call,
+    one launch of each of its three kernels a call, timed beside the plain
+    version, its bound and one SDPA backward. Returns the kernels line's
+    row (the training shape, bf16)."""
+    row = None
+    for shape, label in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _bwd_inputs(shape, dtype, device)
+            before = dict(ops.LAUNCHES)
+            got = ops.flash_attention_causal_bwd(*args)
+            moved = {k: ops.LAUNCHES[k] - before[k] for k in before
+                     if ops.LAUNCHES[k] != before[k]}
+            want = {"flash_attention_causal_bwd": 1}
+            want.update({f"flash_attention_causal_bwd/{k}": 1
+                         for k in flash_mod.BWD_KERNELS})
+            if moved != want:
+                raise AssertionError(f"backward {shape}: launches {moved}")
+            again = ops.flash_attention_causal_bwd(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"backward {shape} {dtype}: two calls "
+                                     "on the same inputs differ")
+            ref = ops.flash_attention_causal_bwd_plain(*args)
+            errs = {}
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                scale = r.float().abs().max().clamp(min=1e-30)
+                errs[name] = float((a.float() - r.float()).abs().max()
+                                   / scale)
+            tol = BWD_TOL[dtype]
+            if max(errs.values()) > tol:
+                raise AssertionError(f"backward {shape} {dtype}: relative "
+                                     f"errors {errs} above {tol}")
+            err = max(float((a.float() - r.float()).abs().max())
+                      for a, r in zip(got, ref))
+            big = shape == TRAIN_SHAPE
+            timing = dict(rounds=5, reps=2) if big else \
+                dict(rounds=11, reps=10)
+            sdpa = _sdpa_bwd_args(args[0], args[1], args[2], args[4])
+            ms = _device_ms(ops.flash_attention_causal_bwd, args, **timing)
+            plain_ms = _device_ms(ops.flash_attention_causal_bwd_plain,
+                                  args, **timing)
+            lib_ms = _device_ms(_sdpa_bwd, sdpa, **timing)
+            nbytes, flops = bwd_need(shape, dtype)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK[dtype]
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"kernel flash_attention_causal_bwd {label} {list(shape)} "
+                f"{str(dtype)[6:]}: relative errors "
+                f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+                f"{tol}), max_abs_err {err:.3g}, repeat bit-equal; device: "
+                f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+                f"sdpa backward {lib_ms * 1e3:.2f} us, bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} B, {flops} "
+                f"flop), {100 * bound_ms / ms:.2f} % of bound")
+            if big and dtype == torch.bfloat16:
+                row = {"name": "flash_attention_causal_bwd", "route": "cuda",
+                       "source": ATT_SOURCE["flash_attention_causal_bwd"],
+                       "replaces": REPLACES["flash_attention_causal_bwd"],
+                       "launches": 0, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms,
+                       "shape": list(shape), "dtype": "bfloat16",
+                       "relative_err": errs, "bytes": nbytes,
+                       "flops": flops}
+            del args, got, again, ref, sdpa
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2525,6 +2699,326 @@ def models_phase(device="cuda"):
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# the training path: smollm-360m at full width and depth (phase 15)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SAVE_AT = "smollm-360m", 20, 10
+# the float32 gradient replay: 2 layers of each family at full width, B=1
+# and 32 tokens (256, one SSD chunk, with SSM heads; llava 32 patches +
+# 32 tokens), MoE at a capacity that drops nothing
+GRAD_ARCHS = ("smollm-360m", "hymba-1.5b", "seamless-m4t-large-v2",
+              "llava-next-mistral-7b", "deepseek-v2-lite-16b")
+GRAD_TOKENS, GRAD_TOL = 32, 1e-3
+
+
+class HeldTraining:
+    """While open, keeps (detached copies of) the inputs and output of the
+    latest flash forward and backward launch of ``kernels.
+    flash_attention`` while ``armed``; ``check`` holds them against the
+    plain versions on the same card tensors. Adds no launch."""
+
+    def __enter__(self):
+        self.armed, self.fwd, self.bwd = False, None, None
+        self._saved = (flash_mod._forward, flash_mod.flash_attention_causal_bwd)
+        fwd, bwd = self._saved
+
+        def keep_fwd(q, k, v):
+            out = fwd(q, k, v)
+            if self.armed and q.is_cuda:
+                self.fwd = ([x.detach().clone() for x in (q, k, v)],
+                            out.detach().clone())
+            return out
+
+        def keep_bwd(*args):
+            grads = bwd(*args)
+            if self.armed and args[0].is_cuda:
+                self.bwd = ([x.detach().clone() for x in args],
+                            [x.detach().clone() for x in grads])
+            return grads
+
+        flash_mod._forward = keep_fwd
+        flash_mod.flash_attention_causal_bwd = keep_bwd
+        return self
+
+    def __exit__(self, *exc):
+        flash_mod._forward, flash_mod.flash_attention_causal_bwd = \
+            self._saved
+        return False
+
+    def check(self, what: str):
+        """{"forward": err, "dq": ..., "dk": ..., "dv": ...}: the kept
+        launches against the plain versions (phase 3's tolerances)."""
+        (q, k, v), out = self.fwd
+        ref = ops.flash_attention_causal_plain(q, k, v)
+        tol = ATT_TOL[("flash_attention_causal", q.dtype)]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{what}: {m}")
+        errs = {"forward": float((out.float() - ref.float()).abs().max())}
+        args, grads = self.bwd
+        for name, a, r in zip(("dq", "dk", "dv"), grads,
+                              ops.flash_attention_causal_bwd_plain(*args)):
+            rel = float((a.float() - r.float()).abs().max()
+                        / r.float().abs().max().clamp(min=1e-30))
+            if rel > BWD_TOL[args[0].dtype]:
+                raise AssertionError(f"{what}: held backward {name} differs "
+                                     f"by {rel:.3g} of its largest magnitude")
+            errs[name] = rel
+        return errs
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _same_state(a, b, what):
+    """Two state trees equal bit for bit (every leaf's dtype, shape and
+    bits)."""
+    fa, fb = flatten(a), flatten(b)
+    if set(fa) != set(fb):
+        raise AssertionError(f"{what}: names differ")
+    for name, x in fa.items():
+        y = fb[name]
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                *(t.reshape(-1).view(_BITS[t.element_size()])
+                  for t in (x, y))):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
+                steps=TRAIN_STEPS, save_at=TRAIN_SAVE_AT):
+    """``Trainer`` (remat "full", AdamW) over ``SyntheticTokenSource``:
+    ``steps`` steps with the launches and blockwise calls of each step
+    counted from zero; at ``save_at`` a save through ``CheckpointManager``,
+    a restore into a fresh ``Trainer`` (parameters and optimizer state
+    bit-equal) and one step of both on one batch (the losses compared);
+    the latest flash forward and backward launch held against the plain
+    versions. Returns what phase 15 prints."""
+    from repro_torch.data.pipeline import (PackedBatchIterator,
+                                           SyntheticTokenSource)
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    cfg = cfg or get_config(TRAIN_ARCH)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    data = PackedBatchIterator(SyntheticTokenSource(cfg.vocab_size, seed=0),
+                               batch=batch, seq_len=seq)
+    per_step = []
+
+    def count(entry):
+        per_step.append((dict(ops.LAUNCHES), dict(model_layers.BLOCKWISE)))
+        ops.reset_launches()
+        model_layers.reset_blockwise()
+
+    with tempfile.TemporaryDirectory() as root, HeldTraining() as held:
+        tcfg = TrainConfig(steps=steps, log_every=1, checkpoint_dir=root,
+                           checkpoint_every=save_at)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, tcfg, data, device=device)
+        _sync(device)
+        init_s = time.perf_counter() - t0
+        trainer.on_log = count
+        ops.reset_launches()
+        model_layers.reset_blockwise()
+        trainer.run(save_at)                # saves at save_at
+        t0 = time.perf_counter()
+        fresh = Trainer(cfg, tcfg, data, device=device, seed=1)
+        if not fresh.try_restore() or fresh.step != save_at:
+            raise AssertionError("restore did not find the saved step")
+        restore_s = time.perf_counter() - t0
+        _same_state(fresh.params, trainer.params, "restored parameters")
+        _same_state(fresh.opt_state, trainer.opt_state,
+                    "restored optimizer state")
+        # the pipeline's next batch through both: the original trainer
+        # counts it as its step save_at + 1
+        one = next(data)
+        kept = trainer.data
+        trainer.ckpt = fresh.ckpt = None
+        fresh.on_log = lambda entry: None
+        losses = []
+        for t in (trainer, fresh):
+            t.data = iter([one])
+            losses.append(t.run(1)["loss"])
+        del fresh
+        trainer.data = kept
+        ops.reset_launches()
+        model_layers.reset_blockwise()
+        trainer.run(steps - save_at - 2)
+        held.armed = True                   # the last step's launches
+        trainer.run(1)
+        held_errs = held.check("training") if on_card else {}
+    data.close()
+    hist = trainer.history
+    n_params = sum(x.numel() for x in flatten(trainer.params).values())
+    return {"cfg": cfg, "hist": hist, "per_step": per_step,
+            "losses_after_restore": losses, "init_s": init_s,
+            "restore_s": restore_s, "held": held_errs, "n_params": n_params,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else 0.0)}
+
+
+def check_train_launches(cfg, per_step, on_card=True):
+    """Per step: 2 x layers forward launches (the remat recompute), one
+    backward call (three kernels) a layer, no blockwise call."""
+    n = cfg.num_layers
+    want = {"flash_attention_causal": 2 * n,
+            "flash_attention_causal/wgmma": 2 * n,
+            "flash_attention_causal_bwd": n}
+    want.update({f"flash_attention_causal_bwd/{k}": n
+                 for k in flash_mod.BWD_KERNELS})
+    for i, (launches, blockwise) in enumerate(per_step):
+        got = {k: v for k, v in launches.items() if v}
+        if on_card and got != want:
+            raise AssertionError(f"training step {i + 1}: launches {got}, "
+                                 f"expected {want}")
+        if on_card and blockwise["flash"] != 0:
+            raise AssertionError(f"training step {i + 1}: blockwise calls "
+                                 f"{blockwise}")
+    return want
+
+
+def grad_replay(name: str, device="cuda"):
+    """``name`` at full width and 2 layers (the encoder cut alike), float32
+    with TF32 off, MoE without drops: ``value_and_grad`` of ``loss_fn`` on
+    the card against the CPU on the same weights and batch; each leaf
+    within GRAD_TOL of its largest magnitude. Returns the launches, the
+    worst leaf and the loss on each device."""
+    from repro_torch.training.train_loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = no_drop(dataclasses.replace(get_config(name), num_layers=2,
+                                      dtype="float32"))
+    if cfg.enc_dec:
+        cfg = dataclasses.replace(cfg, encoder_layers=2)
+    n = SSD_PROMPT if cfg.ssm is not None else GRAD_TOKENS
+    rng = np.random.default_rng(7)
+    batch_np = {"tokens": rng.integers(1, cfg.vocab_size, (1, n)),
+                "labels": rng.integers(1, cfg.vocab_size, (1, n))}
+    feat = {"patches": models_tf.VISION_EMBED_DIM,
+            "frames": models_tf.AUDIO_FEAT_DIM}.get(cfg.frontend)
+    if feat:
+        batch_np[cfg.frontend] = rng.standard_normal(
+            (1, GRAD_TOKENS, feat)).astype(np.float32)
+
+    def to(dev):
+        return {k: torch.from_numpy(v.astype(np.float32) if k == cfg.frontend
+                                    else v.astype(np.int32)).to(dev)
+                for k, v in batch_np.items()}
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(3),
+                         device)
+    before = dict(ops.LAUNCHES)
+    loss, grads = value_and_grad(params, to(device), cfg)
+    _sync(device)
+    moved = {k: ops.LAUNCHES[k] - before[k] for k in before
+             if ops.LAUNCHES[k] != before[k]}
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu = flatten(grads)
+    params_cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
+    del params
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the CPU keeps every activation: remat changes no gradient (tests)
+    cpu_loss, cpu_grads = value_and_grad(
+        params_cpu, to("cpu"), dataclasses.replace(cfg, remat="none"))
+    cpu_s = time.perf_counter() - t0
+    # compared on the card: a pass over a billion CPU floats takes seconds
+    t0 = time.perf_counter()
+    cpu = {k: v.to(device) for k, v in flatten(cpu_grads).items()}
+    del params_cpu, cpu_grads, grads
+    # SSD's exp over the masked upper triangle overflows in a 256-step
+    # chunk and its gradient turns NaN, in the reference too (ROADMAP,
+    # known limits): the card must be non-finite exactly where the CPU is
+    finite = {k: torch.isfinite(g) for k, g in cpu.items()}
+    floor = 1e-6 * max(float(g[finite[k]].abs().max())
+                       for k, g in cpu.items() if finite[k].any())
+    worst, nonfinite = (0.0, ""), []
+    for k, g in cpu.items():
+        fin = finite[k]
+        if not torch.equal(fin, torch.isfinite(gpu[k])):
+            raise AssertionError(f"{name}: card gradient {k} is non-finite "
+                                 "where the cpu's is not, or the reverse")
+        if not fin.all():
+            nonfinite.append(k)
+        if not fin.any():
+            continue
+        rel = float((gpu[k][fin] - g[fin]).abs().max()
+                    / max(float(g[fin].abs().max()), floor, 1e-30))
+        worst = max(worst, (rel, k))
+    n_leaves = len(cpu)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    compare_s = time.perf_counter() - t0
+    if worst[0] > GRAD_TOL:
+        raise AssertionError(f"{name}: card gradient {worst[1]} differs "
+                             f"from the cpu's by {worst[0]:.3g}")
+    if abs(float(loss) - float(cpu_loss)) > GRAD_TOL * abs(float(cpu_loss)):
+        raise AssertionError(f"{name}: loss card {float(loss)} cpu "
+                             f"{float(cpu_loss)}")
+    return {"launches": moved, "worst": worst, "loss": float(loss),
+            "cpu_loss": float(cpu_loss), "tokens": n,
+            "nonfinite": nonfinite, "leaves": n_leaves,
+            "seconds": {"card": card_s, "copy": copy_s, "cpu": cpu_s,
+                        "compare": compare_s}}
+
+
+def training_phase(device="cuda"):
+    """Phase 15 (see the module doc). Returns the launches of the bf16
+    run's steps."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    r = train_steps(device)
+    cfg, hist = r["cfg"], r["hist"]
+    want = check_train_launches(cfg, r["per_step"])
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    a, b = r["losses_after_restore"]
+    if a != b:
+        raise AssertionError(f"the step after the restore: loss {b} "
+                             f"against the original trainer's {a}")
+    ms = [h["step_time_s"] * 1e3 for h in hist]
+    med = statistics.median(ms[1:])
+    tokens = hist[0]["tokens"]
+    rate = tokens / med * 1e3
+    share = 6 * r["n_params"] * rate / PEAK_FLOPS_BF16
+    total = collections.Counter()
+    for launches, _ in r["per_step"]:
+        total.update({k: v for k, v in launches.items() if v})
+    log(f"training {TRAIN_ARCH}: full width and depth ({cfg.num_layers} "
+        f"layers), bf16, remat {cfg.remat}, {r['n_params']:,} parameters "
+        f"(init {r['init_s']:.2f} s); B=8 S=2048 on SyntheticTokenSource, "
+        f"{len(hist)} AdamW steps; losses {[round(x, 4) for x in losses]}; "
+        f"grad norms {[round(h['grad_norm'], 3) for h in hist]}")
+    log(f"training: step ms {[round(x, 1) for x in ms]}; median (steps "
+        f"2-{len(hist)}) {med:.3f} ms = {rate:.1f} tokens/s = "
+        f"{100 * share:.2f} % of the bf16 peak (6 N tokens / step time); "
+        f"peak device memory {r['peak_gib']:.3f} GiB; {smi}")
+    log(f"training: launches per step {want} in each of the "
+        f"{len(r['per_step'])} counted steps, 0 blockwise calls; total "
+        f"{dict(total)}; the latest forward and backward launch against "
+        f"the plain versions {r['held']}")
+    log(f"training: save at step {TRAIN_SAVE_AT} and restore into a fresh "
+        f"Trainer ({r['restore_s']:.2f} s): parameters and optimizer state "
+        f"bit-equal; the next step on one batch: loss {b} == {a} (the "
+        f"original trainer's)")
+    for name in GRAD_ARCHS:
+        t1 = time.perf_counter()
+        g = grad_replay(name, device)
+        log(f"training replay {name}: float32, 2 layers, B=1, "
+            f"{g['tokens']} tokens: loss card {g['loss']:.6f} cpu "
+            f"{g['cpu_loss']:.6f}; worst gradient leaf {g['worst'][1]} at "
+            f"{g['worst'][0]:.3g} of its largest magnitude (limit "
+            f"{GRAD_TOL}); leaves with NaN on both devices at the same "
+            f"places {len(g['nonfinite'])} of {g['leaves']} "
+            f"{g['nonfinite']}; launches {g['launches']} "
+            f"({time.perf_counter() - t1:.1f} s: "
+            f"{ {k: round(v, 2) for k, v in g['seconds'].items()} })")
+    log(f"training phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
+    return dict(total)
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -2564,6 +3058,9 @@ def main() -> int:
     t0 = time.perf_counter()
     rows.update(attention_phase())
     log(f"attention kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["flash_attention_causal_bwd"] = bwd_attention_phase()
+    log(f"attention backward kernel: {time.perf_counter() - t0:.1f} s")
 
     kmod.reset_launches()                  # counts start at 0 for the path
     torch.cuda.reset_peak_memory_stats()
@@ -2783,6 +3280,13 @@ def main() -> int:
         rows[name]["models_launches"] = model_launches.get(name, 0)
     log(f"models path: bf16 launches over the six configurations "
         f"{model_launches}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
+
+    # -- the training path, counted from zero per step ----------------------
+    train_launches = training_phase()
+    rows["flash_attention_causal_bwd"]["launches"] = \
+        train_launches["flash_attention_causal_bwd"]
+    rows["flash_attention_causal"]["training_launches"] = \
+        train_launches["flash_attention_causal"]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

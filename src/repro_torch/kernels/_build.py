@@ -41,7 +41,13 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0, "flash_attention_causal": 0,
     # which of flash_attention_causal's two kernels each launch took
     "flash_attention_causal/wgmma": 0,
-    "flash_attention_causal/cuda_cores": 0}
+    "flash_attention_causal/cuda_cores": 0,
+    # flash_attention_causal's gradient: one a call, and each of the
+    # call's three kernels
+    "flash_attention_causal_bwd": 0,
+    "flash_attention_causal_bwd/stats": 0,
+    "flash_attention_causal_bwd/dkdv": 0,
+    "flash_attention_causal_bwd/dq": 0}
 
 #: a launch function's return at or above this is a failed TMA tensor-map
 #: encoding (csrc/hopper.cuh's kEncodeError + the CUresult it returned)

@@ -33,6 +33,19 @@ fallback after a failure. Each launch adds one to
 ``LAUNCHES["flash_attention_causal/<route>"]``. What bounds the kernels
 on the H100 (operations, at the serving shapes) and what each design
 does about it is in the source's header note.
+
+The gradient: ``flash_attention_causal`` is a ``torch.autograd.Function``
+whose forward is the call above and whose backward is
+``flash_attention_causal_bwd`` — dq, dk and dv from q, k, v, the
+forward's output and its gradient, with a float32 softmax recomputed
+from the saved inputs. On CUDA tensors it launches the three kernels of
+``csrc/flash_attention_bwd.cu`` (row statistics, then dk/dv, then dq; no
+float atomics, so the bits repeat) and counts one
+``LAUNCHES["flash_attention_causal_bwd"]`` a call and one
+``LAUNCHES["flash_attention_causal_bwd/<kernel>"]`` a kernel; on CPU
+tensors it takes ``flash_attention_causal_bwd_plain``. The reference has
+no Pallas backward (it differentiates its blockwise jnp attention), so
+the plain backward is the oracle.
 """
 from __future__ import annotations
 
@@ -91,17 +104,13 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return "cuda_cores"
 
 
-def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention over one sequence per batch row (see the
-    module doc)."""
-    check_attention_inputs("flash_attention_causal", q, k, v, 5)
-    b, s, kvh, g, dh = q.shape
-    if tuple(k.shape) != (b, s, kvh, dh):
-        raise ValueError(f"flash_attention_causal: q {tuple(q.shape)} does "
-                         f"not match k {tuple(k.shape)}")
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+             ) -> torch.Tensor:
+    """The forward call: the plain version on CPU tensors, else one
+    launch of the route's kernel."""
     if q.device.type == "cpu":
         return flash_attention_causal_plain(q, k, v)
+    b, s, kvh, g, dh = q.shape
     check_kernel_limits("flash_attention_causal", (q, k, v), g, dh, MAX_DH)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -118,3 +127,108 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
     LAUNCHES["flash_attention_causal"] += 1
     LAUNCHES[f"flash_attention_causal/{route}"] += 1
     return out
+
+
+class _FlashCausal(torch.autograd.Function):
+    """The forward kernel with ``flash_attention_causal_bwd`` as its
+    gradient (both the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = _forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return flash_attention_causal_bwd(q, k, v, out, dout.contiguous())
+
+
+def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention over one sequence per batch row (see the
+    module doc); differentiable in q, k and v."""
+    check_attention_inputs("flash_attention_causal", q, k, v, 5)
+    b, s, kvh, g, dh = q.shape
+    if tuple(k.shape) != (b, s, kvh, dh):
+        raise ValueError(f"flash_attention_causal: q {tuple(q.shape)} does "
+                         f"not match k {tuple(k.shape)}")
+    return _FlashCausal.apply(q, k, v)
+
+
+def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
+    """The backward's formula in PyTorch, q block by q block (the CPU path
+    and the kernel's oracle): with s = (Dh^-0.5 q) . k in float32 under
+    the causal mask, P = exp(s - logsumexp(s)), D = sum(dout * out),
+    dS = P (dout . v - D); dv = P^T dout, dk = dS^T (Dh^-0.5 q) and
+    dq = Dh^-0.5 dS k, summed over the G heads of a group for dk and dv,
+    in float32, returned in q's dtype."""
+    b, s, kvh, g, dh = q.shape
+    scale = dh ** -0.5
+    qf = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), dout.float()
+    dvec = (dof * out.float()).sum(dim=-1)              # [B, S, KvH, G]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, s, block_q):
+        q1 = min(s, q0 + block_q)
+        sc = torch.einsum("bqhgd,bkhd->bqhgk", qf[:, q0:q1], kf[:, :q1])
+        mask = (torch.arange(q1, device=q.device)[None, :]
+                <= torch.arange(q0, q1, device=q.device)[:, None])
+        sc = torch.where(mask[None, :, None, None], sc, -torch.inf)
+        p = torch.exp(sc - torch.logsumexp(sc, dim=-1, keepdim=True))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof[:, q0:q1], vf[:, :q1])
+        ds = p * (dp - dvec[:, q0:q1, ..., None])
+        dv[:, :q1] += torch.einsum("bqhgk,bqhgd->bkhd", p, dof[:, q0:q1])
+        dk[:, :q1] += torch.einsum("bqhgk,bqhgd->bkhd", ds, qf[:, q0:q1])
+        dq[:, q0:q1] = torch.einsum("bqhgk,bkhd->bqhgd", ds,
+                                    kf[:, :q1]) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: the backward's kernels, in launch order
+BWD_KERNELS = ("stats", "dkdv", "dq")
+
+
+def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               dout: torch.Tensor):
+    """(dq, dk, dv) of ``flash_attention_causal`` at (q, k, v), given its
+    output ``out`` and the output's gradient ``dout`` (see the module
+    doc): the plain version on CPU tensors, else the three kernels of
+    ``csrc/flash_attention_bwd.cu``."""
+    check_attention_inputs("flash_attention_causal_bwd", q, k, v, 5)
+    b, s, kvh, g, dh = q.shape
+    for name, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_causal_bwd: {name} "
+                             f"{tuple(x.shape)} {x.dtype} does not match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_causal_bwd_plain(q, k, v, out, dout)
+    check_kernel_limits("flash_attention_causal_bwd", (q, k, v, out, dout),
+                        g, dh, MAX_DH)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    dvec = torch.empty_like(lse)
+    shape = [b, s, kvh, g, dh, dh ** -0.5]
+    sig = [ctypes.c_int] * 5 + [ctypes.c_float]
+    suffix = _SUFFIX[q.dtype]
+    ptrs = {"stats": [q, k, out, dout, lse, dvec],
+            "dkdv": [q, k, v, dout, lse, dvec, dk, dv],
+            "dq": [q, k, v, dout, lse, dvec, dq]}
+    for kernel in BWD_KERNELS:
+        args = ptrs[kernel]
+        _build.call("flash_attention_bwd",
+                    f"flash_attention_causal_bwd_{kernel}_{suffix}",
+                    [ctypes.c_void_p] * len(args) + sig,
+                    [x.data_ptr() for x in args] + shape, q.device)
+        LAUNCHES[f"flash_attention_causal_bwd/{kernel}"] += 1
+    LAUNCHES["flash_attention_causal_bwd"] += 1
+    return dq, dk, dv

@@ -10,7 +10,8 @@ from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
-    flash_attention_causal, flash_attention_causal_plain)
+    flash_attention_causal, flash_attention_causal_bwd,
+    flash_attention_causal_bwd_plain, flash_attention_causal_plain)
 from repro_torch.kernels.mvcc_resolve import (mvcc_resolve,
                                               mvcc_resolve_masked,
                                               mvcc_resolve_masked_plain,
@@ -19,7 +20,9 @@ from repro_torch.kernels.mvcc_resolve import (mvcc_resolve,
                                               mvcc_resolve_plain)
 
 __all__ = ["LAUNCHES", "decode_attention", "decode_attention_plain",
-           "flash_attention_causal", "flash_attention_causal_plain",
+           "flash_attention_causal", "flash_attention_causal_bwd",
+           "flash_attention_causal_bwd_plain",
+           "flash_attention_causal_plain",
            "mvcc_resolve", "mvcc_resolve_masked",
            "mvcc_resolve_masked_plain", "mvcc_resolve_paged",
            "mvcc_resolve_paged_plain", "mvcc_resolve_plain",

@@ -19,9 +19,13 @@ code, which no Pallas kernel of the reference computes either.
 ``BLOCKWISE`` counts the calls that ran the torch code; the kernels'
 launches are counted by ``kernels.ops.LAUNCHES``.
 
-Left out, with the training slice: the reference's ``jax.checkpoint``
-around the scanned chunk bodies and its ``constrain_batch`` sharding
-hints; they change memory and layout, not values.
+Left out: the reference's ``jax.checkpoint`` around the scanned chunk
+bodies (under autograd the blockwise code keeps each chunk's tensors
+until the layer's backward; a remat policy recomputes the layer, which
+bounds that to one layer) and its ``constrain_batch`` sharding hints
+(one device). Neither changes a value or a gradient. The kernel route
+is differentiable: ``flash_attention_causal`` is an
+``autograd.Function`` whose backward is a kernel too.
 """
 from __future__ import annotations
 

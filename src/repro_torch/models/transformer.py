@@ -16,7 +16,8 @@ API (functions of (params, batch), as the reference's; ``decode_step``
 writes the cache in place and returns it, where the reference returns a
 fresh cache):
   param_defs / init_params / abstract_params / params_from_reference
-  loss_fn(params, batch, cfg)               -> scalar  (forward only)
+  opt_state_from_reference                  (AdamW's {"m", "v", "step"})
+  loss_fn(params, batch, cfg)               -> scalar, differentiable
   prefill(params, batch, cfg)               -> (last_logits, None)
   init_cache(cfg, batch, max_len, dtype)    -> zero decode cache
   decode_step(params, cache, tokens, cfg)   -> (logits, cache)
@@ -29,17 +30,29 @@ norms are float32 and every other weight ``cfg.dtype`` unless its
 ``params_from_reference`` adopts the JAX package's tree as numpy arrays,
 checked by name, shape and dtype — the route every parity test takes.
 
-Left out until the training slice: ``_maybe_remat`` / ``checkpoint_name``
-(rematerialisation only changes what a backward pass keeps) and the
-``repro.parallel.constraints`` sharding hints. ``loss_fn`` is held to the
-reference's value; its gradient comes with training.
+Training: ``loss_fn`` is differentiated by autograd (the flash kernel
+through its ``autograd.Function``, whose backward is a kernel too).
+``cfg.remat`` picks what a backward pass keeps of each layer, as the
+reference's ``_maybe_remat``: ``"none"`` keeps everything; ``"full"``
+(the default) keeps each layer's input and recomputes the layer; ``"dots"``
+keeps the outputs of the matrix products without batch dims (``aten.mm``)
+and recomputes the rest; ``"save_attn"`` keeps the mixer's output (the
+reference's ``checkpoint_name(out, "mixer_out")``) by checkpointing the
+mixer and the rest of the layer apart. Every policy gives the same
+gradient. Each chunk of ``chunked_ce_loss`` is recomputed in the
+backward too, as the reference's ``jax.checkpoint`` body is, so the
+[B, S, V] logits never exist at once. The stacked layer tree is unbound
+once per call (one ``torch.unbind`` a leaf, whose gradient is one
+``stack``), not indexed once per layer. Left out: the
+``repro.parallel.constraints`` sharding hints (one device).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -199,6 +212,37 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ModelConfig,
     return unflatten(out)
 
 
+def opt_state_from_reference(state_np: Dict[str, Any], cfg: ModelConfig,
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` (numpy
+    arrays: float32 moments in the parameter tree's names and shapes, a
+    0-d int32 step) as the port's ``training.optimizer`` state on
+    ``device`` (default the card)."""
+    device = resolve_device(device)
+    defs = param_defs(cfg)
+    out = {}
+    for part in ("m", "v"):
+        tree = state_np[part]
+        flat = flatten(tree) if any(isinstance(v, dict)
+                                    for v in tree.values()) else dict(tree)
+        if set(flat) != set(defs):
+            raise ValueError(f"opt state {part}: names differ from the "
+                             f"schema: {sorted(set(flat) ^ set(defs))}")
+        leaves = {}
+        for name, d in defs.items():
+            a = np.asarray(flat[name])
+            if tuple(a.shape) != tuple(d.shape) or a.dtype != np.float32:
+                raise ValueError(f"opt state {part}/{name}: {a.dtype} "
+                                 f"{a.shape}, expected float32 {d.shape}")
+            leaves[name] = _to_tensor(a, device)
+        out[part] = unflatten(leaves)
+    step = np.asarray(state_np["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt state step: {step.dtype} {step.shape}")
+    out["step"] = _to_tensor(step, device)
+    return out
+
+
 def _take(node, i: int):
     """Slice ``i`` of every leaf of a stacked subtree (views, no copy)."""
     if isinstance(node, dict):
@@ -209,6 +253,15 @@ def _take(node, i: int):
 def layer_params(params: Params, i: int, stack: str = "layers") -> Params:
     """Layer ``i``'s slice of the stacked ``params[stack]`` subtree."""
     return _take(params[stack], i)
+
+
+def _unstack(node, n: int):
+    """The ``n`` per-layer trees of a stacked subtree: one ``unbind`` a
+    leaf, so autograd joins the layers' gradients with one ``stack``."""
+    if isinstance(node, dict):
+        parts = {k: _unstack(v, n) for k, v in node.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(node))
 
 
 def _stacked(trees):
@@ -252,10 +305,14 @@ def _ffn_block(p, x, cfg: ModelConfig):
     return x + ffn_mod.dense_fwd(p["ffn"], h, cfg), None
 
 
-def _decoder_layer(p, x, cfg: ModelConfig, *, window: int = 0,
-                   enc_kv=None):
-    x = _mixer(p, x, cfg, window=window)
-    if cfg.enc_dec and enc_kv is not None:
+def _layer_tail(p, x, cfg: ModelConfig, enc=None):
+    """A decoder layer after its mixer: cross-attention over the encoder
+    output ``enc`` (enc-dec; its K and V projected from ``enc`` here, as
+    the reference's scan body does), then the FFN. Returns (x, aux)."""
+    if cfg.enc_dec and enc is not None:
+        shape = (enc.shape[0], enc.shape[1], cfg.num_kv_heads, cfg.head_dim)
+        enc_kv = ((enc @ p["cross"]["wk"]).reshape(shape),
+                  (enc @ p["cross"]["wv"]).reshape(shape))
         h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
         out, _ = attn_mod.gqa_fwd(p["cross"], h, cfg, kv_override=enc_kv,
                                   rope=False)
@@ -263,8 +320,60 @@ def _decoder_layer(p, x, cfg: ModelConfig, *, window: int = 0,
     return _ffn_block(p, x, cfg)
 
 
+def _decoder_layer(p, x, cfg: ModelConfig):
+    """A whole decoder layer without remat (DeepSeek's dense prefix
+    layers, as the reference runs them)."""
+    return _layer_tail(p, _mixer(p, x, cfg, window=0), cfg)
+
+
 def _layer_window(cfg: ModelConfig, i: int) -> int:
     return 0 if i in cfg.global_attn_layers else cfg.window
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (the reference's _maybe_remat)
+# ---------------------------------------------------------------------------
+def _checkpoint(fn: Callable, *args, **kw):
+    """``fn(*args)`` whose activations the backward recomputes (the
+    non-reentrant checkpoint; the model draws no random numbers, so no
+    RNG state is kept)."""
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep what a matrix product
+    without batch dims computes (``x @ W`` reaches ``aten.mm``; attention
+    and the experts' batched products reach ``aten.bmm``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_keep_dots)
+
+
+def _maybe_remat(mixer: Callable, tail: Callable, cfg: ModelConfig
+                 ) -> Callable:
+    """The layer body ``tail(p, mixer(p, x), *extra)`` under
+    ``cfg.remat`` (see the module doc)."""
+    def body(p, x, *extra):
+        return tail(p, mixer(p, x), *extra)
+
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "full":
+        return lambda p, x, *extra: _checkpoint(body, p, x, *extra)
+    if cfg.remat == "dots":
+        return lambda p, x, *extra: _checkpoint(body, p, x, *extra,
+                                                context_fn=_dots_context)
+    if cfg.remat == "save_attn":
+        # the mixer's output is the second checkpoint's input, so it is
+        # what the backward keeps of the mixer
+        return lambda p, x, *extra: _checkpoint(
+            tail, p, _checkpoint(mixer, p, x), *extra)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -299,11 +408,21 @@ def _frontend_concat(params, batch, cfg: ModelConfig):
     return x_txt, ones, batch["labels"]
 
 
+def _chunk_nll(xb, lm_head, lb, mb):
+    """Summed negative log-likelihood of one chunk's unmasked positions;
+    float32 logits and logsumexp."""
+    logits = (xb @ lm_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lb[..., None].long())[..., 0]
+    return torch.where(mb, lse - gold, 0.0).sum()
+
+
 def chunked_ce_loss(x, lm_head, labels, mask, chunk: int = 1024):
-    """Cross-entropy in sequence chunks, so the [B, S, V] logits are never
-    alive at once (V can be 256k); float32 logsumexp. As the reference,
-    positions past the last whole chunk (nc * (S // nc)) are not
-    counted."""
+    """Cross-entropy in sequence chunks, each recomputed in the backward
+    (the reference's ``jax.checkpoint`` body), so the [B, S, V] logits are
+    never alive at once (V can be 256k); float32 logsumexp. As the
+    reference, positions past the last whole chunk (nc * (S // nc)) are
+    not counted."""
     b, s, d = x.shape
     nc = max(1, s // chunk)
     chunk = s // nc
@@ -311,12 +430,9 @@ def chunked_ce_loss(x, lm_head, labels, mask, chunk: int = 1024):
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
-        logits = (x[:, sl] @ lm_head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, sl, None].long())[..., 0]
-        mb = mask[:, sl]
-        tot = tot + torch.where(mb, lse - gold, 0.0).sum()
-        cnt = cnt + mb.sum()
+        tot = tot + _checkpoint(_chunk_nll, x[:, sl], lm_head, labels[:, sl],
+                                mask[:, sl])
+        cnt = cnt + mask[:, sl].sum()
     return tot / cnt.clamp(min=1)
 
 
@@ -327,44 +443,55 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+def _encoder_mixer(p, x, cfg: ModelConfig):
+    hh = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    out, _ = attn_mod.gqa_fwd(p["attn"], hh, cfg, causal=False)
+    return x + out
+
+
+def _encoder_tail(p, x, cfg: ModelConfig):
+    return x + ffn_mod.dense_fwd(
+        p["ffn"], rms_norm(x, p["ffn_norm"], cfg.norm_eps), cfg)
+
+
 def _run_encoder(params, frames, cfg: ModelConfig):
     ad = params["adapter"]
     x = _mm(frames, ad["w"])
     x = (x + ad["b"].to(x.dtype)).to(_DTYPES[cfg.dtype])
-    for i in range(cfg.encoder_layers):
-        lp = layer_params(params, i, "encoder")
-        hh = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        out, _ = attn_mod.gqa_fwd(lp["attn"], hh, cfg, causal=False)
-        x = x + out
-        x = x + ffn_mod.dense_fwd(
-            lp["ffn"], rms_norm(x, lp["ffn_norm"], cfg.norm_eps), cfg)
+    body = _maybe_remat(lambda p, h: _encoder_mixer(p, h, cfg),
+                        lambda p, h: _encoder_tail(p, h, cfg), cfg)
+    for lp in _unstack(params["encoder"], cfg.encoder_layers):
+        x = body(lp, x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _backbone(params, x, cfg: ModelConfig, enc=None):
-    """Run the decoder stack on x [B,S,D]. Returns (x, aux loss): the
-    prefix layers' aux losses, then the sum over the stack's."""
+    """Run the decoder stack on x [B,S,D]: the prefix layers as they are,
+    every other layer under ``_maybe_remat``, as the reference. Returns
+    (x, aux loss): the prefix layers' aux losses, then the sum over the
+    stack's."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def tail(p, h, *extra):
+        return _layer_tail(p, h, cfg, *extra)
+
     if cfg.hybrid:
         for i in range(cfg.num_layers):
-            x, _ = _decoder_layer(params[f"layer_{i:02d}"], x, cfg,
-                                  window=_layer_window(cfg, i))
+            w = _layer_window(cfg, i)
+            x, _ = _maybe_remat(
+                lambda p, h, w=w: _mixer(p, h, cfg, window=w), tail,
+                cfg)(params[f"layer_{i:02d}"], x)
         return x, aux_total
     for i in range(_n_prefix(cfg)):
         x, aux = _decoder_layer(params[f"dense_{i}"], x, cfg)
         if aux is not None:
             aux_total = aux_total + aux
+    body = _maybe_remat(lambda p, h: _mixer(p, h, cfg, window=0), tail, cfg)
+    extra = (enc,) if cfg.enc_dec else ()
     auxs = []
-    for i in range(cfg.num_layers - _n_prefix(cfg)):
-        lp = layer_params(params, i)
-        enc_kv = None
-        if cfg.enc_dec:
-            # per-layer cross KV projected from the shared encoder output
-            shape = (enc.shape[0], enc.shape[1], cfg.num_kv_heads,
-                     cfg.head_dim)
-            enc_kv = ((enc @ lp["cross"]["wk"]).reshape(shape),
-                      (enc @ lp["cross"]["wv"]).reshape(shape))
-        x, aux = _decoder_layer(lp, x, cfg, enc_kv=enc_kv)
+    n = cfg.num_layers - _n_prefix(cfg)
+    for lp in _unstack(params["layers"], n):
+        x, aux = body(lp, x, *extra)
         if aux is not None:
             auxs.append(aux)
     if auxs:

@@ -32,6 +32,12 @@ def test_package_imports_without_jax_or_repro():
         "ewma", "trace", "lifecycle", "monitor", "regress")} <= set(mods)
     assert {f"repro_torch.models.{m}" for m in (
         "layers", "attention", "ffn", "ssm", "transformer")} <= set(mods)
+    assert {"repro_torch.training.optimizer",
+            "repro_torch.training.compression",
+            "repro_torch.training.train_loop", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.manager", "repro_torch.ft.monitor",
+            "repro_torch.launch.mesh", "repro_torch.launch.train",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n")
@@ -47,6 +53,35 @@ def test_package_imports_without_jax_or_repro():
         *(ROOT / "examples_torch").glob("*.py"), ROOT / "chip_smoke.py"]))
 def test_no_jax_or_repro_import_statement(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
+
+
+ML_DTYPES = re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [
+        *PKG.rglob("*.py"), *(ROOT / "benchmarks_torch").rglob("*.py"),
+        *(ROOT / "examples_torch").glob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_ml_dtypes_import_statement(path):
+    """The card's machine has no ``ml_dtypes``: bf16 crosses numpy as its
+    uint16 bits (``checkpoint/manager.py``)."""
+    assert not ML_DTYPES.search((ROOT / path).read_text()), path
+
+
+def test_hardware_model_is_the_h100s():
+    """``launch/mesh.py`` carries the H100's figures, which
+    ``chip_smoke.py`` imports, and none of the reference's TPU v5e ones
+    (197e12 FLOP/s, 819e9 and 50e9 bytes/s)."""
+    from repro_torch.launch import mesh
+    text = (PKG / "launch" / "mesh.py").read_text()
+    figures = {float(x) for x in re.findall(r"\d+(?:\.\d+)?e\d+", text)}
+    assert figures and not figures & {197e12, 819e9, 50e9}
+    assert (mesh.PEAK_FLOPS_BF16, mesh.PEAK_FLOPS_FP32, mesh.HBM_BW) == \
+        (989e12, 67e12, 3.35e12)
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert "from repro_torch.launch.mesh import HBM_BW" in smoke
+    assert not re.search(r"^(HBM_BYTES_PER_S|FP32_OPS_PER_S|BF16_OPS_PER_S)"
+                         r"\s*=", smoke, re.MULTILINE)
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

@@ -838,6 +838,116 @@ def test_attention_kernels_repeat_bit_equal(attn_cuda, which, dtype):
 
 
 # ---------------------------------------------------------------------------
+# flash_attention_causal's backward and the training path
+# ---------------------------------------------------------------------------
+# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 192
+BWD_SHAPES = [(1, 1, 1, 1, 16), (2, 77, 2, 1, 64), (1, 130, 2, 3, 64),
+              (2, 65, 1, 4, 40), (1, 257, 2, 7, 128), (1, 96, 2, 5, 192),
+              (2, 200, 1, 6, 32)]
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_errs(got, want):
+    return [float((a.cpu().float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp(min=1e-30))
+            for a, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
+    """The three backward kernels against the plain backward on the CPU
+    (within BWD_TOL of each gradient's largest magnitude), the same bits
+    on a second call, one launch of each kernel a call."""
+    rng = np.random.default_rng(sum(shape))
+    b, s, kvh, g, dh = shape
+    q, k, v, dout = (_randn(rng, x, dtype) for x in (
+        shape, (b, s, kvh, dh), (b, s, kvh, dh), shape))
+    out = attn_cuda["flash"](q, k, v)
+    want = fmod.flash_attention_causal_bwd_plain(q, k, v, out, dout)
+    args = [x.cuda() for x in (q, k, v, out, dout)]
+    before = dict(mod.LAUNCHES)
+    got = fmod.flash_attention_causal_bwd(*args)
+    torch.cuda.synchronize()
+    moved = {n: mod.LAUNCHES[n] - before[n] for n in before
+             if mod.LAUNCHES[n] != before[n]}
+    assert moved == {"flash_attention_causal_bwd": 1,
+                     **{f"flash_attention_causal_bwd/{n}": 1
+                        for n in fmod.BWD_KERNELS}}
+    for a, w in zip(got, want):
+        assert a.is_cuda and a.dtype == dtype and a.shape == w.shape
+    assert max(_rel_errs(got, want)) <= BWD_TOL[dtype]
+    again = fmod.flash_attention_causal_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_model_flash_route_gradient(attn_cuda, dtype):
+    """``layers.flash_attention`` under autograd on the card: the forward
+    and backward kernels launch once each, and the gradients equal the
+    CPU's (autograd through the blockwise code) within the backward's
+    tolerance."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(4)
+    shapes = ((2, 96, 6, 64), (2, 96, 2, 64), (2, 96, 2, 64))
+    cpu = [_randn(rng, x, dtype).requires_grad_(True) for x in shapes]
+    card = [x.detach().cuda().requires_grad_(True) for x in cpu]
+    dout = _randn(rng, shapes[0], dtype)
+    before = dict(mod.LAUNCHES)
+    layers.flash_attention(*card, causal=True, chunk=32).backward(
+        dout.cuda().transpose(1, 2).contiguous().transpose(1, 2))
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES["flash_attention_causal"] == \
+        before["flash_attention_causal"] + 1
+    assert mod.LAUNCHES["flash_attention_causal_bwd"] == \
+        before["flash_attention_causal_bwd"] + 1
+    layers.flash_attention(*cpu, causal=True, chunk=32).backward(dout)
+    tol = BWD_TOL[dtype] if dtype == torch.float32 else 3e-2
+    assert max(_rel_errs([x.grad for x in card],
+                         [x.grad for x in cpu])) <= tol
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-lite-16b",
+                                  "seamless-m4t-large-v2"])
+def test_loss_gradient_card_equals_cpu(attn_cuda, arch):
+    """``value_and_grad`` of ``loss_fn`` (reduced config, float32, TF32
+    off, remat "full") on the card against the CPU on the same weights:
+    2 x layers forward launches, one backward a layer."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import layers, transformer
+    from repro_torch.training.train_loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 64))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    if cfg.enc_dec:
+        batch["frames"] = _randn(rng, (2, 64, 160), torch.float32)
+    loss, grads = value_and_grad(params, batch, cfg)
+    before = dict(mod.LAUNCHES)
+    card = layers.unflatten({k: v.cuda() for k, v in
+                             layers.flatten(params).items()})
+    gloss, ggrads = value_and_grad(
+        card, {k: v.cuda() for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    n = cfg.num_layers - (cfg.moe.first_moe_layer if cfg.moe else 0)
+    n_prefix = cfg.num_layers - n
+    assert mod.LAUNCHES["flash_attention_causal"] - \
+        before["flash_attention_causal"] == 2 * n + n_prefix
+    assert mod.LAUNCHES["flash_attention_causal_bwd"] - \
+        before["flash_attention_causal_bwd"] == cfg.num_layers
+    assert abs(float(gloss) - float(loss)) <= 1e-4 * abs(float(loss))
+    for name, g in layers.flatten(grads).items():
+        got = layers.flatten(ggrads)[name].cpu()
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((got - g).abs().max()) / scale <= 1e-3, name
+
+
+# ---------------------------------------------------------------------------
 # the scheduler and the baselines on the card against their CPU runs
 # ---------------------------------------------------------------------------
 def _svc_stream(seed, R, t, n):
