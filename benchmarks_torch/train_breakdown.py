@@ -48,11 +48,13 @@ from repro_torch.training import optimizer as opt  # noqa: E402
 from repro_torch.training.train_loop import value_and_grad  # noqa: E402
 
 RANGES = ("train/step", "train/loss_and_grad", "train/adamw")
-# kernels grouped by fragments of their names; the rest is "other"
+# kernels grouped by fragments of their names; the rest is "other". The
+# backward's kernels on either route: the tensor cores' (*_wgmma_kernel,
+# csrc/flash_attention_bwd_wgmma.cu) or the CUDA cores' (*_kernel)
 GROUPS = {"flash forward (wgmma)": ("flash_wgmma_kernel",),
-          "backward: row stats": ("stats_kernel",),
-          "backward: dk, dv": ("dkdv_kernel",),
-          "backward: dq": ("dq_kernel",),
+          "backward: row stats": ("stats_wgmma_kernel", "stats_kernel"),
+          "backward: dk, dv": ("dkdv_wgmma_kernel", "dkdv_kernel"),
+          "backward: dq": ("dq_wgmma_kernel", "dq_kernel"),
           "cuBLAS products": ("nvjet", "gemm", "cutlass", "xmma")}
 
 

@@ -40,11 +40,14 @@ the JAX package. Phases, each of which must pass:
    launched (flash: ``wgmma`` for bf16 with Dh % 16 == 0, else
    ``cuda_cores``; decode: ``split_cluster``); and the backward of
    ``flash_attention_causal`` (``flash_attention_causal_bwd``: three
-   kernels, row statistics, dk/dv, dq) against its plain version in
+   kernels, row statistics, dk/dv, dq; the ``wgmma`` route on the tensor
+   cores for bf16 with Dh % 16 == 0 and Dh <= 128, else ``cuda_cores``)
+   against its plain version in
    float32 and bf16 at the reference tests' shapes, odd S, G = 1 and 3-7,
    Dh = 32-192 and the training shape (8, 2,048, 5, 3, 64): within 2e-5
    (float32) and 1e-2 (bf16) of the plain gradient's largest magnitude,
-   the same bits on a second call, one launch of each kernel, timed
+   the same bits on a second call, one launch of each kernel and of the
+   expected route, timed
    beside the plain version, its bound (q, k, v, out, dout, dq, dk, dv
    bytes; 10 Dh flops a visible pair) and one SDPA backward;
 4. main path: ``build(YCSB_HIGH_10RMW, device="cuda")`` — 1,000,000
@@ -236,9 +239,10 @@ the JAX package. Phases, each of which must pass:
    ``SyntheticTokenSource``, 20 steps: losses finite and the last below
    the first; every step launches exactly 64 ``flash_attention_causal``
    (wgmma route; the remat recompute included) and 32
-   ``flash_attention_causal_bwd`` calls (three kernels each), and no
-   blockwise call; at step 10 a save through ``CheckpointManager`` and a
-   restore into a fresh ``Trainer`` give bit-equal parameters and
+   ``flash_attention_causal_bwd`` calls (three kernels each, the wgmma
+   route), and no blockwise call; at step 10 a save through
+   ``CheckpointManager`` and a restore into a fresh ``Trainer`` give
+   bit-equal parameters and
    optimizer state, and the next step of both on one batch the same
    loss; the last step's latest forward and backward launch are held
    against the plain versions. Then a float32 gradient replay (TF32 off)
@@ -321,7 +325,7 @@ from repro_torch.service import TxnService  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/mvcc_resolve.cu"
 SOURCES = ("mvcc_resolve", "decode_attention", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_bwd_wgmma")
 # the backward is row 5's gradient: the reference has no Pallas backward
 # (it differentiates its blockwise jnp attention, models/layers.py:114)
 REPLACES = {"mvcc_resolve": "src/repro/kernels/mvcc_resolve.py:81",
@@ -337,7 +341,7 @@ ATT_SOURCE = {"decode_attention":
               "flash_attention_causal":
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "flash_attention_causal_bwd":
-              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
+              "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu"}
 N_BATCHES, PIN_AFTER, N_SCANS, OPS = 9, 3, 1024, 10
 PHASES = ("plan_phase", "exec_phase", "commit_phase")
 # the paged path: YCSB_HIGH_10RMW's data scale with benchmarks/paged.py's
@@ -1204,7 +1208,8 @@ BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
 TRAIN_SHAPE = (8, 2048, 5, 3, 64)
 # relative to the plain backward's largest magnitude: float32 sums in
 # another order (measured <= 5e-6 on an H100); bf16 adds one rounding of
-# dq, dk, dv (measured <= 2.8e-3)
+# dq, dk, dv (measured <= 2.8e-3 on the CUDA cores) and, on the wgmma
+# route, P and dS rounded to bf16 for the products (measured <= 6.9e-3)
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
@@ -1255,18 +1260,27 @@ def bwd_attention_phase(device="cuda"):
     """The backward kernel against the plain backward on the same card
     inputs at every BWD_CASES shape in float32 and bf16: within BWD_TOL of
     the plain result's largest magnitude, the same bits on a second call,
-    one launch of each of its three kernels a call, timed beside the plain
+    one launch of each of its three kernels a call on the route that dtype
+    and Dh pick (logged), timed beside the plain
     version, its bound and one SDPA backward. Returns the kernels line's
     row (the training shape, bf16)."""
     row = None
     for shape, label in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _bwd_inputs(shape, dtype, device)
+            route = flash_mod.flash_bwd_route(*args)
+            dh = shape[-1]
+            expect = ("wgmma" if dtype == torch.bfloat16 and dh % 16 == 0
+                      and dh <= flash_mod.BWD_WGMMA_MAX_DH else "cuda_cores")
+            if route != expect:
+                raise AssertionError(f"backward {shape} {dtype}: route "
+                                     f"{route}, expected {expect}")
             before = dict(ops.LAUNCHES)
             got = ops.flash_attention_causal_bwd(*args)
             moved = {k: ops.LAUNCHES[k] - before[k] for k in before
                      if ops.LAUNCHES[k] != before[k]}
-            want = {"flash_attention_causal_bwd": 1}
+            want = {"flash_attention_causal_bwd": 1,
+                    f"flash_attention_causal_bwd/{route}": 1}
             want.update({f"flash_attention_causal_bwd/{k}": 1
                          for k in flash_mod.BWD_KERNELS})
             if moved != want:
@@ -1301,7 +1315,7 @@ def bwd_attention_phase(device="cuda"):
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             log(f"kernel flash_attention_causal_bwd {label} {list(shape)} "
-                f"{str(dtype)[6:]}: relative errors "
+                f"{str(dtype)[6:]} ({route}): relative errors "
                 f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
                 f"{tol}), max_abs_err {err:.3g}, repeat bit-equal; device: "
                 f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
@@ -1316,8 +1330,8 @@ def bwd_attention_phase(device="cuda"):
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms,
                        "shape": list(shape), "dtype": "bfloat16",
-                       "relative_err": errs, "bytes": nbytes,
-                       "flops": flops}
+                       "kernel_route": route, "relative_err": errs,
+                       "bytes": nbytes, "flops": flops}
             del args, got, again, ref, sdpa
     torch.cuda.empty_cache()
     return row
@@ -2857,11 +2871,13 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
 
 def check_train_launches(cfg, per_step, on_card=True):
     """Per step: 2 x layers forward launches (the remat recompute), one
-    backward call (three kernels) a layer, no blockwise call."""
+    backward call (three kernels) a layer on the wgmma route, no
+    blockwise call."""
     n = cfg.num_layers
     want = {"flash_attention_causal": 2 * n,
             "flash_attention_causal/wgmma": 2 * n,
-            "flash_attention_causal_bwd": n}
+            "flash_attention_causal_bwd": n,
+            "flash_attention_causal_bwd/wgmma": n}
     want.update({f"flash_attention_causal_bwd/{k}": n
                  for k in flash_mod.BWD_KERNELS})
     for i, (launches, blockwise) in enumerate(per_step):

@@ -42,9 +42,12 @@ LAUNCHES: Dict[str, int] = {
     # which of flash_attention_causal's two kernels each launch took
     "flash_attention_causal/wgmma": 0,
     "flash_attention_causal/cuda_cores": 0,
-    # flash_attention_causal's gradient: one a call, and each of the
-    # call's three kernels
+    # flash_attention_causal's gradient: one a call, the call's route
+    # (its three kernels on the tensor cores or the CUDA cores), and each
+    # of the call's three kernels
     "flash_attention_causal_bwd": 0,
+    "flash_attention_causal_bwd/wgmma": 0,
+    "flash_attention_causal_bwd/cuda_cores": 0,
     "flash_attention_causal_bwd/stats": 0,
     "flash_attention_causal_bwd/dkdv": 0,
     "flash_attention_causal_bwd/dq": 0}

@@ -49,11 +49,14 @@
 // then dv, dk and dq), S (S + 1) / 2 pairs a head; its bytes (q, k, v,
 // out, dout read once, dq, dk, dv written once) take ~0.1 ms at the
 // training shape (B = 8, S = 2048, KvH = 5, G = 3, Dh = 64), its flops
-// milliseconds even on the tensor cores. This first design computes
-// them on the CUDA cores in float32 from shared memory (each thread a
-// 2 x 4 block of (row, key) scores, then a key's (or row's) slice of
-// columns), and recomputes S and dP once more for dq; the tensor-core
-// redesign (wgmma, TMA) is later work (ROADMAP.md).
+// milliseconds even on the tensor cores. This design computes them on
+// the CUDA cores in float32 from shared memory (each thread a 2 x 4
+// block of (row, key) scores, then a key's (or row's) slice of columns),
+// bound by shared-memory loads, and recomputes S and dP once more for
+// dq. It serves float32 (TF32 would not hold its tolerance), Dh = 192
+// and Dh not a multiple of 16; bf16 with Dh % 16 == 0 and Dh <= 128 takes
+// the tensor-core kernels of flash_attention_bwd_wgmma.cu (the wrapper
+// picks by dtype and shape).
 #include "attention.cuh"
 
 namespace {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions the flash kernel issues, and the host-side encoder
-// of a TMA tensor map.
+// wgmma instructions the flash kernels (forward and backward) issue, and
+// the host-side encoders of TMA tensor maps.
 //
 // Shared-memory tiles use the 128-byte swizzle throughout: a tile is a
 // stack of 128-byte rows (64 bf16 values), and the 16-byte chunk c of row
@@ -84,6 +84,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+// The same for a 5-dimensional tensor map.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(smem_u32(bar))
       : "memory");
 }
 // Make this thread's ordinary shared-memory writes visible to the async
@@ -262,6 +273,33 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(base), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
+// A bf16 [B, S, H, G, D] tensor (G query heads a kv head) read in boxes of
+// (64 columns, all G heads, 1 kv head, bq positions, 1 batch): a box is
+// bq * G rows of 128 bytes ordered (position, head), swizzled as above;
+// columns D..63 and positions past S are zero-filled. D * 2 bytes must be
+// a multiple of 16, `base` 16-byte aligned, G and bq at most 256.
+inline int encode_bshgd(CUtensorMap* map, const void* base, int B, int S,
+                        int H, int G, int D, int bq) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return kEncodeError;
+  const cuuint64_t dims[5] = {
+      static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(G),
+      static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+      static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[4] = {row, row * G, row * G * H, row * G * H * S};
+  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(G), 1,
+                             static_cast<cuuint32_t>(bq), 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
                           const_cast<void*>(base), dims, strides, box, elem,
                           CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B,

@@ -38,14 +38,25 @@ The gradient: ``flash_attention_causal`` is a ``torch.autograd.Function``
 whose forward is the call above and whose backward is
 ``flash_attention_causal_bwd`` — dq, dk and dv from q, k, v, the
 forward's output and its gradient, with a float32 softmax recomputed
-from the saved inputs. On CUDA tensors it launches the three kernels of
-``csrc/flash_attention_bwd.cu`` (row statistics, then dk/dv, then dq; no
-float atomics, so the bits repeat) and counts one
-``LAUNCHES["flash_attention_causal_bwd"]`` a call and one
-``LAUNCHES["flash_attention_causal_bwd/<kernel>"]`` a kernel; on CPU
-tensors it takes ``flash_attention_causal_bwd_plain``. The reference has
-no Pallas backward (it differentiates its blockwise jnp attention), so
-the plain backward is the oracle.
+from the saved inputs. On CUDA tensors it launches three kernels (row
+statistics, then dk/dv, then dq; no float atomics, so the bits repeat)
+of one of two sources, which ``flash_bwd_route`` picks by dtype and
+shape before the launch:
+
+* ``"wgmma"`` — bf16 with Dh a multiple of 16 up to 128 and 16-byte
+  aligned tensors: ``csrc/flash_attention_bwd_wgmma.cu``, the tensor
+  cores (wgmma, TMA rings), P and dS rounded to bf16 for the products;
+* ``"cuda_cores"`` — float32 (TF32 would not hold its 2e-5 tolerance),
+  MLA's Dh = 192 and any other Dh: ``csrc/flash_attention_bwd.cu``'s
+  float32 CUDA-core kernels.
+
+A call counts one ``LAUNCHES["flash_attention_causal_bwd"]``, one
+``LAUNCHES["flash_attention_causal_bwd/<route>"]`` and one
+``LAUNCHES["flash_attention_causal_bwd/<kernel>"]`` a kernel; a failed
+build or launch raises. On CPU tensors it takes
+``flash_attention_causal_bwd_plain``. The reference has no Pallas
+backward (it differentiates its blockwise jnp attention), so the plain
+backward is the oracle.
 """
 from __future__ import annotations
 
@@ -63,6 +74,9 @@ from repro_torch.kernels.decode_attention import (_SUFFIX,
 #: the flash kernels' head-dim limit, above decode's 128: DeepSeek-V2's
 #: MLA prefill attends at 128 + 64 = 192 (csrc/flash_attention.cu)
 MAX_DH = 192
+#: the tensor-core backward's head-dim limit: one consumer warpgroup holds
+#: dK and dV (2 x 64 floats a thread at Dh = 128) beside S and dP
+BWD_WGMMA_MAX_DH = 128
 
 
 def flash_attention_causal_plain(q: torch.Tensor, k: torch.Tensor,
@@ -100,6 +114,19 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors = (q, k, v) if out is None else (q, k, v, out)
     aligned = all(x.data_ptr() % 16 == 0 for x in tensors)
     if q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0 and aligned:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor) -> str:
+    """The kernels a CUDA backward call takes: ``"wgmma"`` for bf16 with
+    ``Dh % 16 == 0``, ``Dh <= BWD_WGMMA_MAX_DH`` and 16-byte aligned
+    tensors (TMA needs them), else ``"cuda_cores"``."""
+    dh = q.shape[-1]
+    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v, out, dout))
+    if (q.dtype == torch.bfloat16 and dh % 16 == 0
+            and dh <= BWD_WGMMA_MAX_DH and aligned):
         return "wgmma"
     return "cuda_cores"
 
@@ -191,6 +218,9 @@ def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
 
 #: the backward's kernels, in launch order
 BWD_KERNELS = ("stats", "dkdv", "dq")
+#: each route's source under csrc/ and its functions' suffix after the dtype
+_BWD_ROUTES = {"wgmma": ("flash_attention_bwd_wgmma", "_wgmma"),
+               "cuda_cores": ("flash_attention_bwd", "")}
 
 
 def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
@@ -199,7 +229,7 @@ def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention_causal`` at (q, k, v), given its
     output ``out`` and the output's gradient ``dout`` (see the module
     doc): the plain version on CPU tensors, else the three kernels of
-    ``csrc/flash_attention_bwd.cu``."""
+    the route ``flash_bwd_route`` picks."""
     check_attention_inputs("flash_attention_causal_bwd", q, k, v, 5)
     b, s, kvh, g, dh = q.shape
     for name, x in (("out", out), ("dout", dout)):
@@ -219,16 +249,18 @@ def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
     dvec = torch.empty_like(lse)
     shape = [b, s, kvh, g, dh, dh ** -0.5]
     sig = [ctypes.c_int] * 5 + [ctypes.c_float]
-    suffix = _SUFFIX[q.dtype]
+    route = flash_bwd_route(q, k, v, out, dout)
+    source, route_suffix = _BWD_ROUTES[route]
+    suffix = _SUFFIX[q.dtype] + route_suffix
     ptrs = {"stats": [q, k, out, dout, lse, dvec],
             "dkdv": [q, k, v, dout, lse, dvec, dk, dv],
             "dq": [q, k, v, dout, lse, dvec, dq]}
     for kernel in BWD_KERNELS:
         args = ptrs[kernel]
-        _build.call("flash_attention_bwd",
-                    f"flash_attention_causal_bwd_{kernel}_{suffix}",
+        _build.call(source, f"flash_attention_causal_bwd_{kernel}_{suffix}",
                     [ctypes.c_void_p] * len(args) + sig,
                     [x.data_ptr() for x in args] + shape, q.device)
         LAUNCHES[f"flash_attention_causal_bwd/{kernel}"] += 1
     LAUNCHES["flash_attention_causal_bwd"] += 1
+    LAUNCHES[f"flash_attention_causal_bwd/{route}"] += 1
     return dq, dk, dv

@@ -840,10 +840,11 @@ def test_attention_kernels_repeat_bit_equal(attn_cuda, which, dtype):
 # ---------------------------------------------------------------------------
 # flash_attention_causal's backward and the training path
 # ---------------------------------------------------------------------------
-# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 192
+# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 192, and the
+# training shape (smollm-360m, S = 2,048) cut to B = 1
 BWD_SHAPES = [(1, 1, 1, 1, 16), (2, 77, 2, 1, 64), (1, 130, 2, 3, 64),
               (2, 65, 1, 4, 40), (1, 257, 2, 7, 128), (1, 96, 2, 5, 192),
-              (2, 200, 1, 6, 32)]
+              (2, 200, 1, 6, 32), (1, 2048, 5, 3, 64)]
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
@@ -858,7 +859,8 @@ def _rel_errs(got, want):
 def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
     """The three backward kernels against the plain backward on the CPU
     (within BWD_TOL of each gradient's largest magnitude), the same bits
-    on a second call, one launch of each kernel a call."""
+    on a second call, one launch of each kernel a call on the route that
+    dtype and Dh pick (wgmma: bf16, Dh % 16 == 0, Dh <= 128)."""
     rng = np.random.default_rng(sum(shape))
     b, s, kvh, g, dh = shape
     q, k, v, dout = (_randn(rng, x, dtype) for x in (
@@ -866,12 +868,16 @@ def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
     out = attn_cuda["flash"](q, k, v)
     want = fmod.flash_attention_causal_bwd_plain(q, k, v, out, dout)
     args = [x.cuda() for x in (q, k, v, out, dout)]
+    route = fmod.flash_bwd_route(*args)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and dh % 16 == 0
+                     and dh <= fmod.BWD_WGMMA_MAX_DH else "cuda_cores")
     before = dict(mod.LAUNCHES)
     got = fmod.flash_attention_causal_bwd(*args)
     torch.cuda.synchronize()
     moved = {n: mod.LAUNCHES[n] - before[n] for n in before
              if mod.LAUNCHES[n] != before[n]}
     assert moved == {"flash_attention_causal_bwd": 1,
+                     f"flash_attention_causal_bwd/{route}": 1,
                      **{f"flash_attention_causal_bwd/{n}": 1
                         for n in fmod.BWD_KERNELS}}
     for a, w in zip(got, want):
