@@ -3,25 +3,32 @@ counterpart of ``benchmarks/summarize.py``).
 
     python3 benchmarks_torch/summarize.py
 
-Two sections, each emitted only when its artifacts exist under
+Three sections, each emitted only when its artifacts exist under
 ``benchmarks_torch/results/``:
 
   * the MVCC benchmark tables: the JSON twins written by
     ``benchmarks_torch/run.py``, selected columns per benchmark;
   * the observability section: phase span stats, health gauges and the
-    provenance stamp from ``benchmarks_torch/obs_report.py``'s artifacts.
+    provenance stamp from ``benchmarks_torch/obs_report.py``'s artifacts;
+  * the optimized-vs-baseline roofline summary of two dry-run artifacts,
+    ``dryrun_baseline.json`` and ``dryrun_opt.json`` (written by
+    ``python -m repro_torch.launch.dryrun --out ...``), through
+    ``repro_torch.launch.roofline.analyze_cell`` over the H100 model.
 
-The reference's third section, the dry-run roofline summary, is not
-ported: its roofline model carries another chip's figures and waits for
-an H100 model (ROADMAP.md, queue 1 Slice H). Reads files only, so it
-runs anywhere.
+Reads files only, so it runs anywhere.
 """
 from __future__ import annotations
 
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.launch.roofline import analyze_cell  # noqa: E402
 
 RESULTS = Path(__file__).resolve().parent / "results"
 
@@ -175,10 +182,84 @@ def print_obs_section() -> bool:
     return True
 
 
+def rows_from(path: Path, mesh: str):
+    data = json.loads(path.read_text())
+    out = {}
+    for key, rec in sorted(data.items()):
+        if not key.endswith(f"|{mesh}"):
+            continue
+        r = analyze_cell(key, rec)
+        if r:
+            out[(r["arch"], r["shape"])] = r
+    return out
+
+
+def gmean(xs):
+    xs = [x for x in xs if x > 0]
+    return float(np.exp(np.mean(np.log(xs)))) if xs else 0.0
+
+
+def print_roofline_section() -> bool:
+    """The reference's roofline summary over ``dryrun_baseline.json`` and
+    ``dryrun_opt.json``: gmean terms per cell group, baseline vs
+    optimized, then the optimized single-mesh cells."""
+    base_path = RESULTS / "dryrun_baseline.json"
+    opt_path = RESULTS / "dryrun_opt.json"
+    if not (base_path.exists() and opt_path.exists()):
+        return False
+    print("\n## Roofline (dry-run artifacts)\n")
+    base = rows_from(base_path, "single")
+    opt = rows_from(opt_path, "single")
+    keys = sorted(set(base) & set(opt))
+
+    def agg(rows, field, keys_):
+        return gmean([rows[k][field] for k in keys_])
+
+    train = [k for k in keys if k[1] == "train_4k"]
+    serve = [k for k in keys if k[1] in ("decode_32k", "long_500k")]
+    pre = [k for k in keys if k[1] == "prefill_32k"]
+
+    lines = []
+    lines.append("| cell group | metric | baseline | optimized | ratio |")
+    lines.append("|---|---|---|---|---|")
+    for name, ks in [("train_4k (10)", train), ("prefill_32k (10)", pre),
+                     ("decode (12)", serve)]:
+        for metric, label, fmt in [
+                ("t_memory_s", "memory term", 1e3),
+                ("t_collective_s", "collective term", 1e3),
+                ("t_compute_s", "compute term", 1e3)]:
+            b = agg(base, metric, ks)
+            o = agg(opt, metric, ks)
+            lines.append(f"| {name} | {label} (gmean ms) | {b*fmt:.2f} | "
+                         f"{o*fmt:.2f} | {o/b:.2f}x |")
+        if name.startswith("train"):
+            b = agg(base, "roofline_fraction", ks)
+            o = agg(opt, "roofline_fraction", ks)
+            of = agg(opt, "roofline_fraction_fused", ks)
+            lines.append(f"| {name} | roofline fraction (gmean) | "
+                         f"{b:.1%} | {o:.1%} ({of:.1%} fused) | {o/b:.2f}x |")
+    print("\n".join(lines))
+
+    # per-cell optimized table (markdown) for the appendix
+    print("\nPer-cell optimized (single-pod):\n")
+    print("| arch | shape | comp ms | mem ms | memF ms | coll ms | "
+          "dominant | useful | roofl | roofF |")
+    print("|---|---|---|---|---|---|---|---|---|---|")
+    for k in keys:
+        r = opt[k]
+        print(f"| {r['arch']} | {r['shape']} | {r['t_compute_s']*1e3:.2f} | "
+              f"{r['t_memory_s']*1e3:.2f} | {r['t_memory_fused_s']*1e3:.2f} |"
+              f" {r['t_collective_s']*1e3:.3f} | {r['dominant']} | "
+              f"{r['useful_ratio']:.2f} | {r['roofline_fraction']:.1%} | "
+              f"{r['roofline_fraction_fused']:.1%} |")
+    return True
+
+
 def main() -> None:
     print("## MVCC benchmarks (JSON twins)")
     print_bench_tables()
     print_obs_section()
+    print_roofline_section()
 
 
 if __name__ == "__main__":

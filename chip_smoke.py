@@ -256,6 +256,25 @@ the JAX package. Phases, each of which must pass:
    6 N tokens / step time reaches, peak memory, launches and the held
    errors beside the card's name and power limit.
 
+16. the roofline of phase 15's step: ``launch.dryrun.measure`` counts
+   the same step (``launch.specs.make_train_step``: smollm-360m, B=8,
+   S=2,048, bf16, remat "full") on fake tensors on the card and prints
+   its compute, memory and fused-memory terms over the H100 model
+   (``launch.mesh``), the useful ratio (6 N tokens / counted flops), the
+   bound and phase 15's measured median step with bound / step beside
+   it; the same counter (``launch.counting.dispatch_costs``) over one
+   real step must give equal counts (flops, dot flops, bytes, fused
+   bytes, kernel calls), and the fake run's peak per device must be
+   within ``PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` of that
+   step. Then a (1, 1) ``DeviceMesh`` on the card over a real one-rank
+   process group (``HashStore``): reduced smollm-360m's loss and
+   gradient with parameters and batch as DTensors placed by
+   ``parallel.sharding``, under the activation hints, give the plain
+   tensors' bits and the same launches through the kernels' operators.
+   Last, ``python -m repro_torch.launch.dryrun --mesh local`` for
+   smollm-360m's three supported shapes (each cell ``ok``) and their
+   roofline rows, beside the card's name and power limit.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -271,6 +290,7 @@ import functools
 import importlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3032,7 +3052,204 @@ def training_phase(device="cuda"):
             f"({time.perf_counter() - t1:.1f} s: "
             f"{ {k: round(v, 2) for k, v in g['seconds'].items()} })")
     log(f"training phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
-    return dict(total)
+    return dict(total), med
+
+
+# ---------------------------------------------------------------------------
+# the roofline of the training step and the sharded path (phase 16)
+# ---------------------------------------------------------------------------
+#: fake peak per device against the measured peak of the same step: the
+#: allocator rounds each block up and keeps cuBLAS workspaces, which the
+#: fake run's storages do not show
+PEAK_TOL = 0.15
+COUNT_KEYS = ("flops", "dot_flops", "bytes", "bytes_fused")
+
+
+def roofline_terms(costs: dict, model_flops: float) -> dict:
+    """The roofline terms of one step on one card (``launch.roofline``'s
+    model): compute, memory and fused memory in ms, the bound (the
+    larger of compute and memory) and the fused bound."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS_BF16
+    t = {"compute_ms": costs["flops"] / PEAK_FLOPS_BF16 * 1e3,
+         "memory_ms": costs["bytes"] / HBM_BW * 1e3,
+         "memory_fused_ms": costs["bytes_fused"] / HBM_BW * 1e3,
+         "useful_ratio": model_flops / costs["flops"]}
+    t["bound_ms"] = max(t["compute_ms"], t["memory_ms"])
+    t["bound_fused_ms"] = max(t["compute_ms"], t["memory_fused_ms"])
+    return t
+
+
+def train_step_counts(device="cuda", cfg=None, batch=8, seq=2048):
+    """Phase 15's step counted on fake tensors (``dryrun.measure``), then
+    the same counter over one real step on the same shapes. Returns the
+    fake measure, the live counts, the measured peak GiB and seconds."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import counting, dryrun, specs
+    from repro_torch.training.optimizer import init_opt_state
+    cfg = cfg or get_config(TRAIN_ARCH)
+    shape = {"seq": seq, "batch": batch, "kind": "train"}
+    fake = FakeTensorMode()
+    t0 = time.perf_counter()
+    fn, args, _ = specs.build_cell(TRAIN_ARCH, "train_4k", None, cfg=cfg,
+                                   shape=shape, device=device,
+                                   fake_mode=fake)
+    fake_run = dryrun.measure(fn, args, fake)
+    fake_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(16)
+    params = init_params(cfg, gen, device)
+    opt_state = init_opt_state(params)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=device, dtype=torch.int32)
+    real = {"tokens": tokens, "labels": tokens}
+    on_card = torch.device(device).type == "cuda"
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    live = counting.dispatch_costs(fn, params, opt_state, real)
+    _sync(device)
+    live_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    del params, opt_state
+    return fake_run, live, peak, fake_s, live_s
+
+
+def dtensor_step(device="cuda"):
+    """Reduced smollm-360m's ``value_and_grad`` on plain tensors and on
+    DTensors of a (1, 1) mesh over a real one-rank process group; returns
+    the launches of each and whether every bit agreed."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.constraints import activation_mesh
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = reduced_config(TRAIN_ARCH)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(device)
+        gen = torch.Generator(device=device).manual_seed(16)
+        params = init_params(cfg, gen, device)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                               device=device, dtype=torch.int32)
+        batch = {"tokens": tokens, "labels": tokens}
+        ops.reset_launches()
+        loss0, g0 = value_and_grad(params, batch, cfg)
+        _sync(device)
+        plain_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        specs = flatten(shd.param_shardings(cfg, mesh))
+        dparams = unflatten({
+            k: distribute_tensor(v, mesh, shd.placements(specs[k], mesh))
+            for k, v in flatten(params).items()})
+        dbatch = {k: distribute_tensor(v, mesh, shd.placements(
+            shd.batch_sharding(mesh, tuple(v.shape)), mesh))
+            for k, v in batch.items()}
+        ops.reset_launches()
+        with implicit_replication(), activation_mesh(mesh):
+            loss1, g1 = value_and_grad(dparams, dbatch, cfg)
+        _sync(device)
+        dt_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        full = unflatten({k: v.full_tensor()
+                          for k, v in flatten(g1).items()})
+        _same_state({"loss": loss0}, {"loss": loss1.full_tensor()},
+                    "DTensor loss")
+        _same_state(g0, full, "DTensor gradients")
+        return plain_launches, dt_launches, float(loss0)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_local(arch=TRAIN_ARCH, timeout=300):
+    """``python -m repro_torch.launch.dryrun --mesh local`` for ``arch``
+    in a process of its own (its fake process group is its own); returns
+    the records and the roofline rows."""
+    from repro_torch.launch import roofline
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun.json"
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "local", "--out", str(out)], env=env,
+            cwd=root, capture_output=True, text=True, timeout=timeout)
+        if run.returncode != 0:
+            raise AssertionError(f"dryrun exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        records = json.loads(out.read_text())
+        rows = roofline.load_table(str(out), "local")
+    return records, rows, run.stdout
+
+
+def roofline_phase(step_ms: float, device="cuda"):
+    """Phase 16 (see the module doc)."""
+    from repro_torch.launch import roofline
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    fake_run, live, peak_gib, fake_s, live_s = train_step_counts(device)
+    costs = fake_run["jaxpr"]
+    for k in COUNT_KEYS:
+        if live[k] != costs[k]:
+            raise AssertionError(f"live {k} {live[k]} != fake {costs[k]}")
+    if live["kernels"] != fake_run["kernels"]:
+        raise AssertionError(f"live kernel calls {live['kernels']} != fake "
+                             f"{fake_run['kernels']}")
+    fake_gib = fake_run["memory"]["peak_bytes_per_device"] / 2 ** 30
+    mem_err = abs(fake_gib - peak_gib) / peak_gib
+    if mem_err > PEAK_TOL:
+        raise AssertionError(f"fake peak {fake_gib:.3f} GiB vs measured "
+                             f"{peak_gib:.3f} GiB: {mem_err:.3f} > "
+                             f"{PEAK_TOL}")
+    tokens = 8 * 2048
+    model_flops = 6 * cfg.num_params() * tokens
+    t = roofline_terms(costs, model_flops)
+    log(f"roofline of phase 15's step ({TRAIN_ARCH}, B=8 S=2048, bf16, "
+        f"remat {cfg.remat}; H100 model {roofline.PEAK_FLOPS_BF16:.3g} "
+        f"FLOP/s bf16, {roofline.HBM_BW:.3g} B/s HBM): counted flops "
+        f"{costs['flops']:.6g} (dot {costs['dot_flops']:.6g}), bytes "
+        f"{costs['bytes']:.6g}, fused bytes {costs['bytes_fused']:.6g}, "
+        f"kernel calls {fake_run['kernels']}; compute {t['compute_ms']:.3f}"
+        f" ms, memory {t['memory_ms']:.3f} ms, fused memory "
+        f"{t['memory_fused_ms']:.3f} ms; useful ratio (6 N tokens = "
+        f"{model_flops:.6g} flop / counted) {t['useful_ratio']:.4f}; bound "
+        f"{t['bound_ms']:.3f} ms (fused {t['bound_fused_ms']:.3f} ms); "
+        f"measured median step (phase 15) {step_ms:.3f} ms: bound / step "
+        f"{t['bound_ms'] / step_ms:.4f}, fused bound / step "
+        f"{t['bound_fused_ms'] / step_ms:.4f}; {smi}")
+    log(f"roofline: one real step counted live gives the same counts "
+        f"({live_s:.2f} s; the fake count {fake_s:.2f} s); fake peak per "
+        f"device {fake_gib:.3f} GiB vs torch.cuda.max_memory_allocated "
+        f"{peak_gib:.3f} GiB: {100 * mem_err:.2f} % (limit "
+        f"{100 * PEAK_TOL:.0f} %); fake memory {fake_run['memory']}; {smi}")
+    t1 = time.perf_counter()
+    plain_l, dt_l, loss = dtensor_step(device)
+    if plain_l != dt_l or not dt_l.get("flash_attention_causal") or \
+            not dt_l.get("flash_attention_causal_bwd"):
+        raise AssertionError(f"DTensor launches {dt_l} vs plain {plain_l}")
+    log(f"sharded path: reduced {TRAIN_ARCH} loss {loss:.6f} and gradients "
+        f"on DTensors of a (1, 1) mesh over a one-rank process group "
+        f"bit-equal to the plain tensors'; launches {dt_l} (plain "
+        f"{plain_l}); {time.perf_counter() - t1:.1f} s; {smi}")
+    t1 = time.perf_counter()
+    records, rows, _ = dryrun_local()
+    bad = {k: r["status"] for k, r in records.items()
+           if r["status"] not in ("ok", "skipped")}
+    if bad or len(rows) != 3:
+        raise AssertionError(f"dry run cells {bad}, {len(rows)} rows")
+    log(f"dry run --mesh local, {TRAIN_ARCH} ({time.perf_counter() - t1:.1f}"
+        f" s): " + "; ".join(
+            f"{k} peak {r['memory']['peak_bytes_per_device'] / 2 ** 30:.3f} "
+            f"GiB, run {r['compile_s']} s, kernels {r['kernels']}"
+            for k, r in records.items() if r["status"] == "ok"))
+    for r in rows:
+        log(f"roofline row: {roofline.fmt_row(r)}; {smi}")
+    log(f"roofline phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
 
 def ptxas_summary(nvcc_out: str):
@@ -3298,11 +3515,14 @@ def main() -> int:
         f"{model_launches}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     # -- the training path, counted from zero per step ----------------------
-    train_launches = training_phase()
+    train_launches, step_ms = training_phase()
     rows["flash_attention_causal_bwd"]["launches"] = \
         train_launches["flash_attention_causal_bwd"]
     rows["flash_attention_causal"]["training_launches"] = \
         train_launches["flash_attention_causal"]
+
+    # -- the roofline of the training step and the sharded path -------------
+    roofline_phase(step_ms)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -27,6 +27,12 @@ lane on the CUDA cores in float32, and merges the blocks' partial
 softmaxes in rank order through distributed shared memory — no atomics,
 so repeated calls give the same bits and nothing past ``kv_len`` is
 read.
+
+The call is an operator of its own (``torch.library.custom_op``:
+``torch.ops.repro_torch.decode_attention``), so a dispatch mode sees it
+as one op, a ``FakeTensor`` call returns shapes without touching the
+kernel, and a ``DTensor`` call runs on the local shards by the rule
+``repro_torch.parallel`` registers (batch and KV heads shard).
 """
 from __future__ import annotations
 
@@ -107,6 +113,8 @@ def check_attention_inputs(name: str, q, k, v, q_dims: int) -> None:
                          f"{tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: all inputs must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {q.device}")
 
 
 def check_kernel_limits(name: str, tensors, g: int, dh: int,
@@ -130,8 +138,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not "
                          f"match k {tuple(k.shape)}")
     kv_len = kv_len_vector(kv_len, b, q.device)
+    return torch.ops.repro_torch.decode_attention(q, k, v, kv_len)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: torch.Tensor) -> torch.Tensor:
+    """The call as an operator of its own: the plain version on CPU
+    tensors, else one launch of the kernel (``kv_len`` int32 [B])."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len)
+    b, kvh, g, dh = q.shape
     check_kernel_limits("decode_attention", (q, k, v), g, dh, MAX_DH)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -144,3 +161,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q.device)
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+@_decode_op.register_fake
+def _decode_fake(q, k, v, kv_len):
+    return q.new_empty(q.shape)

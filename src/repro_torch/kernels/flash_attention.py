@@ -34,14 +34,22 @@ fallback after a failure. Each launch adds one to
 on the H100 (operations, at the serving shapes) and what each design
 does about it is in the source's header note.
 
-The gradient: ``flash_attention_causal`` is a ``torch.autograd.Function``
-whose forward is the call above and whose backward is
-``flash_attention_causal_bwd`` — dq, dk and dv from q, k, v, the
-forward's output and its gradient, with a float32 softmax recomputed
-from the saved inputs. On CUDA tensors it launches three kernels (row
-statistics, then dk/dv, then dq; no float atomics, so the bits repeat)
-of one of two sources, which ``flash_bwd_route`` picks by dtype and
-shape before the launch:
+Both entry points are operators of their own
+(``torch.library.custom_op``: ``torch.ops.repro_torch.
+flash_attention_causal`` and ``..._bwd``), so a dispatch mode sees each
+call as one op (``launch.counting`` counts it by its formula), a
+``FakeTensor`` call returns shapes without touching a kernel, and a
+``DTensor`` call runs on the local shards by the rule
+``repro_torch.parallel`` registers (batch and KV heads shard, sequence
+and Dh replicate).
+
+The gradient: ``flash_attention_causal``'s autograd formula (its
+``register_autograd``) is ``flash_attention_causal_bwd`` — dq, dk and dv
+from q, k, v, the forward's output and its gradient, with a float32
+softmax recomputed from the saved inputs. On CUDA tensors it launches
+three kernels (row statistics, then dk/dv, then dq; no float atomics, so
+the bits repeat) of one of two sources, which ``flash_bwd_route`` picks
+by dtype and shape before the launch:
 
 * ``"wgmma"`` — bf16 with Dh a multiple of 16 up to 128 and 16-byte
   aligned tensors: ``csrc/flash_attention_bwd_wgmma.cu``, the tensor
@@ -156,21 +164,30 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out
 
 
-class _FlashCausal(torch.autograd.Function):
-    """The forward kernel with ``flash_attention_causal_bwd`` as its
-    gradient (both the plain versions on the CPU)."""
+@torch.library.custom_op("repro_torch::flash_attention_causal",
+                         mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> torch.Tensor:
+    """The forward as an operator of its own: ``_forward``."""
+    return _forward(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        out = _forward(q, k, v)
-        ctx.save_for_backward(q, k, v, out)
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        return flash_attention_causal_bwd(q, k, v, out, dout.contiguous())
+@_flash_op.register_fake
+def _flash_fake(q, k, v):
+    return q.new_empty(q.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v = inputs
+    ctx.save_for_backward(q, k, v, output)
+
+
+def _flash_grad(ctx, dout):
+    q, k, v, out = ctx.saved_tensors
+    return flash_attention_causal_bwd(q, k, v, out, dout.contiguous())
+
+
+_flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
 
 
 def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
@@ -182,7 +199,7 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
     if tuple(k.shape) != (b, s, kvh, dh):
         raise ValueError(f"flash_attention_causal: q {tuple(q.shape)} does "
                          f"not match k {tuple(k.shape)}")
-    return _FlashCausal.apply(q, k, v)
+    return torch.ops.repro_torch.flash_attention_causal(q, k, v)
 
 
 def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
@@ -191,12 +208,18 @@ def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
     the causal mask, P = exp(s - logsumexp(s)), D = sum(dout * out),
     dS = P (dout . v - D); dv = P^T dout, dk = dS^T (Dh^-0.5 q) and
     dq = Dh^-0.5 dS k, summed over the G heads of a group for dk and dv,
-    in float32, returned in q's dtype."""
+    in float32, returned in q's dtype.
+
+    dout . v and D are each summed in float64 (the products of float32
+    values are exact there) and rounded to float32, so where the true dS
+    is 0 (S = 1: P = 1 and out = v_0, so dout . v_0 = D) both round to
+    the same float32 and dq and dk are exactly 0, not two summation
+    orders' rounding noise."""
     b, s, kvh, g, dh = q.shape
     scale = dh ** -0.5
     qf = q.float() * scale
     kf, vf, dof = k.float(), v.float(), dout.float()
-    dvec = (dof * out.float()).sum(dim=-1)              # [B, S, KvH, G]
+    dvec = (dof.double() * out.double()).sum(dim=-1).float()  # [B,S,KvH,G]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
@@ -207,7 +230,8 @@ def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
                 <= torch.arange(q0, q1, device=q.device)[:, None])
         sc = torch.where(mask[None, :, None, None], sc, -torch.inf)
         p = torch.exp(sc - torch.logsumexp(sc, dim=-1, keepdim=True))
-        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof[:, q0:q1], vf[:, :q1])
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof[:, q0:q1].double(),
+                          vf[:, :q1].double()).float()
         ds = p * (dp - dvec[:, q0:q1, ..., None])
         dv[:, :q1] += torch.einsum("bqhgk,bqhgd->bkhd", p, dof[:, q0:q1])
         dk[:, :q1] += torch.einsum("bqhgk,bqhgd->bkhd", ds, qf[:, q0:q1])
@@ -231,14 +255,25 @@ def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
     doc): the plain version on CPU tensors, else the three kernels of
     the route ``flash_bwd_route`` picks."""
     check_attention_inputs("flash_attention_causal_bwd", q, k, v, 5)
-    b, s, kvh, g, dh = q.shape
     for name, x in (("out", out), ("dout", dout)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"flash_attention_causal_bwd: {name} "
                              f"{tuple(x.shape)} {x.dtype} does not match q "
                              f"{tuple(q.shape)} {q.dtype}")
+    return torch.ops.repro_torch.flash_attention_causal_bwd(q, k, v, out,
+                                                            dout)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_causal_bwd",
+                         mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, dout: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as an operator of its own: the plain version on CPU
+    tensors, else the route's three kernels."""
     if q.device.type == "cpu":
         return flash_attention_causal_bwd_plain(q, k, v, out, dout)
+    b, s, kvh, g, dh = q.shape
     check_kernel_limits("flash_attention_causal_bwd", (q, k, v, out, dout),
                         g, dh, MAX_DH)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
@@ -264,3 +299,8 @@ def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
     LAUNCHES["flash_attention_causal_bwd"] += 1
     LAUNCHES[f"flash_attention_causal_bwd/{route}"] += 1
     return dq, dk, dv
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, dout):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)

@@ -1,16 +1,67 @@
-"""The hardware model of the card the port runs on: one NVIDIA H100 SXM
-(NVIDIA's data sheet and the Hopper architecture white paper; dense
-rates, without sparsity, at the full 700 W power limit).
+"""Mesh construction and the hardware model of the card the port runs
+on (the port of ``repro.launch.mesh``).
 
-The port of ``repro.launch.mesh``'s hardware constants, for the H100 and
-not the reference's TPU: ``chip_smoke.py``'s bounds, the trainer's
-share of the bf16 peak (``launch/train.py``) and, later, the roofline
-divide by these. Mesh construction (``make_production_mesh``) waits for
-the port of ``repro.parallel``.
+``make_production_mesh`` and ``make_local_mesh`` are functions (not
+module constants), so importing this module touches no distributed
+state. Each returns a ``torch.distributed.device_mesh.DeviceMesh`` with
+the reference's shape and axis names, on the card unless the caller
+names the CPU. The mesh takes ranks 0..n-1 of the default process group;
+when none is open, a mesh opens torch's fake process group of
+``FAKE_WORLD`` ranks (this process is rank 0; collectives move nothing),
+which is what the dry run lowers a 256- or 512-card mesh over. A mesh
+needs a world at least its size: a caller with a real process group of
+one rank (a one-card run) can build the local mesh, not the production
+ones.
+
+The hardware model: one NVIDIA H100 SXM (NVIDIA's data sheet and the
+Hopper architecture white paper; dense rates, without sparsity, at the
+full 700 W power limit). ``chip_smoke.py``'s bounds, the trainer's
+share of the bf16 peak (``launch/train.py``) and the roofline
+(``launch/roofline.py``) divide by these; NVLink's rate stands where the
+reference has one ICI link.
 """
 from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.device import DeviceLike, resolve_device
 
 PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s per card
 PEAK_FLOPS_FP32 = 67e12         # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12                # HBM3 bytes/s per card
 NVLINK_BW = 450e9               # NVLink 4 bytes/s each way per card
+
+#: ranks of the fake process group a mesh opens when none is open: the
+#: largest mesh here, (2, 16, 16)
+FAKE_WORLD = 512
+
+
+def _device_mesh(shape, axes, device: DeviceLike):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import repro_torch.parallel  # noqa: F401 — the kernels' DTensor rules
+    dev = resolve_device(device)
+    n = int(np.prod(shape))
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", rank=0, world_size=FAKE_WORLD,
+                                store=FakeStore())
+    if dist.get_world_size() < n:
+        raise RuntimeError(f"a {shape} mesh needs {n} ranks; the process "
+                           f"group has {dist.get_world_size()}")
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device)
+
+
+def make_local_mesh(device: DeviceLike = None):
+    """1-device mesh with the same axis names (tests / smoke runs)."""
+    return _device_mesh((1, 1), ("data", "model"), device)

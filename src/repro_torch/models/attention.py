@@ -31,9 +31,59 @@ def _update_at(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor
                ) -> None:
     """``dynamic_update_slice(cache, new, (0, start, 0, ...))`` for a
     one-position ``new`` [B, 1, ...]: the start clamped to [0, T - 1],
-    written in place."""
+    written in place. A DTensor cache whose time axis is sharded (the
+    reference's sequence-sharded decode cache) takes
+    ``_update_time_sharded``."""
     idx = start.clamp(0, cache.shape[1] - 1).reshape(1).long()
+    if any(p.is_shard(1) for p in getattr(cache, "placements", ())):
+        _update_time_sharded(cache, new, idx)
+        return
     cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def _update_time_sharded(cache, new, idx) -> None:
+    """The write on a DTensor cache sharded on its time axis: each rank
+    writes the position into its own shard iff the shard holds it (what
+    XLA's partitioned ``dynamic_update_slice`` does; DTensor has no
+    strategy for an ``index_copy_`` along a sharded dim). ``new`` and
+    ``idx`` are brought to the cache's placements with the time axis
+    whole."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    with unset_fake_temporarily():          # the offsets are host ints
+        shape, offset = compute_local_shape_and_global_offset(
+            cache.shape, mesh, pl)
+    local = cache.to_local()                # aliases the shard
+    whole_t = [Replicate() if p.is_shard(1) else p for p in pl]
+    new_l = new.redistribute(mesh, whole_t).to_local().to(cache.dtype)
+    rel = idx.redistribute(mesh, [Replicate()] * len(pl)).to_local() \
+        - offset[1]
+    inside = (rel >= 0) & (rel < shape[1])
+    pos = rel.clamp(0, shape[1] - 1)
+    keep = local.index_select(1, pos)
+    local.index_copy_(1, pos, torch.where(
+        inside.reshape((1, 1) + (1,) * (local.dim() - 2)), new_l, keep))
+
+
+def _split_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t`` [..., H * Dh] viewed as ``shape`` [..., H, Dh]. A DTensor
+    whose packed last dim is split over a mesh dim that does not divide
+    H is first gathered on that mesh dim: DTensor's view cannot reshard
+    (XLA's reshape does), and DTensor may split a product's output over
+    ``model`` where the reference's heads do not divide the TP degree.
+    A plain tensor is only viewed."""
+    placements = tuple(getattr(t, "placements", ()))
+    if placements:
+        from torch.distributed.tensor import Replicate
+        sizes, last, h = tuple(t.device_mesh.shape), t.dim() - 1, shape[-2]
+        want = tuple(Replicate() if p.is_shard(last) and h % sizes[i] else p
+                     for i, p in enumerate(placements))
+        if want != placements:
+            t = t.redistribute(t.device_mesh, want)
+    return t.reshape(shape)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -61,9 +111,9 @@ def gqa_project(p, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, rope: bool = True):
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, dh)
-    k = (x @ p["wk"]).reshape(b, s, kvh, dh)
-    v = (x @ p["wv"]).reshape(b, s, kvh, dh)
+    q = _split_heads(x @ p["wq"], b, s, h, dh)
+    k = _split_heads(x @ p["wk"], b, s, kvh, dh)
+    v = _split_heads(x @ p["wv"], b, s, kvh, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -152,8 +202,8 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def _mla_q(p, x, cfg, positions):
     m = cfg.mla
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads,
-                              m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = _split_heads(x @ p["wq"], b, s, cfg.num_heads,
+                     m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
                              dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -183,13 +233,16 @@ def mla_fwd(p, x: torch.Tensor, cfg: ModelConfig, *,
         positions = _positions(b, s, x.device)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     ckv, k_rope = _mla_ckv(p, x, cfg, positions)
-    k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
-    v = (ckv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k_nope = _split_heads(ckv @ p["w_uk"], b, s, h, m.qk_nope_head_dim)
+    v = _split_heads(ckv @ p["w_uv"], b, s, h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     dh = m.qk_nope_head_dim + m.qk_rope_head_dim
-    v_pad = torch.nn.functional.pad(v, (0, dh - m.v_head_dim))
+    # zero columns by a concatenation, not F.pad: torch's DTensor gives
+    # constant_pad_nd's output a malformed spec on a 2-D mesh
+    v_pad = torch.cat([v, v.new_zeros(v.shape[:-1] + (dh - m.v_head_dim,))],
+                      dim=-1)
     out = flash_attention(q, k, v_pad, causal=True, chunk=cfg.attn_chunk)
     out = out[..., :m.v_head_dim].reshape(b, s, h * m.v_head_dim) @ p["wo"]
     return out, (ckv, k_rope)

@@ -9,8 +9,8 @@ einsums to XLA), results gathered back and mixed by the renormalised
 top-k weights. The top-k is a stable descending sort, so tied router
 probabilities pick the lower expert index first, as ``jax.lax.top_k``
 does. Every step is a device operation: a decode step makes no host
-join. The reference's ``constrain_batch`` sharding hint is left out,
-with the training slice.
+join. The tokens are pinned with the reference's ``constrain_batch``
+hint (the identity without an active mesh).
 """
 from __future__ import annotations
 
@@ -101,12 +101,13 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     Capacity-based token-choice routing with overflow drop (dropped
     tokens fall through via the residual / shared experts) and the
     Switch-style load-balancing loss."""
+    from repro_torch.parallel.constraints import constrain_batch
     mo = cfg.moe
     b, s, d = x.shape
     tokens = b * s
     e, k = mo.num_experts, mo.top_k
     dev = x.device
-    xt = x.reshape(tokens, d)
+    xt = constrain_batch(x.reshape(tokens, d))
 
     logits = xt.float() @ p["router"]                        # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -116,7 +117,7 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     # load-balancing aux loss (Switch-style)
     me = probs.mean(0)                                        # [E]
     flat_e = top_i.reshape(-1)                                # [T*k]
-    ce = torch.zeros(e, device=dev).index_add_(
+    ce = torch.zeros(e, device=dev).index_add(
         0, flat_e, torch.full(flat_e.shape, 1.0 / (tokens * k), device=dev))
     aux = e * torch.sum(me * ce)
 
@@ -129,7 +130,7 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     keep = rank < c
     slot = torch.where(keep, flat_e * c + rank, e * c)        # drop -> sentinel
     xr = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
-    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=dev).index_add_(
+    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=dev).index_add(
         0, slot, torch.where(keep[:, None], xr, 0))
     buf = buf[:-1].reshape(e, c, d)
 

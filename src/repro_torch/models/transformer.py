@@ -31,7 +31,8 @@ norms are float32 and every other weight ``cfg.dtype`` unless its
 checked by name, shape and dtype — the route every parity test takes.
 
 Training: ``loss_fn`` is differentiated by autograd (the flash kernel
-through its ``autograd.Function``, whose backward is a kernel too).
+through its operator's autograd formula, whose backward is a kernel
+too).
 ``cfg.remat`` picks what a backward pass keeps of each layer, as the
 reference's ``_maybe_remat``: ``"none"`` keeps everything; ``"full"``
 (the default) keeps each layer's input and recomputes the layer; ``"dots"``
@@ -43,8 +44,12 @@ gradient. Each chunk of ``chunked_ce_loss`` is recomputed in the
 backward too, as the reference's ``jax.checkpoint`` body is, so the
 [B, S, V] logits never exist at once. The stacked layer tree is unbound
 once per call (one ``torch.unbind`` a leaf, whose gradient is one
-``stack``), not indexed once per layer. Left out: the
-``repro.parallel.constraints`` sharding hints (one device).
+``stack``), not indexed once per layer.
+
+Sharding hints: each decoder layer pins its input with the reference's
+``constrain_residual`` and each loss chunk with ``constrain_batch``
+(``repro_torch.parallel.constraints``; the identity without an active
+mesh or on a plain tensor, so they change no bit).
 """
 from __future__ import annotations
 
@@ -277,7 +282,11 @@ def _stacked(trees):
 # Blocks
 # ---------------------------------------------------------------------------
 def _mixer(p, x, cfg: ModelConfig, *, window: int):
-    """Sequence mixer for train / prefill: attention and/or SSM."""
+    """Sequence mixer for train / prefill: attention and/or SSM, on the
+    layer's input pinned by ``constrain_residual`` (the reference's
+    ``_decoder_layer`` pins it first; every decoder layer starts here)."""
+    from repro_torch.parallel.constraints import constrain_residual
+    x = constrain_residual(x)
     if cfg.family == "ssm":
         h_in = rms_norm(x, p["ssm_norm_in"], cfg.norm_eps)
         return x + ssm_mod.ssm_fwd(p["ssm"], h_in, cfg)
@@ -322,7 +331,10 @@ def _layer_tail(p, x, cfg: ModelConfig, enc=None):
 
 def _decoder_layer(p, x, cfg: ModelConfig):
     """A whole decoder layer without remat (DeepSeek's dense prefix
-    layers, as the reference runs them)."""
+    layers, as the reference runs them), on its parameters
+    FSDP-gathered."""
+    from repro_torch.parallel.constraints import gather_params
+    p = gather_params(p)
     return _layer_tail(p, _mixer(p, x, cfg, window=0), cfg)
 
 
@@ -357,7 +369,18 @@ def _dots_context():
 def _maybe_remat(mixer: Callable, tail: Callable, cfg: ModelConfig
                  ) -> Callable:
     """The layer body ``tail(p, mixer(p, x), *extra)`` under
-    ``cfg.remat`` (see the module doc)."""
+    ``cfg.remat`` (see the module doc), each part on its parameters
+    FSDP-gathered inside the remat (``constraints.gather_params``: the
+    identity without a mesh)."""
+    from repro_torch.parallel.constraints import gather_params
+    mixer_in, tail_in = mixer, tail
+
+    def mixer(p, x):
+        return mixer_in(gather_params(p), x)
+
+    def tail(p, h, *extra):
+        return tail_in(gather_params(p), h, *extra)
+
     def body(p, x, *extra):
         return tail(p, mixer(p, x), *extra)
 
@@ -386,16 +409,20 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_tokens(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens.long()]
+    from repro_torch.parallel.constraints import (gather_params,
+                                                  one_axis_batch, row_gather)
+    return row_gather(gather_params(params["embed"]),
+                      one_axis_batch(tokens.long()))
 
 
 def _frontend_concat(params, batch, cfg: ModelConfig):
     """Returns (x [B,S,D], loss_mask [B,S], labels [B,S])."""
+    from repro_torch.parallel.constraints import gather_params
     tokens = batch["tokens"]
     x_txt = _embed_tokens(params, tokens, cfg)
     ones = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
     if cfg.frontend == "patches":
-        ad = params["adapter"]
+        ad = gather_params(params["adapter"])
         emb = _mm(batch["patches"], ad["w"])
         emb = emb + ad["b"].to(emb.dtype)
         x = torch.cat([emb.to(x_txt.dtype), x_txt], dim=1)
@@ -411,10 +438,14 @@ def _frontend_concat(params, batch, cfg: ModelConfig):
 def _chunk_nll(xb, lm_head, lb, mb):
     """Summed negative log-likelihood of one chunk's unmasked positions;
     float32 logits and logsumexp."""
-    logits = (xb @ lm_head).float()
+    from repro_torch.parallel.constraints import constrain_batch
+    logits = (constrain_batch(xb) @ lm_head).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lb[..., None].long())[..., 0]
-    return torch.where(mb, lse - gold, 0.0).sum()
+    # lse - gold on the gather's own [.., 1] shape: a vocab-sharded
+    # DTensor's gathered values stay partial until this subtraction,
+    # which torch's DTensor cannot reduce after a reshape
+    nll = (lse[..., None] - logits.gather(-1, lb[..., None].long()))[..., 0]
+    return torch.where(mb, nll, 0.0).sum()
 
 
 def chunked_ce_loss(x, lm_head, labels, mask, chunk: int = 1024):
@@ -437,7 +468,9 @@ def chunked_ce_loss(x, lm_head, labels, mask, chunk: int = 1024):
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    from repro_torch.parallel.constraints import gather_params
+    return gather_params(params["embed"].T if cfg.tie_embeddings
+                         else params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +488,8 @@ def _encoder_tail(p, x, cfg: ModelConfig):
 
 
 def _run_encoder(params, frames, cfg: ModelConfig):
-    ad = params["adapter"]
+    from repro_torch.parallel.constraints import gather_params
+    ad = gather_params(params["adapter"])
     x = _mm(frames, ad["w"])
     x = (x + ad["b"].to(x.dtype)).to(_DTYPES[cfg.dtype])
     body = _maybe_remat(lambda p, h: _encoder_mixer(p, h, cfg),

@@ -888,6 +888,91 @@ def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_attention_operators_launch_once_each(attn_cuda, dtype):
+    """The kernels' operators (``torch.ops.repro_torch.*``), called
+    directly: one launch each, on the route counters the wrappers count,
+    and the wrappers' bits."""
+    rng = np.random.default_rng(25)
+    q, k, v = (x.cuda() for x in _flash_inputs(25, 2, 96, 2, 3, 64, dtype))
+    dout = _randn(rng, tuple(q.shape), dtype).cuda()
+    route = fmod.flash_route(q, k, v)
+    before = dict(mod.LAUNCHES)
+    out = torch.ops.repro_torch.flash_attention_causal(q, k, v)
+    grads = torch.ops.repro_torch.flash_attention_causal_bwd(q, k, v, out,
+                                                             dout)
+    qd = _randn(rng, (2, 2, 3, 64), dtype).cuda()
+    kc = _randn(rng, (2, 300, 2, 64), dtype).cuda()
+    kl = torch.tensor([17, 300], dtype=torch.int32, device="cuda")
+    dec = torch.ops.repro_torch.decode_attention(qd, kc, kc, kl)
+    torch.cuda.synchronize()
+    moved = {n: mod.LAUNCHES[n] - before[n] for n in before
+             if mod.LAUNCHES[n] != before[n]}
+    broute = fmod.flash_bwd_route(q, k, v, out, dout)
+    assert moved == {"flash_attention_causal": 1,
+                     f"flash_attention_causal/{route}": 1,
+                     "flash_attention_causal_bwd": 1,
+                     f"flash_attention_causal_bwd/{broute}": 1,
+                     **{f"flash_attention_causal_bwd/{n}": 1
+                        for n in fmod.BWD_KERNELS},
+                     "decode_attention": 1}
+    assert torch.equal(out, fmod.flash_attention_causal(q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(
+        grads, fmod.flash_attention_causal_bwd(q, k, v, out, dout)))
+    assert torch.equal(dec, dmod.decode_attention(qd, kc, kc, kl))
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) DeviceMesh on the card over a real one-rank process group
+    (``HashStore``), closed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already open")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_local_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_flash_on_one_rank_dtensors_bit_equal(attn_cuda, one_rank_mesh,
+                                              dtype):
+    """q, k and v as DTensors of the one-card mesh (replicated, and sharded
+    on the batch and on the KV heads over its size-1 dims) through
+    ``flash_attention_causal`` and its backward: the plain tensors' bits,
+    one forward and one backward launch a call."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    rng = np.random.default_rng(26)
+    q, k, v = (x.cuda() for x in _flash_inputs(26, 2, 130, 2, 3, 64, dtype))
+    dout = _randn(rng, tuple(q.shape), dtype).cuda()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = fmod.flash_attention_causal(*leaves)
+    want.backward(dout)
+    for pl in ([Replicate(), Replicate()], [Shard(0), Replicate()],
+               [Replicate(), Shard(2)]):
+        dleaves = [DTensor.from_local(x.clone(), one_rank_mesh, pl,
+                                      run_check=False).requires_grad_(True)
+                   for x in (q, k, v)]
+        before = dict(mod.LAUNCHES)
+        out = fmod.flash_attention_causal(*dleaves)
+        out.backward(DTensor.from_local(dout, one_rank_mesh, pl,
+                                        run_check=False))
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES["flash_attention_causal"] == \
+            before["flash_attention_causal"] + 1
+        assert mod.LAUNCHES["flash_attention_causal_bwd"] == \
+            before["flash_attention_causal_bwd"] + 1
+        assert tuple(out.placements) == tuple(pl)
+        assert torch.equal(out.to_local(), want)
+        for d, x in zip(dleaves, leaves):
+            assert torch.equal(d.grad.to_local(), x.grad)
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
 def test_model_flash_route_gradient(attn_cuda, dtype):
     """``layers.flash_attention`` under autograd on the card: the forward
     and backward kernels launch once each, and the gradients equal the
@@ -951,6 +1036,33 @@ def test_loss_gradient_card_equals_cpu(attn_cuda, arch):
         got = layers.flatten(ggrads)[name].cpu()
         scale = max(float(g.abs().max()), 1e-30)
         assert float((got - g).abs().max()) / scale <= 1e-3, name
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "save_attn"])
+def test_remat_policies_launch_the_operators_alike(attn_cuda, remat):
+    """The flash operator under each remat policy, on reduced
+    smollm-360m: every policy that recomputes the mixer ("full",
+    "dots" through ``_keep_dots``, which recomputes the operator as it
+    recomputed the earlier ``autograd.Function``, and "save_attn", which
+    checkpoints the mixer apart) launches 2 x layers forwards, "none"
+    one a layer; each policy one backward a layer."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = dataclasses.replace(reduced_config("smollm-360m"), remat=remat)
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 128), device="cuda",
+                           dtype=torch.int32)
+    before = dict(mod.LAUNCHES)
+    value_and_grad(params, {"tokens": tokens, "labels": tokens}, cfg)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    assert mod.LAUNCHES["flash_attention_causal"] - \
+        before["flash_attention_causal"] == (n if remat == "none" else 2 * n)
+    assert mod.LAUNCHES["flash_attention_causal_bwd"] - \
+        before["flash_attention_causal_bwd"] == n
 
 
 # ---------------------------------------------------------------------------
