@@ -209,7 +209,7 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
              float* __restrict__ lse, float* __restrict__ dvec, int B, int S,
              int kvh, int g, int dh, float scale) {
   extern __shared__ float smem[];
-  __shared__ float red_m[kBR][16], red_l[kBR][16], red_d[kBR];
+  __shared__ float red_m[kBR][16], red_l[kBR][16];
   __shared__ int rpos[kBR];
   const int ld = dh + 1;
   float* Ks = smem;
@@ -224,19 +224,6 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long kv_stride = static_cast<long long>(kvh) * dh;
   load_rows<T>(q, nullptr, nullptr, nullptr, b, S, kvh, h, g, dh, ld, scale,
                r0, n_r, Qs, nullptr, nullptr, nullptr, rpos);
-
-  // D = sum_d dout . out: one thread a row, one fmaf chain in order of d
-  // on the float32 values of dout and out, as tile_dots sums dP = dout . v.
-  // Where out is a key's v (S = 1: P = 1, out = v_0), dP - D is then
-  // exactly 0, as the true dS is.
-  if (threadIdx.x < n_r) {
-    const int r = threadIdx.x;
-    const long long base = row_index(b, S, kvh, h, g, r0 + r) * dh;
-    float acc = 0.f;
-    for (int d = 0; d < dh; ++d)
-      acc = fmaf(to_f32(dout[base + d]), to_f32(out[base + d]), acc);
-    red_d[r] = acc;
-  }
 
   const int kx = threadIdx.x & 15, ry = threadIdx.x >> 4;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -278,7 +265,15 @@ stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (red_l[r][x] > 0.f) sum += red_l[r][x] * expf(red_m[r][x] - mx);
     const long long idx = row_index(b, S, kvh, h, g, r0 + r);
     lse[idx] = mx + logf(sum);       // key 0 is visible: sum >= 1
-    dvec[idx] = red_d[r];
+    // D = sum_d dout . out: one fmaf chain in order of d on the float32
+    // values of dout and out, as tile_dots sums dP = dout . v. Where out
+    // is a key's v (S = 1: P = 1, out = v_0), dP - D is then exactly 0,
+    // as the true dS is.
+    float dsum = 0.f;
+    for (int d = 0; d < dh; ++d)
+      dsum = fmaf(to_f32(dout[idx * dh + d]), to_f32(out[idx * dh + d]),
+                  dsum);
+    dvec[idx] = dsum;
   }
 }
 

@@ -251,6 +251,20 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// The encoder needs a context current on the calling thread, which the
+// runtime binds only at a thread's first call that needs one: a thread
+// whose first device work is this encoding (autograd's device thread when
+// an operator's backward is the first node it runs) gets
+// CUDA_ERROR_INVALID_CONTEXT. cudaFree(nullptr), the runtime's no-op,
+// binds the device's primary context; then the encoding is made again.
+template <typename... Args>
+inline CUresult encode_with_context(EncodeTiled fn, Args... args) {
+  CUresult res = fn(args...);
+  if (res == CUDA_ERROR_INVALID_CONTEXT && cudaFree(nullptr) == cudaSuccess)
+    res = fn(args...);
+  return res;
+}
+
 // Launch functions return a cudaError_t; a failed tensor-map encoding
 // returns kEncodeError + its CUresult (kEncodeError when the encoder
 // could not be found), above every cudaError_t value.
@@ -272,12 +286,11 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(base), dims, strides, box, elem,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode_with_context(
+      fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4u, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
 }
 
@@ -299,12 +312,11 @@ inline int encode_bshgd(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(G), 1,
                              static_cast<cuuint32_t>(bq), 1};
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
-                          const_cast<void*>(base), dims, strides, box, elem,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode_with_context(
+      fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5u, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
 }
 

@@ -28,11 +28,12 @@ softmaxes in rank order through distributed shared memory — no atomics,
 so repeated calls give the same bits and nothing past ``kv_len`` is
 read.
 
-The call is an operator of its own (``torch.library.custom_op``:
-``torch.ops.repro_torch.decode_attention``), so a dispatch mode sees it
-as one op, a ``FakeTensor`` call returns shapes without touching the
-kernel, and a ``DTensor`` call runs on the local shards by the rule
-``repro_torch.parallel`` registers (batch and KV heads shard).
+The call is an operator of its own (``torch.ops.repro_torch.
+decode_attention``, defined with ``torch.library.Library``: one
+implementation on the CPU and CUDA keys and a fake one), so a dispatch
+mode sees it as one op, a ``FakeTensor`` call returns shapes without
+touching the kernel, and a ``DTensor`` call runs on the local shards by
+the rule ``launch.mesh`` registers (batch and KV heads shard).
 """
 from __future__ import annotations
 
@@ -141,11 +142,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.ops.repro_torch.decode_attention(q, k, v, kv_len)
 
 
-@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
-def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               kv_len: torch.Tensor) -> torch.Tensor:
-    """The call as an operator of its own: the plain version on CPU
-    tensors, else one launch of the kernel (``kv_len`` int32 [B])."""
+def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kv_len: torch.Tensor) -> torch.Tensor:
+    """The operator's implementation: the plain version on CPU tensors,
+    else one launch of the kernel (``kv_len`` int32 [B])."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len)
     b, kvh, g, dh = q.shape
@@ -163,6 +163,13 @@ def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-@_decode_op.register_fake
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor kv_len)"
+            " -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("decode_attention", _decode, _key)
+
+
+@torch.library.register_fake("repro_torch::decode_attention", lib=_LIB)
 def _decode_fake(q, k, v, kv_len):
     return q.new_empty(q.shape)

@@ -35,20 +35,22 @@ on the H100 (operations, at the serving shapes) and what each design
 does about it is in the source's header note.
 
 Both entry points are operators of their own
-(``torch.library.custom_op``: ``torch.ops.repro_torch.
-flash_attention_causal`` and ``..._bwd``), so a dispatch mode sees each
-call as one op (``launch.counting`` counts it by its formula), a
-``FakeTensor`` call returns shapes without touching a kernel, and a
-``DTensor`` call runs on the local shards by the rule
-``repro_torch.parallel`` registers (batch and KV heads shard, sequence
+(``torch.ops.repro_torch.flash_attention_causal`` and ``..._bwd``,
+defined with ``torch.library.Library``: one implementation on the CPU
+and CUDA keys, which picks plain or kernel by device, and a fake one),
+so a dispatch mode sees each call as one op (``launch.counting`` counts
+it by its formula), a ``FakeTensor`` call returns shapes without
+touching a kernel, and a ``DTensor`` call runs on the local shards by
+the rule ``launch.mesh`` registers (batch and KV heads shard, sequence
 and Dh replicate).
 
-The gradient: ``flash_attention_causal``'s autograd formula (its
-``register_autograd``) is ``flash_attention_causal_bwd`` — dq, dk and dv
-from q, k, v, the forward's output and its gradient, with a float32
-softmax recomputed from the saved inputs. On CUDA tensors it launches
-three kernels (row statistics, then dk/dv, then dq; no float atomics, so
-the bits repeat) of one of two sources, which ``flash_bwd_route`` picks
+The gradient: ``flash_attention_causal`` is a ``torch.autograd.Function``
+over the forward operator whose backward is ``flash_attention_causal_bwd``
+— dq, dk and dv from q, k, v, the forward's output and its gradient,
+with a float32 softmax recomputed from the saved inputs. On CUDA tensors
+it launches three kernels (row statistics, then dk/dv, then dq; no float
+atomics, so the bits repeat) of one of two sources, which
+``flash_bwd_route`` picks
 by dtype and shape before the launch:
 
 * ``"wgmma"`` — bf16 with Dh a multiple of 16 up to 128 and 16-byte
@@ -164,30 +166,46 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out
 
 
-@torch.library.custom_op("repro_torch::flash_attention_causal",
-                         mutates_args=())
-def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-              ) -> torch.Tensor:
-    """The forward as an operator of its own: ``_forward``."""
+#: the two operators, each with one implementation for CPU and CUDA
+#: tensors (which picks plain or kernel by device) and a fake one (shapes
+#: only); autograd sits above the forward in ``_FlashCausal``
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_causal(Tensor q, Tensor k, Tensor v) -> Tensor")
+_LIB.define("flash_attention_causal_bwd(Tensor q, Tensor k, Tensor v, "
+            "Tensor out, Tensor dout) -> (Tensor, Tensor, Tensor)")
+
+
+def _forward_impl(q, k, v):
+    """The forward operator's implementation: ``_forward``, looked up at
+    each call (so a caller may wrap it)."""
     return _forward(q, k, v)
 
 
-@_flash_op.register_fake
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_attention_causal", _forward_impl, _key)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_causal",
+                             lib=_LIB)
 def _flash_fake(q, k, v):
     return q.new_empty(q.shape)
 
 
-def _flash_setup(ctx, inputs, output):
-    q, k, v = inputs
-    ctx.save_for_backward(q, k, v, output)
+class _FlashCausal(torch.autograd.Function):
+    """The forward operator with ``flash_attention_causal_bwd`` as its
+    gradient (both the plain versions on the CPU)."""
 
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = torch.ops.repro_torch.flash_attention_causal(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
 
-def _flash_grad(ctx, dout):
-    q, k, v, out = ctx.saved_tensors
-    return flash_attention_causal_bwd(q, k, v, out, dout.contiguous())
-
-
-_flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return flash_attention_causal_bwd(q, k, v, out, dout.contiguous())
 
 
 def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
@@ -199,7 +217,7 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
     if tuple(k.shape) != (b, s, kvh, dh):
         raise ValueError(f"flash_attention_causal: q {tuple(q.shape)} does "
                          f"not match k {tuple(k.shape)}")
-    return torch.ops.repro_torch.flash_attention_causal(q, k, v)
+    return _FlashCausal.apply(q, k, v)
 
 
 def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
@@ -264,13 +282,10 @@ def flash_attention_causal_bwd(q: torch.Tensor, k: torch.Tensor,
                                                             dout)
 
 
-@torch.library.custom_op("repro_torch::flash_attention_causal_bwd",
-                         mutates_args=())
-def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  out: torch.Tensor, dout: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward as an operator of its own: the plain version on CPU
-    tensors, else the route's three kernels."""
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, dout: torch.Tensor):
+    """The backward call: the plain version on CPU tensors, else the
+    route's three kernels."""
     if q.device.type == "cpu":
         return flash_attention_causal_bwd_plain(q, k, v, out, dout)
     b, s, kvh, g, dh = q.shape
@@ -301,6 +316,11 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-@_flash_bwd_op.register_fake
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_attention_causal_bwd", _backward, _key)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_causal_bwd",
+                             lib=_LIB)
 def _flash_bwd_fake(q, k, v, out, dout):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)

@@ -76,7 +76,6 @@ REDUCED_SHAPES = {
     "decode_32k": dict(seq=256, batch=4, kind="decode"),
     "long_500k": dict(seq=512, batch=1, kind="decode"),
 }
-MESH_KINDS = ("local", "single", "multi")
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -272,7 +271,7 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="both",
-                    choices=["single", "multi", "both", "local", "all"])
+                    choices=["single", "multi", "both", "local"])
     ap.add_argument("--out", default=str(RESULTS / "dryrun.json"))
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="cuda")
@@ -288,8 +287,7 @@ def main(argv=None):
 
     archs = [args.arch] if args.arch else list(ALL_ARCHS)
     shapes = [args.shape] if args.shape else list(specs_mod.SHAPES)
-    meshes = {"both": ["single", "multi"],
-              "all": list(MESH_KINDS)}.get(args.mesh, [args.mesh])
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     for arch in archs:
         for shape in shapes:

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import ParamDef, squared_relu
+from repro_torch.parallel.constraints import constrain_batch
 
 
 def dense_defs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamDef]:
@@ -101,7 +102,6 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     Capacity-based token-choice routing with overflow drop (dropped
     tokens fall through via the residual / shared experts) and the
     Switch-style load-balancing loss."""
-    from repro_torch.parallel.constraints import constrain_batch
     mo = cfg.moe
     b, s, d = x.shape
     tokens = b * s
@@ -117,7 +117,7 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     # load-balancing aux loss (Switch-style)
     me = probs.mean(0)                                        # [E]
     flat_e = top_i.reshape(-1)                                # [T*k]
-    ce = torch.zeros(e, device=dev).index_add(
+    ce = me.new_zeros(e).index_add_(
         0, flat_e, torch.full(flat_e.shape, 1.0 / (tokens * k), device=dev))
     aux = e * torch.sum(me * ce)
 
@@ -130,7 +130,7 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     keep = rank < c
     slot = torch.where(keep, flat_e * c + rank, e * c)        # drop -> sentinel
     xr = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
-    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=dev).index_add(
+    buf = xt.new_zeros((e * c + 1, d)).index_add_(
         0, slot, torch.where(keep[:, None], xr, 0))
     buf = buf[:-1].reshape(e, c, d)
 

@@ -21,14 +21,14 @@ launches are counted by ``kernels.ops.LAUNCHES``.
 
 The blockwise code pins q, k and v with the reference's
 ``constrain_batch`` hints (``repro_torch.parallel.constraints``: the
-identity without an active mesh or on a plain tensor). Each chunk the
-reference scans under ``jax.checkpoint`` (every chunk of
-``_flash_scan_all``, the interior chunks of ``_flash_causal_blocks``)
-recomputes its scores and softmax in the backward, as the reference's
-remat does (``_chunk_step``); that changes no value or gradient, and
-gives the backward the reference's products. The kernel route is
-differentiable: ``flash_attention_causal`` is an operator whose
-autograd formula is the backward kernel.
+identity without an active mesh or on a plain tensor). Left out: the
+reference's ``jax.checkpoint`` around the scanned chunk bodies (under
+autograd the blockwise code keeps each chunk's tensors until the layer's
+backward; a remat policy recomputes the layer, which bounds that to one
+layer). It changes no value or gradient; ``launch.counting``'s parity
+test states the products it adds to the reference's count. The kernel
+route is differentiable: ``flash_attention_causal``'s backward is a
+kernel too.
 """
 from __future__ import annotations
 
@@ -38,9 +38,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.constraints import constrain_batch
 
 Params = Dict[str, Any]
 
@@ -145,9 +145,9 @@ def _rope_freqs_on(head_dim: int, theta: float, device: torch.device
 
 def _rope_freqs_for(head_dim: int, theta: float, device: torch.device
                     ) -> torch.Tensor:
-    """``_rope_freqs_on``, or under a ``FakeTensorMode`` (the dry run) a
-    fake copy of this mode's own, never cached: a fake tensor must not
-    outlive its mode."""
+    """``_rope_freqs_on``, or under a ``FakeTensorMode`` a fake copy of
+    this mode's own, never cached: a fake tensor must not outlive its
+    mode."""
     if torch._C._get_dispatch_mode(
             torch._C._TorchDispatchModeKey.FAKE) is not None:
         return torch.from_numpy(np.asarray(rope_freqs(head_dim, theta),
@@ -188,11 +188,10 @@ def _f32_dot(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, a.float(), b.float())
 
 
-def _softmax_probs(s, mask, m, l, dtype):
-    """The first half of one chunk of the reference's online softmax:
-    ``mask`` (None: all visible) at -inf, ``m_safe`` for fully masked
-    rows; returns (p rounded to ``dtype`` for the P.V product, m_new,
-    l_new, corr)."""
+def _softmax_block(s, mask, vb, m, l, acc, spec: str):
+    """One chunk of the reference's online softmax: ``mask`` (None: all
+    visible) at -inf, ``m_safe`` for fully masked rows, p rounded to the
+    value dtype for the P.V product."""
     if mask is not None:
         s = torch.where(mask, s, -torch.inf)
     m_new = torch.maximum(m, s.amax(dim=-1))
@@ -202,40 +201,8 @@ def _softmax_probs(s, mask, m, l, dtype):
         p = torch.where(mask, p, 0.0)
     corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
     l_new = l * corr + p.sum(dim=-1)
-    return p.to(dtype), m_new, l_new, corr
-
-
-def _softmax_block(s, mask, vb, m, l, acc, spec: str):
-    """One chunk of the reference's online softmax (see
-    ``_softmax_probs``) with its P.V product."""
-    p, m_new, l_new, corr = _softmax_probs(s, mask, m, l, vb.dtype)
-    acc_new = acc * corr[..., None] + _f32_dot(spec, p, vb)
+    acc_new = acc * corr[..., None] + _f32_dot(spec, p.to(vb.dtype), vb)
     return m_new, l_new, acc_new
-
-
-def _chunk_step(qb, kb, vb, mask, edge, m, l, acc, spec_s: str,
-                spec_o: str):
-    """One scanned chunk body of the reference (``jax.checkpoint``-ed
-    there): scores ``qb . kb`` (``edge``: a window's left edge, at -inf
-    before the softmax), the softmax under ``mask``, then the P.V
-    product. Under autograd the scores and the softmax are recomputed in
-    the backward from the chunk's inputs, as the reference's remat
-    recomputes them; p is what the P.V product keeps. Values are those of
-    ``_softmax_block``."""
-    def probs(qb, kb, m, l):
-        s = _f32_dot(spec_s, qb, kb)
-        if edge is not None:
-            s = torch.where(edge, s, -torch.inf)
-        return _softmax_probs(s, mask, m, l, vb.dtype)
-
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (qb, kb, m, l)):
-        p, m_new, l_new, corr = checkpoint.checkpoint(
-            probs, qb, kb, m, l, use_reentrant=False,
-            preserve_rng_state=False)
-    else:
-        p, m_new, l_new, corr = probs(qb, kb, m, l)
-    return m_new, l_new, acc * corr[..., None] + _f32_dot(spec_o, p, vb)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -271,7 +238,6 @@ def _flash_scan_all(q, k, v, *, causal: bool, chunk: int, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """The reference's path: every KV chunk for the full q block, with
     causal, window and padding masks."""
-    from repro_torch.parallel.constraints import constrain_batch
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     groups = h // kvh
@@ -292,6 +258,7 @@ def _flash_scan_all(q, k, v, *, causal: bool, chunk: int, window: int = 0,
         kb = k[:, c * chunk:(c + 1) * chunk]
         vb = v[:, c * chunk:(c + 1) * chunk]
         k_pos = c * chunk + torch.arange(chunk, device=dev)
+        s = _f32_dot("bqkgd,bckd->bqkgc", qf, kb)         # [B,Sq,KvH,G,C]
         if causal:
             mask = k_pos[None, :] <= q_pos[:, None]
         else:
@@ -299,9 +266,8 @@ def _flash_scan_all(q, k, v, *, causal: bool, chunk: int, window: int = 0,
         if window:
             mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
         mask = mask & (k_pos < sk)[None, :]                # kill padding
-        m, l, acc = _chunk_step(qf, kb, vb, mask[None, :, None, None, :],
-                                None, m, l, acc, "bqkgd,bckd->bqkgc",
-                                "bqkgc,bckd->bqkgd")        # [B,Sq,KvH,G,C]
+        m, l, acc = _softmax_block(s, mask[None, :, None, None, :], vb, m,
+                                   l, acc, "bqkgc,bckd->bqkgd")
     out = acc / l.clamp(min=1e-30)[..., None]
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
@@ -311,7 +277,6 @@ def _flash_causal_blocks(q, k, v, *, chunk: int, window: int = 0
     """The reference's causal path with diagonal-band skipping: q-block i
     takes the unmasked interior chunks [lo, i) (only a window's left edge
     masked) and then its diagonal chunk under the triangular mask."""
-    from repro_torch.parallel.constraints import constrain_batch
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     groups = h // kvh
@@ -335,13 +300,14 @@ def _flash_causal_blocks(q, k, v, *, chunk: int, window: int = 0
         l = torch.zeros((b, chunk, kvh, groups), device=dev)
         acc = torch.zeros((b, chunk, kvh, groups, dh), device=dev)
         for j in range(lo, i):                   # interior chunks
+            s = _f32_dot(spec_s, qb[:, i], kc[:, j])
             edge = None
             if window:
                 edge = ((j * chunk + ar)[None, :]
                         > (i * chunk + ar)[:, None] - window)
                 edge = edge[None, :, None, None, :]
-            m, l, acc = _chunk_step(qb[:, i], kc[:, j], vc[:, j], None, edge,
-                                    m, l, acc, spec_s, spec_o)
+                s = torch.where(edge, s, -torch.inf)
+            m, l, acc = _softmax_block(s, None, vc[:, j], m, l, acc, spec_o)
         s = _f32_dot(spec_s, qb[:, i], kc[:, i])   # the diagonal chunk
         s = torch.where(tri[None, :, None, None, :], s, -torch.inf)
         m, l, acc = _softmax_block(s, None, vc[:, i], m, l, acc, spec_o)

@@ -10,11 +10,7 @@ three-operand einsums are contracted pairwise in a fixed order, so no
 width that would be ~4 GB a batch row at S = 2048): the decay mask
 times C.B first (the size of the mask), then one batched product with
 x.dt; the chunk states weight x first, then contract over positions;
-the inter-chunk term scales C by the decay, then contracts it with the
-carried state. These are the pairs the reference's ``jnp.einsum``
-contracts, and each of its no-contraction pairs is a two-operand
-``torch.einsum`` here too (``launch.counting`` counts those as the dots
-XLA makes of them).
+the inter-chunk term contracts C with the carried state, then scales.
 Like the reference, ``ssd_chunked`` needs S to be a multiple of the
 chunk (256 at full width), and pins its chunked x with the reference's
 ``constrain_batch`` hint (the identity without an active mesh).
@@ -28,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.parallel.constraints import constrain_batch
 
 
 def ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -93,7 +90,6 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if nc * chunk != s:
         raise ValueError(f"ssd_chunked: S={s} is not a multiple of the "
                          f"chunk {chunk}")
-    from repro_torch.parallel.constraints import constrain_batch
     f32 = torch.float32
     xc = constrain_batch(x.reshape(b, nc, chunk, nh, hd).to(f32))
     dtc = dt.reshape(b, nc, chunk, nh).to(f32)
@@ -111,13 +107,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     L = torch.where(mask[None, None, :, :, None], torch.exp(li), 0.0)
     cb = torch.einsum("bnid,bnjd->bnij", Cc, Bc)                # [B,NC,Q,Q]
     xdt = xc * dtc[..., None]                                   # [B,NC,Q,nh,hd]
-    y_intra = torch.einsum("bnijh,bnjhp->bnihp",
-                           torch.einsum("bnij,bnijh->bnijh", cb, L), xdt)
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", cb[..., None] * L, xdt)
 
     # --- chunk states -------------------------------------------------------
     decay_to_end = torch.exp(total[:, :, None, :] - seg)        # [B,NC,Q,nh]
-    wx = torch.einsum("bnqh,bnqhp->bnqhp", decay_to_end * dtc,
-                      xc)                                       # [B,NC,Q,nh,hd]
+    wx = (decay_to_end * dtc)[..., None] * xc                   # [B,NC,Q,nh,hd]
     states = torch.einsum("bnqd,bnqhp->bnhpd", Bc, wx)          # [B,NC,nh,hd,ds]
 
     # --- inter-chunk recurrence (a loop over chunks) ------------------------
@@ -130,8 +124,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     prev_states = torch.stack(prev, dim=1)                      # [B,NC,nh,hd,ds]
 
     # --- inter-chunk contribution -------------------------------------------
-    cd = torch.einsum("bnqh,bnqd->bnqhd", torch.exp(seg), Cc)  # [B,NC,Q,nh,ds]
-    y_inter = torch.einsum("bnqhd,bnhpd->bnqhp", cd, prev_states)
+    y_inter = torch.einsum("bnqd,bnhpd->bnqhp", Cc, prev_states) \
+        * torch.exp(seg)[..., None]
 
     y = (y_intra + y_inter).reshape(b, s, nh, hd)
     return y, carry

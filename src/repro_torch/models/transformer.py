@@ -31,8 +31,7 @@ norms are float32 and every other weight ``cfg.dtype`` unless its
 checked by name, shape and dtype — the route every parity test takes.
 
 Training: ``loss_fn`` is differentiated by autograd (the flash kernel
-through its operator's autograd formula, whose backward is a kernel
-too).
+through its ``autograd.Function``, whose backward is a kernel too).
 ``cfg.remat`` picks what a backward pass keeps of each layer, as the
 reference's ``_maybe_remat``: ``"none"`` keeps everything; ``"full"``
 (the default) keeps each layer's input and recomputes the layer; ``"dots"``
@@ -66,6 +65,10 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_DTYPES, ParamDef, Params, flatten,
                                        init_from_defs, rms_norm, unflatten)
+from repro_torch.parallel.constraints import (constrain_batch,
+                                              constrain_residual,
+                                              gather_params, one_axis_batch,
+                                              row_gather)
 
 VISION_EMBED_DIM = 1152     # stubbed vision tower output (SigLIP-like)
 AUDIO_FEAT_DIM = 160        # stubbed fbank features (80 mel x 2 stacking)
@@ -285,7 +288,6 @@ def _mixer(p, x, cfg: ModelConfig, *, window: int):
     """Sequence mixer for train / prefill: attention and/or SSM, on the
     layer's input pinned by ``constrain_residual`` (the reference's
     ``_decoder_layer`` pins it first; every decoder layer starts here)."""
-    from repro_torch.parallel.constraints import constrain_residual
     x = constrain_residual(x)
     if cfg.family == "ssm":
         h_in = rms_norm(x, p["ssm_norm_in"], cfg.norm_eps)
@@ -333,7 +335,6 @@ def _decoder_layer(p, x, cfg: ModelConfig):
     """A whole decoder layer without remat (DeepSeek's dense prefix
     layers, as the reference runs them), on its parameters
     FSDP-gathered."""
-    from repro_torch.parallel.constraints import gather_params
     p = gather_params(p)
     return _layer_tail(p, _mixer(p, x, cfg, window=0), cfg)
 
@@ -372,7 +373,6 @@ def _maybe_remat(mixer: Callable, tail: Callable, cfg: ModelConfig
     ``cfg.remat`` (see the module doc), each part on its parameters
     FSDP-gathered inside the remat (``constraints.gather_params``: the
     identity without a mesh)."""
-    from repro_torch.parallel.constraints import gather_params
     mixer_in, tail_in = mixer, tail
 
     def mixer(p, x):
@@ -409,15 +409,12 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_tokens(params, tokens, cfg: ModelConfig):
-    from repro_torch.parallel.constraints import (gather_params,
-                                                  one_axis_batch, row_gather)
     return row_gather(gather_params(params["embed"]),
                       one_axis_batch(tokens.long()))
 
 
 def _frontend_concat(params, batch, cfg: ModelConfig):
     """Returns (x [B,S,D], loss_mask [B,S], labels [B,S])."""
-    from repro_torch.parallel.constraints import gather_params
     tokens = batch["tokens"]
     x_txt = _embed_tokens(params, tokens, cfg)
     ones = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
@@ -438,7 +435,6 @@ def _frontend_concat(params, batch, cfg: ModelConfig):
 def _chunk_nll(xb, lm_head, lb, mb):
     """Summed negative log-likelihood of one chunk's unmasked positions;
     float32 logits and logsumexp."""
-    from repro_torch.parallel.constraints import constrain_batch
     logits = (constrain_batch(xb) @ lm_head).float()
     lse = torch.logsumexp(logits, dim=-1)
     # lse - gold on the gather's own [.., 1] shape: a vocab-sharded
@@ -468,7 +464,6 @@ def chunked_ce_loss(x, lm_head, labels, mask, chunk: int = 1024):
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
-    from repro_torch.parallel.constraints import gather_params
     return gather_params(params["embed"].T if cfg.tie_embeddings
                          else params["lm_head"])
 
@@ -488,7 +483,6 @@ def _encoder_tail(p, x, cfg: ModelConfig):
 
 
 def _run_encoder(params, frames, cfg: ModelConfig):
-    from repro_torch.parallel.constraints import gather_params
     ad = gather_params(params["adapter"])
     x = _mm(frames, ad["w"])
     x = (x + ad["b"].to(x.dtype)).to(_DTYPES[cfg.dtype])

@@ -1,85 +1,7 @@
 """Parallelism plan (the port of ``repro.parallel``): ``sharding`` (logical
-axes to mesh axes, with divisibility fallbacks, as DTensor placements)
-and ``constraints`` (activation hints threaded through a context
-variable).
-
-Importing the package registers DTensor's rule for the attention
-kernels' operators (``torch.ops.repro_torch.*``, which DTensor has no
-strategy for): each runs on the local shards when every tensor is
-replicated, sharded on the batch dim, or sharded on the KV-head dim
-(the sequence and Dh dims stay whole, as a kernel needs them). Every
-mesh the port builds (``launch.mesh``) imports it first.
-
-It also gives DTensor a rule for the aten ops the models use that some
-torch versions have no strategy (nor decomposition) for: ``index_copy``
-and ``index_add`` (the decode caches' writes, the MoE dispatch) run on
-shards of any dim but the one they index, with the index replicated;
-``flip`` on shards of any dim it does not flip. A version that has a
-strategy keeps its own.
+axes to mesh axes, with divisibility fallbacks), ``constraints``
+(activation hints threaded through a context variable) and ``spec`` (the
+spec form both share, and its DTensor placements). DTensor's rules for
+the ops it lacks are registered where meshes are built
+(``launch.mesh``).
 """
-import torch
-from torch.distributed.tensor import Replicate, Shard
-from torch.distributed.tensor.experimental import register_sharding
-
-import repro_torch.kernels.ops  # noqa: F401 — defines the operators
-
-
-@register_sharding(torch.ops.repro_torch.flash_attention_causal.default)
-def _flash_rule(q, k, v):
-    # q [B, S, KvH, G, Dh], k and v [B, S, KvH, Dh]
-    return [([Replicate()], [Replicate()] * 3),
-            ([Shard(0)], [Shard(0)] * 3),
-            ([Shard(2)], [Shard(2)] * 3)]
-
-
-@register_sharding(torch.ops.repro_torch.flash_attention_causal_bwd.default)
-def _flash_bwd_rule(q, k, v, out, dout):
-    # (dq, dk, dv) shard as (q, k, v); out and dout as q
-    rules = [([Replicate()] * 3, [Replicate()] * 5)]
-    for d in (0, 2):
-        rules.append(([Shard(d)] * 3, [Shard(d)] * 5))
-    return rules
-
-
-@register_sharding(torch.ops.repro_torch.decode_attention.default)
-def _decode_rule(q, k, v, kv_len):
-    # q [B, KvH, G, Dh], k and v [B, T, KvH, Dh], kv_len [B]
-    return [([Replicate()], [Replicate()] * 4),
-            ([Shard(0)], [Shard(0)] * 4),
-            ([Shard(1)], [Shard(1), Shard(2), Shard(2), Replicate()])]
-
-
-def _registered(op) -> bool:
-    from torch.distributed.tensor import DTensor
-    prop = DTensor._op_dispatcher.sharding_propagator
-    return any(op in getattr(prop, name, {}) for name in (
-        "op_strategy_funcs", "op_to_rules", "op_single_dim_strategy_funcs"))
-
-
-def _index_rule(self, dim, index, source, *rest):
-    """(self, dim, index, source[, alpha]): the output as self; shards of
-    any dim but ``dim``, the index whole."""
-    tail = [None] * len(rest)
-    rules = [([Replicate()], [Replicate(), None, Replicate(), Replicate()]
-              + tail)]
-    for d in range(self.ndim):
-        if d != dim % self.ndim:
-            rules.append(([Shard(d)], [Shard(d), None, Replicate(),
-                                       Shard(d)] + tail))
-    return rules
-
-
-def _flip_rule(self, dims):
-    flipped = {d % self.ndim for d in dims}
-    return [([Replicate()], [Replicate(), None])] + [
-        ([Shard(d)], [Shard(d), None]) for d in range(self.ndim)
-        if d not in flipped]
-
-
-for _op, _rule in ((torch.ops.aten.index_copy_.default, _index_rule),
-                   (torch.ops.aten.index_copy.default, _index_rule),
-                   (torch.ops.aten.index_add_.default, _index_rule),
-                   (torch.ops.aten.index_add.default, _index_rule),
-                   (torch.ops.aten.flip.default, _flip_rule)):
-    if not _registered(_op):
-        register_sharding(_op)(_rule)

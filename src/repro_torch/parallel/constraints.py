@@ -32,8 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.parallel.sharding import Spec, as_spec, mesh_shape, \
-    placements
+from repro_torch.parallel.spec import Spec, as_spec, mesh_shape, placements
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_activation_mesh", default=None)

@@ -22,7 +22,7 @@ entry per leading dim — ``None``, a mesh axis name, or a tuple of names,
 a one-name tuple held as the bare name, as ``P(*entries)`` holds it —
 and, where the reference pops trailing ``None`` entries, without them.
 Where the reference returns a ``NamedSharding`` the port returns the
-bare spec; ``placements(spec, mesh)`` turns one into DTensor placements
+bare spec; ``placements(spec, mesh)`` (``parallel.spec``) turns one into DTensor placements
 over a ``DeviceMesh`` (anything with ``mesh_dim_names`` and ``shape``
 works for the rules: a ``DeviceMesh`` or a ``{name: size}`` mapping).
 """
@@ -35,20 +35,10 @@ import numpy as np
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import unflatten
 from repro_torch.models.transformer import param_defs
+from repro_torch.parallel.spec import (  # noqa: F401
+    Spec, as_spec, mesh_shape, placements)
 
 FSDP_AXES = ("pod", "data")
-
-Spec = Tuple[Any, ...]
-
-
-def mesh_shape(mesh) -> Dict[str, int]:
-    """``{axis name: size}`` of a ``DeviceMesh``, or of a mapping (or an
-    object with a ``shape`` mapping, as the reference's tests' fakes)."""
-    names = getattr(mesh, "mesh_dim_names", None)
-    if names is not None:
-        return dict(zip(names, tuple(mesh.shape)))
-    shape = getattr(mesh, "shape", mesh)
-    return dict(shape)
 
 
 def _axis_size(mesh, axis) -> int:
@@ -101,12 +91,6 @@ def logical_rules(cfg: ModelConfig, mesh, mode: str = "train"
             rules["experts"] = None         # expert-internal TP
             rules["expert_mlp"] = "model"
     return rules
-
-
-def as_spec(entries) -> Spec:
-    """``tuple(P(*entries))``: a one-name tuple entry becomes the name."""
-    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
-                 for e in entries)
 
 
 def _trim(entries) -> Spec:
@@ -214,24 +198,3 @@ def cache_shardings(cfg: ModelConfig, mesh, cache) -> Any:
 def opt_state_shardings(param_sh, extra_scalars: Dict[str, Any], mesh):
     return {"m": param_sh, "v": param_sh,
             **{k: () for k in extra_scalars}}
-
-
-def placements(spec: Spec, mesh) -> Tuple[Any, ...]:
-    """DTensor placements of ``spec`` over a ``DeviceMesh``: ``Shard(d)``
-    on each mesh dim that dim ``d``'s entry names (a tuple entry shards
-    one dim over several mesh dims, outermost first, as the reference's
-    ``P(("pod", "data"))``), ``Replicate()`` on every other mesh dim and
-    on a mesh dim of size 1 (a shard over one rank is the whole tensor;
-    so the (1, 1) mesh holds every tensor whole)."""
-    from torch.distributed.tensor import Replicate, Shard
-    names = list(mesh.mesh_dim_names)
-    sizes = tuple(mesh.shape)
-    out: list = [Replicate()] * len(names)
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        for axis in (entry if isinstance(entry, tuple) else (entry,)):
-            i = names.index(axis)
-            if sizes[i] > 1:
-                out[i] = Shard(dim)
-    return tuple(out)

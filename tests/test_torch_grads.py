@@ -5,12 +5,12 @@
 ``jax.value_and_grad`` of the reference's ``loss_fn``, on
 ``tests/test_archs.py``'s all-ones batch (MoE's tied router
 probabilities) and on a seeded random one; the four remat policies give
-one gradient; and the flash kernel's operator with its autograd formula
-(on the CPU: the plain forward, the plain backward) against
-``torch.autograd`` through ``flash_attention_causal_plain`` and against
-``jax.grad`` of the reference's blockwise ``flash_attention``.
-Tolerance: 1e-4 of each leaf's largest magnitude (the same float32
-arithmetic, summed in another order).
+one gradient; and the flash kernel's ``autograd.Function`` (on the CPU:
+the plain forward, the plain backward) against ``torch.autograd`` through
+``flash_attention_causal_plain`` and against ``jax.grad`` of the
+reference's blockwise ``flash_attention``. Tolerance: 1e-4 of each leaf's
+largest magnitude (the same float32 arithmetic, summed in another
+order).
 """
 import dataclasses
 

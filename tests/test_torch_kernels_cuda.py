@@ -921,6 +921,46 @@ def test_attention_operators_launch_once_each(attn_cuda, dtype):
     assert torch.equal(dec, dmod.decode_attention(qd, kc, kc, kl))
 
 
+def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
+    """The wgmma routes encode their TMA maps with
+    ``cuTensorMapEncodeTiled``, which needs a context current on the
+    calling thread. Launched as the
+    first device work of a fresh thread (as autograd's device thread runs
+    an operator's backward that is the first node of its graph), the
+    forward and the three backward kernels give this thread's bits."""
+    import threading
+    rng = np.random.default_rng(27)
+    q, k, v = (x.cuda() for x in _flash_inputs(27, 1, 128, 1, 3, 64,
+                                                torch.bfloat16))
+    dout = _randn(rng, tuple(q.shape), torch.bfloat16).cuda()
+    assert fmod.flash_route(q, k, v) == "wgmma"
+    want = fmod.flash_attention_causal(q, k, v)
+    assert fmod.flash_bwd_route(q, k, v, want, dout) == "wgmma"
+    want_grads = fmod.flash_attention_causal_bwd(q, k, v, want, dout)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run(what):
+        try:
+            if what == "forward":
+                got[what] = fmod.flash_attention_causal(q, k, v)
+            else:
+                got[what] = fmod.flash_attention_causal_bwd(q, k, v, want,
+                                                            dout)
+        except Exception as e:                         # noqa: BLE001
+            got[what] = e
+
+    for what in ("forward", "backward"):
+        t = threading.Thread(target=run, args=(what,))
+        t.start()
+        t.join()
+    torch.cuda.synchronize()
+    assert torch.equal(got["forward"], want), got["forward"]
+    assert not isinstance(got["backward"], Exception), got["backward"]
+    assert all(torch.equal(a, b) for a, b in zip(got["backward"],
+                                                 want_grads))
+
+
 @pytest.fixture
 def one_rank_mesh():
     """A (1, 1) DeviceMesh on the card over a real one-rank process group

@@ -259,10 +259,9 @@ def test_constraints_are_identities_without_a_mesh_or_a_dtensor(fake_world):
 def test_constraints_redistribute_dtensors(fake_world):
     """On a (2, 2) mesh a DTensor is redistributed to the pinned spec's
     placements; a non-divisible dim is left as it was."""
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                      mesh_dim_names=("data", "model"))
+    mesh = device_mesh((2, 2), ("data", "model"), "cpu")
     x = distribute_tensor(torch.randn(4, 8, 6), mesh,
                           [Replicate(), Replicate()])
     with con.activation_mesh(mesh, sequence_parallel=True):
@@ -341,12 +340,11 @@ def test_attention_operators_on_sharded_dtensors(fake_world):
     batch or the KV heads: each rank's shard is computed alone (on the
     CPU, by the plain versions) and the output keeps the input's
     placement."""
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.kernels import ops
-    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                      mesh_dim_names=("data", "model"))
+    mesh = device_mesh((2, 2), ("data", "model"), "cpu")
     rng = np.random.default_rng(1)
     q = torch.from_numpy(rng.standard_normal((4, 8, 2, 3, 16),
                                              dtype=np.float32))
@@ -376,12 +374,11 @@ def test_time_sharded_cache_write(fake_world):
     sequence-sharded cache) takes the position into the shard that holds
     it and leaves the other shards as they were: this rank (0) holds
     positions 0-3 of 8 over a 2-way ``model`` dim."""
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import device_mesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.models import attention
-    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                      mesh_dim_names=("data", "model"))
+    mesh = device_mesh((2, 2), ("data", "model"), "cpu")
     base = torch.arange(2 * 8 * 3, dtype=torch.float32).reshape(2, 8, 1, 3)
     new = -torch.ones((2, 1, 1, 3))
     for start, hit in ((2, True), (6, False), (11, False)):
