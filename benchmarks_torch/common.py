@@ -8,9 +8,12 @@ from __future__ import annotations
 
 import csv
 import json
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 from pathlib import Path
 from typing import Callable, Dict, List
 
@@ -114,6 +117,65 @@ def row_mismatches(want: List[Dict], got: List[Dict],
             if not ok:
                 bad.append(f"row {i}: {k} {g[k]!r} != {v!r}")
     return bad
+
+
+def visible_cards(device=None) -> int:
+    """How many ranks a ``cc`` mesh may take here: the visible cards for
+    a run on the card, 1 on the CPU (the reference's rule: a mesh row
+    only where each rank has a device of its own). Raises where the card
+    is asked for and none is visible, as every entry point does."""
+    dev = device_mod.resolve_device(device)
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _rank_main(fn, rank: int, n: int, tmp: str, device_type: str,
+               timeout: float) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import cc_mesh
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=n,
+                            timeout=timedelta(seconds=timeout))
+    try:
+        out = fn(cc_mesh(device_type))
+        (Path(tmp) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, n: int, device=None, timeout: float = 600.0):
+    """Run ``fn(mesh)`` on an n-rank ``cc`` mesh: n spawned processes, one
+    a card over NCCL (over gloo for a CPU rehearsal), meeting through a
+    file in a temporary directory, with a group timeout of ``timeout``
+    seconds. Returns the ranks' results in rank order; raises if a rank
+    fails or hangs. ``fn`` must be picklable (a module-level function or
+    a partial of one)."""
+    import torch.multiprocessing as mp
+    device_type = torch.device("cuda" if device is None else device).type
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, n, tmp, device_type, timeout))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 2 * timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = {r: p.exitcode for r, p in enumerate(procs)}
+        if hung or any(codes.values()):
+            raise RuntimeError(f"{n}-rank mesh run failed: exit codes "
+                               f"{codes}, hung ranks {hung}")
+        return [pickle.loads((Path(tmp) / f"rank{r}.pkl").read_bytes())
+                for r in range(n)]
 
 
 def card_line() -> str:

@@ -3,14 +3,16 @@ the card (the counterpart of ``benchmarks/run.py``).
 
     python3 benchmarks_torch/run.py [--quick] [--only snapshot,pipeline]
 
-  microbench  Fig 4   CC scalability over batch size (cc_shards=1 only)
+  microbench  Fig 4   CC scalability over batch size; cc_shards 2/4/8 on
+              a cc mesh where that many cards are visible
   ycsb        Fig 5-7 Bohm vs 2PL/Hekaton/OCC/SI, low/high contention
               + theta sweep
   smallbank   Fig 8-10 full mix + read-only vs contention
   snapshot    Fig 9/10 scenario: update stream + pinned snapshot scans
               through the version ring (occupancy, GC, scan survival)
-  pipeline    §3/Fig 3 overlap: TxnService at 1/2/4 logical shards,
-              pipelined vs barriered
+  pipeline    §3/Fig 3 overlap: TxnService at 1/2/4 shards (a cc mesh
+              where the cards allow, else logical), pipelined vs
+              barriered
   admission   conflict-aware admission: merged CC epochs + exec-exec
               overlap vs the barriered baseline, hot/cold skewed streams
   spill       hierarchical version storage: fixed-K drop vs spill vs

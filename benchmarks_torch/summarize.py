@@ -3,11 +3,17 @@ counterpart of ``benchmarks/summarize.py``).
 
     python3 benchmarks_torch/summarize.py
 
-Three sections, each emitted only when its artifacts exist under
+Four sections, each emitted only when its artifacts exist under
 ``benchmarks_torch/results/``:
 
   * the MVCC benchmark tables: the JSON twins written by
-    ``benchmarks_torch/run.py``, selected columns per benchmark;
+    ``benchmarks_torch/run.py``, selected columns per benchmark (the
+    reference's tables; the pipeline table's ``substrate`` column shows
+    its ``mesh`` rows);
+  * the CC-scalability lines of Fig 4 (``microbench``): txn/s by
+    ``cc_shards`` (1 a logical column, n > 1 an n-rank ``cc`` mesh) and
+    batch size, and each mesh row's ratio to the ``cc_shards=1`` point
+    of its batch size;
   * the observability section: phase span stats, health gauges and the
     provenance stamp from ``benchmarks_torch/obs_report.py``'s artifacts;
   * the optimized-vs-baseline roofline summary of two dry-run artifacts,
@@ -145,6 +151,27 @@ def print_bench_tables() -> bool:
     return printed
 
 
+def print_mesh_section() -> bool:
+    """Fig 4's CC-thread lines from the ``microbench`` twin: one row a
+    (cc_shards, batch) point, the mesh rows beside the one-shard point of
+    the same batch size."""
+    rows = bench_rows("microbench")
+    if rows is None:
+        return False
+    one = {r["batch"]: r["txn_s"] for r in rows if r["cc_shards"] == 1}
+    print("\n### microbench — CC scalability by cc_shards (Fig 4)\n")
+    print("| cc_shards | substrate | batch | txn_s | waves | us_per_txn "
+          "| vs cc_shards=1 |")
+    print("|---|---|---|---|---|---|---|")
+    for r in rows:
+        base = one.get(r["batch"])
+        ratio = f"{r['txn_s'] / base:.3f}" if base else ""
+        sub = "logical" if r["cc_shards"] == 1 else "mesh"
+        print(f"| {r['cc_shards']} | {sub} | {r['batch']} | {r['txn_s']} | "
+              f"{r['waves']} | {r['us_per_txn']} | {ratio} |")
+    return True
+
+
 def print_obs_section() -> bool:
     """Observability artifacts (``benchmarks_torch/obs_report.py``):
     phase span stats, selected health gauges, and the provenance
@@ -258,6 +285,7 @@ def print_roofline_section() -> bool:
 def main() -> None:
     print("## MVCC benchmarks (JSON twins)")
     print_bench_tables()
+    print_mesh_section()
     print_obs_section()
     print_roofline_section()
 

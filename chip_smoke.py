@@ -275,6 +275,23 @@ the JAX package. Phases, each of which must pass:
    smollm-360m's three supported shapes (each cell ``ok``) and their
    roofline rows, beside the card's name and power limit.
 
+17. the ``mesh=`` substrate: ``BohmEngine(mesh=)`` on a 4-rank ``cc``
+   mesh (``launch.mesh.cc_mesh``) at the paper's scale —
+   ``YCSB_HIGH_10RMW``: 1,000,000 records, 8 words, batches of 1,024
+   zipfian (theta = 0.9) 10-RMW transactions, spill tier on; 5 batches,
+   a pin after batch 2, a pinned ``snapshot_read`` of 1,024 zipfian
+   records and one ``gc_sweep``. With one card the 4 ranks are threads
+   over torch's threaded process group on it; with two or more, one
+   process a card over NCCL (n = min(4, cards)). The phase prints its
+   substrate. Each rank plans its records, holds and commits its
+   quarter of the version store and resolves through rows 1-2 in their
+   in-place forms (each rank's own launches count), and holds them
+   against their plain versions on its own shard; the reads, found
+   flags, pinned values and every store array (gathered) must equal the
+   logical engine's of the same 4 shards on the same stream, byte for
+   byte. Prints the mesh and logical batch medians and the phase's
+   seconds beside the card's name and power limit.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -3252,6 +3269,203 @@ def roofline_phase(step_ms: float, device="cuda"):
     log(f"roofline phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh= substrate
+# ---------------------------------------------------------------------------
+MESH_RANKS, MESH_BATCHES, MESH_PIN_AFTER, MESH_READS = 4, 5, 2, 1024
+MESH_TIMEOUT = 300
+
+
+def mesh_stream(mesh, n: int, device="cuda", seed=0, R=None):
+    """Phase 17's stream on ``BohmEngine(mesh=mesh)`` (``None``: the
+    logical engine of ``n`` shards): 5 batches, a pin after batch 2, a
+    pinned ``snapshot_read`` of 1,024 zipfian records, one ``gc_sweep``.
+    On a mesh every rank runs it; rows 1-2 are then held against their
+    plain versions on the rank's own shard, and every rank's launches
+    (its own thread's) gather to all. Returns host copies (the store
+    only on rank 0 of a mesh)."""
+    from repro_torch.store.sharded import all_gather, full_store, local_store
+    cfg = YCSB_HIGH_10RMW
+    R = R or cfg.num_records
+    rng = np.random.default_rng(seed)
+    eng = BohmEngine(R, make_ycsb(cfg.payload_words), mesh=mesh,
+                     n_shards=n, device=device)
+    start = dict(_build.thread_launches())
+    out = {"reads": [], "batch_ms": []}
+    for i in range(MESH_BATCHES):
+        batch = gen_ycsb_batch(rng, cfg.batch_size, R, theta=cfg.theta,
+                               mix=cfg.mix, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        reads, _ = eng.run_batch(batch)
+        _sync(device)
+        out["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["reads"].append(reads.cpu().numpy())
+        if i + 1 == MESH_PIN_AFTER:
+            pin = eng.begin_snapshot()
+    records = gen_ycsb_batch(np.random.default_rng(seed + 1), MESH_READS,
+                             R, theta=cfg.theta, ops=1,
+                             device=device).read_set[:, 0].contiguous()
+    vals, found = eng.snapshot_read(records, pin)
+    launches = {k: v - start.get(k, 0)
+                for k, v in _build.thread_launches().items()}
+    out.update(vals=vals.cpu().numpy(), found=found.cpu().numpy(),
+               launches=launches, gc=eng.gc_sweep())
+    rank0 = mesh is None or mesh.get_local_rank() == 0
+    versions = full_store(eng.store.versions)
+    if rank0:
+        out["store"] = store_to_numpy(dataclasses.replace(
+            eng.store, versions=versions))
+    if mesh is None:
+        return out
+    # rows 1-2 on this rank's own shard, beside their plain versions
+    s, loc = mesh.get_local_rank(), local_store(eng.store.versions)
+    ring, pool = loc.rings, loc.spill
+    local = torch.div(records, n, rounding_mode="floor")
+    rows = local.clamp(0, loc.records_per_shard - 1).contiguous()
+    ts = torch.full_like(rows, pin.ts)
+    args = (ring.begin[0], ring.end[0], ring.payload[0], ts)
+    k = ops.mvcc_resolve(*args, rows=rows)
+    p = ops.mvcc_resolve_plain(*args, rows)
+    pool_args = (pool.begin[0], pool.end[0], pool.rec[0], local,
+                 pool.payload[0], ts)
+    km = ops.mvcc_resolve_masked(*pool_args, in_place=True, prior=k)
+    pm = ops.mvcc_resolve_masked_plain(*pool_args, in_place=True, prior=p)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              ((k[0], p[0]), (km[0], pm[0])))
+    same = all(torch.equal(a, b) for a, b in zip(k + km, p + pm))
+    names = ("mvcc_resolve/rows", "mvcc_resolve/windows",
+             "mvcc_resolve_masked/rows", "mvcc_resolve_masked/windows")
+    mine = torch.tensor([launches.get(x, 0) for x in names] + [err,
+                        int(same), s], device=vals.device)
+    out["ranks"] = all_gather(mine, mesh).tolist()
+    out["rank_names"] = names
+    return out if rank0 else None
+
+
+def thread_ranks(fn, n: int, timeout: float = MESH_TIMEOUT,
+                 device="cuda"):
+    """``fn(mesh)`` on n ranks that are threads of this process, over
+    torch's threaded process group on the card (as
+    ``torch.testing._internal.common_distributed`` opens it); the ranks'
+    results in rank order. A rank that raises stops the others'
+    collectives and the call raises; so does a rank still running after
+    ``timeout`` seconds. The port's CPU mesh tests run their ranks here
+    too (``device="cpu"``)."""
+    import threading
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
+
+    from repro_torch.launch.mesh import cc_mesh
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    ProcessLocalGroup.reset()
+    store = dist.HashStore()
+    results, errors = [None] * n, [None] * n
+
+    def rank(r):
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=n,
+                                    store=store,
+                                    timeout=timedelta(seconds=timeout))
+            results[r] = fn(cc_mesh(device))
+            _sync(device)
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors[r] = exc
+            ProcessLocalGroup.exception_handle(exc)
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+               for r in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + timeout
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, t in enumerate(threads) if t.is_alive()]
+        if hung:
+            ProcessLocalGroup.exception_handle(TimeoutError())
+            raise TimeoutError(f"mesh ranks {hung} still ran after "
+                               f"{timeout} s")
+    finally:
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    real = [e for e in errors if e is not None
+            and not isinstance(e, SystemExit)]
+    if real or any(e is not None for e in errors):
+        raise (real or [e for e in errors if e is not None])[0]
+    return results
+
+
+def mesh_phase(device="cuda"):
+    """Phase 17: the mesh engine against the logical engine of the same
+    shards, byte for byte; returns the launches of the mesh run's path,
+    summed over its ranks (the held comparisons' launches left out)."""
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    n = min(MESH_RANKS, cards) if cards >= 2 else MESH_RANKS
+    fn = functools.partial(mesh_stream, n=n, device=device)
+    ops.reset_launches()            # each rank also counts its own from 0
+    t0 = time.perf_counter()
+    if cards >= 2:
+        from benchmarks_torch.common import spawn_ranks
+        substrate = f"{n} processes, one a card, over NCCL"
+        got = spawn_ranks(fn, n, device, timeout=MESH_TIMEOUT)[0]
+    else:
+        substrate = f"{n} thread ranks over the threaded process group " \
+            f"on one card"
+        got = thread_ranks(fn, n)[0]
+    mesh_s = time.perf_counter() - t0
+    names = got["rank_names"]
+    for r, row in enumerate(got["ranks"]):
+        per = dict(zip(names, row[:4]))
+        if per["mvcc_resolve/rows"] <= 0 or \
+                per["mvcc_resolve_masked/rows"] <= 0 or \
+                per["mvcc_resolve/windows"] or \
+                per["mvcc_resolve_masked/windows"]:
+            raise AssertionError(f"mesh rank {r} launches {per}")
+        if row[4] != 0 or row[5] != 1:
+            raise AssertionError(f"mesh rank {r}: rows 1-2 differ from "
+                                 f"their plain versions (max abs err "
+                                 f"{row[4]})")
+    t0 = time.perf_counter()
+    want = mesh_stream(None, n, device)
+    logical_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(want["reads"], got["reads"])):
+        np.testing.assert_array_equal(a, b, err_msg=f"mesh batch {i} reads")
+    for key in ("vals", "found"):
+        np.testing.assert_array_equal(want[key], got[key], err_msg=key)
+    assert want["gc"] == got["gc"], (want["gc"], got["gc"])
+    for name in want["store"]:
+        np.testing.assert_array_equal(want["store"][name],
+                                      got["store"][name],
+                                      err_msg=f"mesh store {name}")
+    found = float(got["found"].mean())
+    log(f"mesh path: substrate {substrate}; {YCSB_HIGH_10RMW.num_records:,}"
+        f" records, {MESH_BATCHES} batches of "
+        f"{YCSB_HIGH_10RMW.batch_size}, a pinned read of {MESH_READS} "
+        f"(found {found:.4f}), gc_sweep reclaimed {got['gc']}: reads, "
+        f"found, pinned values and all {len(want['store'])} store arrays "
+        f"byte-equal to the logical {n}-shard engine")
+    log(f"mesh path: per-rank launches (resolve rows, windows, masked "
+        f"rows, windows) {[row[:4] for row in got['ranks']]}; rows 1-2 "
+        f"held against their plain versions on every rank's shard, max "
+        f"abs err {max(row[4] for row in got['ranks'])}")
+    path = {k: sum(dict(zip(names, row[:4]))[f"{k}/rows"]
+                   for row in got["ranks"])
+            for k in ("mvcc_resolve", "mvcc_resolve_masked")}
+    log(f"mesh path: batch ms mesh {[round(x, 3) for x in got['batch_ms']]}"
+        f", logical {[round(x, 3) for x in want['batch_ms']]}; median "
+        f"batch mesh {statistics.median(got['batch_ms']):.3f} ms vs "
+        f"logical {statistics.median(want['batch_ms']):.3f} ms; mesh run "
+        f"{mesh_s:.1f} s, logical {logical_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {nvidia_smi()}")
+    return path
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -3523,6 +3737,11 @@ def main() -> int:
 
     # -- the roofline of the training step and the sharded path -------------
     roofline_phase(step_ms)
+
+    # -- the mesh= substrate, counted from zero -----------------------------
+    mesh_launches = mesh_phase()
+    for name in ("mvcc_resolve", "mvcc_resolve_masked"):
+        rows[name]["mesh_launches"] = mesh_launches[name]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

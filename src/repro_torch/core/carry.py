@@ -28,7 +28,7 @@ import torch
 from repro_torch.core.execute import Store
 from repro_torch.store.pages import PageSlab
 from repro_torch.store.ring import VersionRing
-from repro_torch.store.sharded import ShardedVersionStore
+from repro_torch.store.sharded import ShardedVersionStore, full_store
 from repro_torch.store.spill import SpillPool
 
 RING_KEYS = ("ring_begin", "ring_end", "ring_payload", "ring_head")
@@ -73,8 +73,9 @@ def store_from_reference(arrays: Dict[str, np.ndarray], device):
 
 
 def store_to_numpy(store) -> Dict[str, np.ndarray]:
-    """Inverse of ``store_from_reference``."""
-    v = store.versions
+    """Inverse of ``store_from_reference`` (a version store sharded over
+    a mesh is gathered whole on every rank)."""
+    v = full_store(store.versions)
     out = {"base": store.base, "base_ts": store.base_ts,
            "ts_counter": store.ts_counter, "k_eff": v.k_eff}
     if v.rings is not None:

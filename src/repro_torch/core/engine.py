@@ -20,6 +20,21 @@ diagnostic stats surfaces.
 device (global record ``r`` at shard ``r % n``, local ``r // n``), as
 the reference's no-mesh substrate does.
 
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` with a dim named
+``cc_axis``) runs the engine SPMD, one rank a device: every rank drives
+the same engine over the same batch stream. The CC phase is
+record-partitioned over the mesh (``cc_plan_sharded``: each rank plans
+the records it owns, one all-gather, every rank merges the same plan);
+the execution wavefront and the head store are replicated; the version
+store (rings or page slab, spill pools, ``k_eff``) is sharded, each
+rank holding and committing its own shard, and snapshot reads merge by
+ownership with one all-reduce. Every host value a branch reads
+(timestamps, pins, the adaptive-K policy's state, the registry's host
+counters) is replicated, so the ranks issue the same collectives in the
+same order. ``n_shards`` defaults to the mesh's ``cc`` size; a mesh of
+another size keeps the store logical (as the reference does), and the
+plan is sharded whenever the ``cc`` size is above 1.
+
 The phase functions are also bound on the engine as ``_plan``, ``_exec``
 (workload bound) and ``_commit``, with the reference's argument order,
 and their composition as ``_step`` (``bohm_step``, which leaves the
@@ -32,9 +47,6 @@ phases as spans (``repro_torch.obs.trace``); an enabled
 audited sweep in ``gc_sweep`` and harvests at ``gc_sweep`` /
 ``snapshot()`` (``repro_torch.obs.lifecycle``), with no host join added
 between them.
-
-Not ported yet (raises ``NotImplementedError``): ``mesh=`` (ROADMAP.md,
-queue 1).
 """
 from __future__ import annotations
 
@@ -49,16 +61,19 @@ import torch
 from repro_torch.core.carry import store_from_reference
 from repro_torch.core.execute import (Store, commit, execute_plan,
                                       init_store, store_from_base)
-from repro_torch.core.plan import MAX_BATCH_TXNS, Plan, cc_plan
+from repro_torch.core.plan import (MAX_BATCH_TXNS, Plan, cc_plan,
+                                   cc_plan_sharded, merge_sharded_plan)
 from repro_torch.core.txn import TxnBatch, Workload
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import (NULL_AUDIT, LifecycleAuditor, MetricsRegistry,
                              PhaseTracer, engine_health)
-from repro_torch.store import (INF_TS, decay_pressure, from_global,
+from repro_torch.store import (INF_TS, cc_size, decay_pressure,
+                               distribute_store, from_global,
                                gather_windows_sharded, gc_sharded,
                                gc_sharded_audited,
-                               reassign_k, reassign_stats, resolve_sharded,
-                               store_occupancy, to_global)
+                               map_shards, reassign_k, reassign_stats,
+                               resolve_sharded, store_mesh, store_occupancy,
+                               sum_over_shards, to_global)
 from repro_torch.store.ring import i32
 
 
@@ -72,15 +87,9 @@ class SnapshotHandle:
     t_wall: float = dataclasses.field(default=0.0, compare=False)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"BohmEngine({what}) is not ported yet: repro_torch runs the "
-        "single-device engine with logical shards (ROADMAP.md, queue 1)")
-
-
 class BohmEngine:
     def __init__(self, num_records: int, workload: Workload,
-                 mesh=None, ring_slots: int = 4,
+                 mesh=None, cc_axis: str = "cc", ring_slots: int = 4,
                  n_shards: Optional[int] = None,
                  spill_buckets: Optional[int] = None,
                  spill_slots: int = 8,
@@ -94,16 +103,20 @@ class BohmEngine:
                  tracer: Optional[PhaseTracer] = None,
                  auditor: Optional[LifecycleAuditor] = None,
                  device: DeviceLike = None):
-        """Arguments as in ``repro.core.engine.BohmEngine`` (``mesh``,
-        the unported path, raises), plus
+        """Arguments as in ``repro.core.engine.BohmEngine``, plus
         ``device``: default the GPU, which
         raises when there is none; pass ``device="cpu"`` for the plain
         PyTorch path.
 
-        ``n_shards`` (default 1) logical shards each hold ``ceil(R /
-        n_shards)`` records. ``spill_slots`` > 0 (default 8) attaches a
-        spill pool per shard of ``spill_buckets`` (default: one bucket per
-        4 records of a shard) x ``spill_slots`` slots.
+        ``mesh`` is a ``DeviceMesh`` of this process group with a dim
+        named ``cc_axis`` (``repro_torch.launch.mesh.cc_mesh``) whose
+        device type is ``device``'s: every rank builds the engine and
+        drives it with the same calls (see the module doc).
+        ``n_shards`` (default: the mesh's ``cc`` size, else 1) shards
+        each hold ``ceil(R / n_shards)`` records. ``spill_slots`` > 0
+        (default 8) attaches a spill pool per shard of ``spill_buckets``
+        (default: one bucket per 4 records of a shard) x ``spill_slots``
+        slots.
         ``adaptive_k=True`` allocates rings at ``k_max`` physical slots
         (default 2x ``ring_slots``), caps every record at ``ring_slots``
         effective slots, and lets ``gc_sweep`` move capacity between
@@ -116,13 +129,19 @@ class BohmEngine:
         ``pressure_decay`` (sweeps) applies an EWMA half-life to the
         policy's pressure input; ``k_quantum`` overrides the policy
         quantum (default ``page_slots`` when paged, else 1)."""
-        if mesh is not None:
-            raise _unported("mesh=")
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError("mesh= takes a torch.distributed DeviceMesh "
+                            f"with a '{cc_axis}' dim, got {type(mesh)}")
         if num_records > (1 << 20):
             raise ValueError("composite uint32 keys require R <= 2^20")
         if ring_slots < 1:
             raise ValueError("ring_slots must be >= 1")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh's devices are {mesh.device_type}; "
+                             f"the engine runs on {self.device.type}")
+        self.mesh = mesh
+        self.cc_axis = cc_axis
         self.num_records = num_records
         self.workload = workload
         self.ring_slots = ring_slots
@@ -147,7 +166,9 @@ class BohmEngine:
                     "k_max to be multiples of the quantum (page_slots)")
         self.pressure_decay = (float(pressure_decay)
                                if pressure_decay is not None else None)
-        self.n_shards = int(n_shards) if n_shards is not None else 1
+        if n_shards is None:
+            n_shards = cc_size(mesh, cc_axis) or 1
+        self.n_shards = int(n_shards)
         if self.n_shards < 1:
             raise ValueError("n_shards must be >= 1")
         records_local = -(-num_records // self.n_shards)
@@ -170,7 +191,8 @@ class BohmEngine:
                                 k_init=ring_slots, paged=self.paged,
                                 page_slots=self.page_slots or 4,
                                 pages_per_shard=self.pages_per_shard
-                                or None, device=self.device)
+                                or None, device=self.device, mesh=mesh,
+                                cc_axis=cc_axis)
         self._ts_next = 1                  # host mirror of store.ts_counter
         self._snapshots: Dict[int, SnapshotHandle] = {}
         self._next_sid = 0
@@ -183,11 +205,14 @@ class BohmEngine:
         self._reset_policy()
         # the phase graph, bound as in the reference (the scheduler calls
         # the same three with its own interleaving)
-        self._plan = plan_phase
+        self._plan = functools.partial(plan_phase, mesh=mesh,
+                                       cc_axis=cc_axis)
         self._exec = functools.partial(exec_phase, workload=workload)
         self._commit = functools.partial(commit_phase,
-                                         with_audit=self.auditor.enabled)
-        self._step = functools.partial(bohm_step, workload=workload)
+                                         with_audit=self.auditor.enabled,
+                                         mesh=mesh, cc_axis=cc_axis)
+        self._step = functools.partial(bohm_step, workload=workload,
+                                       mesh=mesh, cc_axis=cc_axis)
 
     def _reset_policy(self) -> None:
         """Restart the adaptive-K policy's host state (at init,
@@ -275,7 +300,8 @@ class BohmEngine:
             spill_buckets=self.spill_buckets,
             spill_slots=self.spill_slots, k_init=self.ring_slots,
             paged=self.paged, page_slots=self.page_slots or 4,
-            pages_per_shard=self.pages_per_shard or None)
+            pages_per_shard=self.pages_per_shard or None, mesh=self.mesh,
+            cc_axis=self.cc_axis)
         self._ts_next = 1
         self._snapshots.clear()
         self._declare_metrics()
@@ -288,8 +314,14 @@ class BohmEngine:
         timestamp to assign and the registered snapshot pins. The state's
         layout (dense or paged, its shapes) must be this engine's. Device
         counters and the adaptive-K policy's host state restart, as in
-        ``reset_store``. Returns the new pins' handles."""
+        ``reset_store``. On a mesh every rank passes the whole state and
+        keeps its own shard of the version store. Returns the new pins'
+        handles."""
         store = store_from_reference(arrays, self.device)
+        mesh = store_mesh(self.store.versions)
+        if mesh is not None:
+            store = dataclasses.replace(
+                store, versions=distribute_store(store.versions, mesh))
         if _layout(store) != _layout(self.store):
             raise ValueError("carried state does not match this engine's "
                              f"configuration: {_layout(store)} vs "
@@ -405,14 +437,14 @@ class BohmEngine:
                                pad_value=self.k_min)
             # insertion cursors must stay inside the (possibly shrunk)
             # effective window; grown records keep their cursor as-is
+            prim = versions.rings if versions.rings is not None \
+                else versions.pages
+            prim = dataclasses.replace(prim, head=map_shards(
+                lambda head, k: head % k, prim.head, k_sh))
             if versions.rings is not None:
-                prim = dataclasses.replace(
-                    versions.rings, head=versions.rings.head % k_sh)
                 versions = dataclasses.replace(versions, rings=prim,
                                                k_eff=k_sh)
             else:
-                prim = dataclasses.replace(
-                    versions.pages, head=versions.pages.head % k_sh)
                 versions = dataclasses.replace(versions, pages=prim,
                                                k_eff=k_sh)
         return versions
@@ -455,7 +487,8 @@ class BohmEngine:
         records = i32(records, self.device)
         ts_vec = torch.full((records.shape[0],), int(ts), dtype=torch.int32,
                             device=self.device)
-        return resolve_sharded(self.store.versions, records, ts_vec)
+        return resolve_sharded(self.store.versions, records, ts_vec,
+                               mesh=self.mesh, axis=self.cc_axis)
 
     def run_readonly_batch(self, batch: TxnBatch, ts=None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -526,7 +559,8 @@ class BohmEngine:
         """Spill-tier summary: pool occupancy/capacity plus the cumulative
         admitted / dropped / pinned-overwrite counters."""
         spill = self.store.versions.spill
-        occupancy = 0 if spill is None else int((spill.rec >= 0).sum())
+        occupancy = 0 if spill is None else int(sum_over_shards(
+            lambda rec: (rec >= 0).sum(), spill.rec))
         capacity = 0 if spill is None else (
             self.n_shards * self.spill_buckets * self.spill_slots)
         return dict({k: int(self.metrics.value(f"engine/{k}"))
@@ -554,7 +588,8 @@ class BohmEngine:
         }
         if self.paged:
             pages = versions.pages
-            mapped = int((pages.page_table >= 0).sum())
+            mapped = int(sum_over_shards(lambda t: (t >= 0).sum(),
+                                         pages.page_table))
             total = self.n_shards * self.pages_per_shard
             stats.update({
                 "page_slots": self.page_slots,
@@ -625,8 +660,15 @@ def _bucket_histogram(counts: torch.Tensor, edges: List[int]
 # ---------------------------------------------------------------------------
 # The phase graph: plan (CC) -> exec (wavefront) -> commit (barrier).
 # ---------------------------------------------------------------------------
-def plan_phase(batch: TxnBatch, ts_base) -> Plan:
-    """CC phase: timestamps + placeholder versions + read annotations."""
+def plan_phase(batch: TxnBatch, ts_base, mesh=None,
+               cc_axis: str = "cc") -> Plan:
+    """CC phase: timestamps + placeholder versions + read annotations,
+    record-partitioned over the mesh when its ``cc`` size is above 1
+    (each rank plans its records; every rank merges the gathered
+    plan)."""
+    if cc_size(mesh, cc_axis) > 1:
+        return merge_sharded_plan(
+            cc_plan_sharded(batch, ts_base, mesh, cc_axis), batch)
     return cc_plan(batch, ts_base)
 
 
@@ -639,32 +681,36 @@ def exec_phase(plan: Plan, batch: TxnBatch, store: Store, *,
 def commit_phase(plan: Plan, batch: TxnBatch, store: Store,
                  w_data: torch.Tensor, watermark=None, ts_window=None,
                  pin_ts: Optional[torch.Tensor] = None, *,
-                 with_audit: bool = False):
+                 with_audit: bool = False, mesh=None, cc_axis: str = "cc"):
     """Watermark-driven commit of an executed batch."""
     return commit(plan, batch, store, w_data, watermark,
-                  ts_window=ts_window, pin_ts=pin_ts, with_audit=with_audit)
+                  ts_window=ts_window, pin_ts=pin_ts, with_audit=with_audit,
+                  mesh=mesh, cc_axis=cc_axis)
 
 
 def exec_commit_phase(plan: Plan, batch: TxnBatch, store: Store,
                       watermark=None, pin_ts: Optional[torch.Tensor] = None,
-                      *, workload: Workload):
+                      *, workload: Workload, mesh=None,
+                      cc_axis: str = "cc"):
     """Exec + commit composed (the reference's fused twin, which
     ``bohm_step`` builds on). Returns (new_store, read_vals, metrics)."""
     w_data, read_vals, metrics = exec_phase(plan, batch, store,
                                             workload=workload)
     new_store, ring_metrics = commit_phase(plan, batch, store, w_data,
-                                           watermark, pin_ts=pin_ts)
+                                           watermark, pin_ts=pin_ts,
+                                           mesh=mesh, cc_axis=cc_axis)
     return new_store, read_vals, dict(metrics, **ring_metrics)
 
 
 def bohm_step(store: Store, batch: TxnBatch, watermark=None,
-              pin_ts: Optional[torch.Tensor] = None, *, workload: Workload):
+              pin_ts: Optional[torch.Tensor] = None, *, workload: Workload,
+              mesh=None, cc_axis: str = "cc"):
     """One batch through plan, exec and commit on ``store``, without
     touching an engine's state (what ``benchmarks_torch/microbench.py``
     times, as the reference times ``BohmEngine._step``)."""
-    plan = plan_phase(batch, store.ts_counter)
+    plan = plan_phase(batch, store.ts_counter, mesh, cc_axis)
     return exec_commit_phase(plan, batch, store, watermark, pin_ts,
-                             workload=workload)
+                             workload=workload, mesh=mesh, cc_axis=cc_axis)
 
 
 def _readonly_resolve(versions, read_set: torch.Tensor, ts: torch.Tensor):

@@ -39,13 +39,15 @@ def init_store(num_records: int, payload_words: int, init_value: int = 0,
                ring_slots: int = 4, n_shards: int = 1, spill_buckets: int = 0,
                spill_slots: int = 0, k_init: Optional[int] = None,
                paged: bool = False, page_slots: int = 4,
-               pages_per_shard: Optional[int] = None, device=None) -> Store:
+               pages_per_shard: Optional[int] = None, device=None,
+               mesh=None, cc_axis: str = "cc") -> Store:
     base = torch.full((num_records, payload_words), init_value,
                       dtype=torch.int32, device=device)
     return store_from_base(base, None, ring_slots, n_shards, spill_buckets,
                            spill_slots, k_init=k_init, paged=paged,
                            page_slots=page_slots,
-                           pages_per_shard=pages_per_shard)
+                           pages_per_shard=pages_per_shard, mesh=mesh,
+                           cc_axis=cc_axis)
 
 
 def store_from_base(base: torch.Tensor,
@@ -54,10 +56,12 @@ def store_from_base(base: torch.Tensor,
                     spill_buckets: int = 0, spill_slots: int = 0,
                     k_init: Optional[int] = None, paged: bool = False,
                     page_slots: int = 4,
-                    pages_per_shard: Optional[int] = None) -> Store:
+                    pages_per_shard: Optional[int] = None, mesh=None,
+                    cc_axis: str = "cc") -> Store:
     """Store whose initial state (head + ring slot 0, or each record's
     initial page) is ``base``; the version-store options are those of
-    ``init_sharded_store``."""
+    ``init_sharded_store`` (a ``cc`` mesh of ``n_shards`` ranks shards
+    the version store over the ranks; the heads stay replicated)."""
     base = base.to(torch.int32)
     dev = base.device
     base_ts = (torch.zeros((base.shape[0],), dtype=torch.int32, device=dev)
@@ -69,7 +73,8 @@ def store_from_base(base: torch.Tensor,
                      spill_buckets=spill_buckets,
                      spill_slots=spill_slots, k_init=k_init, paged=paged,
                      page_slots=page_slots,
-                     pages_per_shard=pages_per_shard))
+                     pages_per_shard=pages_per_shard, mesh=mesh,
+                     axis=cc_axis))
 
 
 def execute_plan(plan: Plan, batch: TxnBatch, store: Store,
@@ -129,12 +134,15 @@ def execute_plan(plan: Plan, batch: TxnBatch, store: Store,
 def commit(plan: Plan, batch: TxnBatch, store: Store, w_data: torch.Tensor,
            watermark=None, ts_window: Optional[Tuple] = None,
            pin_ts: Optional[torch.Tensor] = None,
-           with_audit: bool = False
+           with_audit: bool = False, mesh=None, cc_axis: str = "cc"
            ) -> Tuple[Store, Dict[str, torch.Tensor]]:
     """Batch barrier: fold each record's batch-final version into the head
     cache AND commit every batch version into the persistent rings (see
     ``repro.core.execute.commit`` for ``watermark`` / ``ts_window`` /
-    ``pin_ts``; ``with_audit`` adds the lifecycle audit arrays)."""
+    ``pin_ts``; ``with_audit`` adds the lifecycle audit arrays). The head
+    cache is replicated, so on a ``cc`` mesh every rank folds the same
+    versions into it; ``mesh`` / ``cc_axis`` pass through to
+    ``commit_sharded``."""
     if watermark is None:
         watermark = store.ts_counter
     if ts_window is None:
@@ -147,8 +155,9 @@ def commit(plan: Plan, batch: TxnBatch, store: Store, w_data: torch.Tensor,
                           torch.where(plan.commit_mask, ts, 0))
     versions, ring_metrics = commit_sharded(
         store.versions, plan.w_rec, plan.w_key, plan.w_valid,
-        plan.w_begin_ts, plan.w_end_ts, w_data, watermark,
-        ts_window=ts_window, pin_ts=pin_ts, with_audit=with_audit)
+        plan.w_begin_ts, plan.w_end_ts, w_data, watermark, mesh=mesh,
+        axis=cc_axis, ts_window=ts_window, pin_ts=pin_ts,
+        with_audit=with_audit)
     return Store(base=base, base_ts=base_ts,
                  ts_counter=i32(ts_window[1], store.base.device),
                  versions=versions), ring_metrics

@@ -21,8 +21,16 @@ Batch footprints (``BatchFootprint``, ``batch_footprint``,
 ``footprints_conflict``, ``conflict_witness``, ``merge_footprints``,
 ``merge_batches``) are the conflict-aware scheduler's host-side record
 bitsets (``repro_torch.service.TxnService``); they stay numpy, as in the
-reference. Record-partitioned planning (``cc_plan_sharded``) is not
-ported yet.
+reference.
+
+Record-partitioned CC (paper §4.1.2, ``cc_plan_sharded``): every shard
+examines every transaction and plans only the records it owns (record
+``r`` at shard ``r % n``), with no communication inside the phase. The
+logical form loops over the shards on one device and returns the
+[n, ...] plan; on a ``cc`` mesh each rank plans its own shard (a plan
+of DTensors placed Shard(0)). ``merge_sharded_plan`` gathers a mesh
+plan to every rank (one all-gather) and collapses it into the
+single-store layout.
 """
 from __future__ import annotations
 
@@ -31,9 +39,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.txn import TxnBatch
 from repro_torch.store.ring import INF_TS, i32
+from repro_torch.store.sharded import (cc_size, cc_submesh, gather_many,
+                                       shard_map)
 
 # composite (record, ts) keys need R * T < 2^32 (R <= 2^20 records,
 # checked in the engine) — the one home of the batch/epoch size limit
@@ -124,6 +135,84 @@ def cc_plan(batch, ts_base) -> Plan:
                 r_dep_txn=r_dep_txn, r_dep_slot=r_dep_slot,
                 commit_mask=commit_mask, ts_base=ts_base,
                 w_begin_ts=w_begin_ts, w_end_ts=w_end_ts)
+
+
+# ---------------------------------------------------------------------------
+# Record-partitioned CC (paper §4.1.2): each shard receives the full batch
+# ("every CC thread examines every transaction") and plans only the records
+# it owns. No communication inside the phase.
+# ---------------------------------------------------------------------------
+def _owned_batch(batch, n: int, shard: int):
+    """The batch with every read and write of a record that ``shard``
+    does not own masked to -1 (the reference's shard body)."""
+    def mask(rec):
+        return torch.where(((rec % n) == shard) & (rec >= 0), rec, -1)
+    return TxnBatch(mask(batch.read_set), mask(batch.write_set),
+                    batch.txn_type, batch.args)
+
+
+def cc_plan_sharded(batch, ts_base, mesh=None, axis: str = "cc",
+                    n_shards: Optional[int] = None) -> Plan:
+    """The [n, ...] plan: shard ``s``'s row is ``cc_plan`` of the batch
+    masked to the records ``s`` owns. With ``mesh`` (its ``axis`` size is
+    n) each rank plans its own shard and the plan's fields are DTensors
+    placed Shard(0) over the mesh; without one, ``n_shards`` logical
+    shards are planned one after another on the batch's device."""
+    if mesh is not None:
+        n = cc_size(mesh, axis)
+        sub = cc_submesh(mesh, axis)
+        return shard_map(
+            lambda s, b: (_map_plan(lambda x: x[None],
+                                    cc_plan(_owned_batch(b, n, s),
+                                            ts_base)), None),
+            sub, batch)[0]
+    n = int(n_shards)
+    parts = [cc_plan(_owned_batch(batch, n, s), ts_base) for s in range(n)]
+    return Plan(*(torch.stack([getattr(p, f.name) for p in parts])
+                  for f in dataclasses.fields(Plan)))
+
+
+def _map_plan(fn, plan: Plan) -> Plan:
+    return Plan(*(fn(getattr(plan, f.name))
+                  for f in dataclasses.fields(Plan)))
+
+
+def merge_sharded_plan(plan: Plan, batch=None) -> Plan:
+    """Collapse an [n, ...] plan into the single-store layout.
+
+    Per-shard slots index per-shard version arrays; execution uses
+    (shard, slot) pairs encoded as ``shard * Nw + slot``. Reads and writes
+    merge by maximum (each entry is owned by exactly one shard; the
+    others hold -1 / pads). ``ts_base`` is element 0 of the shards'
+    (equal) bases. A plan of DTensors (a mesh's) is first gathered to
+    every rank in one all-gather, so every rank merges the same whole
+    plan. ``batch`` is unused (the reference's signature)."""
+    fields = [getattr(plan, f.name) for f in dataclasses.fields(Plan)]
+    if isinstance(plan.w_rec, DTensor):
+        mesh = plan.w_rec.device_mesh
+        fields = gather_many([x.to_local()[0] for x in fields], mesh)
+    plan = Plan(*fields)
+    n, Nw = plan.w_rec.shape[0], plan.w_rec.shape[1]
+    off = (torch.arange(n, dtype=torch.int32,
+                        device=plan.w_rec.device) * Nw)
+
+    def enc(slot):
+        shape = (n,) + (1,) * (slot.dim() - 1)
+        return torch.where(slot >= 0, slot + off.reshape(shape), -1)
+
+    return Plan(
+        w_rec=plan.w_rec.reshape(-1),
+        w_txn=plan.w_txn.reshape(-1),
+        w_end_local=plan.w_end_local.reshape(-1),
+        w_valid=plan.w_valid.reshape(-1),
+        w_key=plan.w_key.reshape(-1),
+        w_slot=enc(plan.w_slot).max(0).values,
+        r_dep_txn=plan.r_dep_txn.max(0).values,
+        r_dep_slot=enc(plan.r_dep_slot).max(0).values,
+        commit_mask=plan.commit_mask.reshape(-1),
+        ts_base=plan.ts_base.reshape(-1)[0],
+        w_begin_ts=plan.w_begin_ts.reshape(-1),
+        w_end_ts=plan.w_end_ts.reshape(-1))
 
 
 # ---------------------------------------------------------------------------

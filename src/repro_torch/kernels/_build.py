@@ -9,7 +9,9 @@ import time: ``load`` builds on first use.
 
 ``LAUNCHES`` counts the launches of every kernel since the last
 ``reset_launches()``; each wrapper adds one where it launches its kernel
-and nowhere else.
+(``count``) and nowhere else. The count is process-wide; ranks that run
+as threads of one process (a ``cc`` mesh on one card) each also read
+their own thread's launches (``thread_launches``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -57,9 +60,34 @@ LAUNCHES: Dict[str, int] = {
 ENCODE_ERROR = 100000
 
 
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def count(*names: str) -> None:
+    """Add one launch to each of ``names`` (a wrapper calls this where it
+    launches its kernel), process-wide and for the calling thread."""
+    with _COUNT_LOCK:
+        mine = thread_launches()
+        for name in names:
+            LAUNCHES[name] += 1
+            mine[name] = mine.get(name, 0) + 1
+
+
+def thread_launches() -> Dict[str, int]:
+    """The calling thread's launches since its start or its last
+    ``reset_launches()``."""
+    mine = getattr(_THREAD, "launches", None)
+    if mine is None:
+        mine = _THREAD.launches = {}
+    return mine
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        thread_launches().clear()
 
 
 def nvcc() -> str:

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels._build import count
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_G, MAX_DH = 32, 128         # the kernel's limits (csrc/attention.cuh)
@@ -159,7 +159,7 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  out.data_ptr(), b, k.shape[1], kvh, g, dh, dh ** -0.5],
                 q.device)
-    LAUNCHES["decode_attention"] += 1
+    count("decode_attention")
     return out
 
 

@@ -75,7 +75,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels._build import count
 from repro_torch.kernels.decode_attention import (_SUFFIX,
                                                   check_attention_inputs,
                                                   check_kernel_limits,
@@ -161,8 +161,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                 + [ctypes.c_float],
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, s, kvh, g, dh, dh ** -0.5], q.device)
-    LAUNCHES["flash_attention_causal"] += 1
-    LAUNCHES[f"flash_attention_causal/{route}"] += 1
+    count("flash_attention_causal", f"flash_attention_causal/{route}")
     return out
 
 
@@ -310,9 +309,9 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.call(source, f"flash_attention_causal_bwd_{kernel}_{suffix}",
                     [ctypes.c_void_p] * len(args) + sig,
                     [x.data_ptr() for x in args] + shape, q.device)
-        LAUNCHES[f"flash_attention_causal_bwd/{kernel}"] += 1
-    LAUNCHES["flash_attention_causal_bwd"] += 1
-    LAUNCHES[f"flash_attention_causal_bwd/{route}"] += 1
+        count(f"flash_attention_causal_bwd/{kernel}")
+    count("flash_attention_causal_bwd",
+          f"flash_attention_causal_bwd/{route}")
     return dq, dk, dv
 
 

@@ -67,7 +67,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import LAUNCHES, reset_launches
+from repro_torch.kernels._build import LAUNCHES, count, reset_launches
 
 NEG_INF = -2 ** 31
 
@@ -229,8 +229,7 @@ def _launch(name: str, form: str, inputs, data: torch.Tensor,
                 + [ctypes.c_int] * len(dims),
                 [*(None if x is None else x.data_ptr() for x in inputs),
                  vals.data_ptr(), found.data_ptr(), B, *dims], dev)
-    LAUNCHES[name] += 1
-    LAUNCHES[f"{name}/{form}"] += 1
+    count(name, f"{name}/{form}")
     return vals, found
 
 

@@ -14,6 +14,12 @@ one rank (a one-card run) can build the local mesh, not the production
 ones. Building a mesh first gives DTensor the rules it lacks for the
 port's ops (``register_dtensor_rules``); nothing else registers them.
 
+``cc_mesh`` builds the one-dim ``cc`` mesh that ``BohmEngine(mesh=)``
+shards its store over. It never opens a process group: the store's
+collectives must move data, so the caller opens a real one first (NCCL
+or gloo across processes, one rank a device; ``init_method`` and a
+``timeout`` of its choosing) and every rank calls ``cc_mesh``.
+
 The hardware model: one NVIDIA H100 SXM (NVIDIA's data sheet and the
 Hopper architecture white paper; dense rates, without sparsity, at the
 full 700 W power limit). ``chip_smoke.py``'s bounds, the trainer's
@@ -144,6 +150,27 @@ def device_mesh(shape, axes, device: DeviceLike = None):
                            f"group has {dist.get_world_size()}")
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def cc_mesh(device: DeviceLike = None, axis: str = "cc"):
+    """The one-dim ``DeviceMesh`` named ``axis`` over every rank of the
+    open default process group (the reference's ``jax.make_mesh((n,),
+    ("cc",))``), on ``device``'s type (default the card; rank r takes
+    card r % count). Raises when no process group is open or it is the
+    fake one, whose collectives move nothing."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError("cc_mesh needs an open process group: call "
+                           "torch.distributed.init_process_group first")
+    if dist.get_backend() == "fake":
+        raise RuntimeError("cc_mesh needs real collectives; the fake "
+                           "process group moves no data")
+    n = dist.get_world_size()
+    return DeviceMesh(dev.type, torch.arange(n), mesh_dim_names=(axis,))
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -332,11 +332,10 @@ class LifecycleAuditor:
         n = vs.n_shards
         begin, end = eng.snapshot_windows([record])[:2]
         lazy = [begin[0], end[0]]
-        shard, loc = record % n, record // n
+        loc = record // n
         if vs.spill is not None:
-            bkt = loc % vs.spill.begin.shape[1]
-            lazy += [vs.spill.rec[shard, bkt], vs.spill.begin[shard, bkt],
-                     vs.spill.end[shard, bkt]]
+            from repro_torch.store import spill_bucket
+            lazy += list(spill_bucket(vs, record))
         host = _to_host(lazy)
         resident = [
             {"begin": int(b), "end": int(e), "tier": "primary"}
@@ -412,10 +411,11 @@ class LifecycleAuditor:
             raise RuntimeError("auditor is not bound to an engine")
         self.harvest()
         vs = self._engine.store.versions
-        from repro_torch.store import store_occupancy
+        from repro_torch.store import store_occupancy, sum_over_shards
         extra = {"resident_primary": store_occupancy(vs).sum()}
         if vs.spill is not None:
-            extra["resident_spill"] = (vs.spill.rec >= 0).sum()
+            extra["resident_spill"] = sum_over_shards(
+                lambda rec: (rec >= 0).sum(), vs.spill.rec)
         vals = self._counter_values(extra)
         resident = {k: int(vals.pop(k)) for k in extra}
         c = self._state_counts(vals)

@@ -9,7 +9,10 @@ Three metric kinds with different cost models:
 ``gauges``           callables evaluated only at ``snapshot()`` time.
 
 ``snapshot()`` is the one host-transfer point; ``peek()`` hands back the
-raw device tensor for callers composing further device arithmetic.
+raw device tensor for callers composing further device arithmetic. A
+counter may be a DTensor sharded over a ``cc`` mesh (an engine's
+per-record counters on a mesh): it accumulates shard by shard and its
+host value is the whole tensor (an all-gather every rank joins).
 ``view(prefix)`` adapts a namespace of host counters to a
 ``MutableMapping``.
 """
@@ -19,11 +22,25 @@ import threading
 from typing import Callable, Dict, Iterator, List, MutableMapping, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _host(v: torch.Tensor) -> object:
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     v = v.detach().cpu()
     return v.item() if v.dim() == 0 else v.numpy()
+
+
+def _shardwise(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(*xs)`` elementwise; DTensors of one layout go shard by shard
+    (their local tensors), never through DTensor's op dispatch."""
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    first = xs[0]
+    return DTensor.from_local(fn(*(x.to_local() for x in xs)),
+                              first.device_mesh, first.placements,
+                              run_check=False)
 
 
 class MetricsRegistry:
@@ -38,7 +55,7 @@ class MetricsRegistry:
     def declare(self, name: str, template: torch.Tensor) -> None:
         """Declare a device counter with an explicit zero template (shape,
         dtype, device). Re-declaring resets it to zero."""
-        zero = torch.zeros_like(template)
+        zero = _shardwise(torch.zeros_like, template)
         with self._lock:
             self._device[name] = zero
             self._device_init[name] = zero
@@ -49,10 +66,11 @@ class MetricsRegistry:
         with self._lock:
             cur = self._device.get(name)
             if cur is None:
-                self._device_init[name] = torch.zeros_like(delta)
+                self._device_init[name] = _shardwise(torch.zeros_like,
+                                                     delta)
                 self._device[name] = delta
             else:
-                self._device[name] = cur + delta
+                self._device[name] = _shardwise(torch.add, cur, delta)
 
     def accumulate_max(self, name: str, value: torch.Tensor) -> None:
         """Device-side ``total = max(total, value)``."""

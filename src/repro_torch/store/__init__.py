@@ -12,15 +12,18 @@
 ``policy``   adaptive-K reassignment (numpy host code at GC boundaries,
              page-quantized for the paged store, optional EWMA pressure
              decay).
-``sharded``  ``ShardedVersionStore``: ``n_shards`` logical shards on one
-             device (global record r at shard r % n), primary (rings or
-             pages) + spill — commit, GC and the two-level snapshot read
-             through the resolve kernels, reading the store in place.
+``sharded``  ``ShardedVersionStore``: ``n_shards`` shards (global record
+             r at shard r % n), primary (rings or pages) + spill —
+             commit, GC and the two-level snapshot read through the
+             resolve kernels, reading the store in place. The shards are
+             logical on one device, or one a rank over a ``cc`` device
+             mesh (``init_sharded_store(mesh=)``: DTensors placed
+             Shard(0), every per-shard body run through ``shard_map`` on
+             the rank's shard, merged by explicit collectives).
 
 Every commit path takes ``with_audit=True`` for the lifecycle audit
 taps (``repro_torch.obs.lifecycle``); ``gc_sharded_audited`` is the
-audited sweep. Not ported yet: the mesh substrate (``shard_map`` over a
-device mesh).
+audited sweep.
 """
 from repro_torch.store.pages import (PageSlab, commit_paged, free_page_count,
                                      gather_windows_paged, gc_pages,
@@ -38,13 +41,17 @@ from repro_torch.store.ring import (AUDIT_COMMITTED, AUDIT_GC_RECLAIMED,
                                     commit_versions, gather_windows,
                                     gc_ring, init_ring, pin_stabbed,
                                     ring_fill_fraction, ring_occupancy)
-from repro_torch.store.sharded import (ShardedVersionStore, commit_sharded,
-                                       from_global, gather_windows_sharded,
-                                       gc_sharded, gc_sharded_audited,
+from repro_torch.store.sharded import (ShardedVersionStore, cc_size,
+                                       commit_sharded, distribute_store,
+                                       from_global, full, full_store,
+                                       gather_windows_sharded, gc_sharded,
+                                       gc_sharded_audited,
                                        global_record_ids,
-                                       init_sharded_store,
-                                       resolve_sharded, store_health,
-                                       store_occupancy, to_global, unshard)
+                                       init_sharded_store, map_shards,
+                                       resolve_sharded, shard_map,
+                                       spill_bucket, store_health,
+                                       store_mesh, store_occupancy,
+                                       sum_over_shards, to_global, unshard)
 from repro_torch.store.spill import (SpillPool, gc_spill, init_spill_pool,
                                      spill_buckets_for, spill_commit,
                                      spill_fill_fraction, spill_occupancy)
@@ -60,6 +67,8 @@ __all__ = [
     "from_global", "gather_windows_sharded", "gc_sharded",
     "init_sharded_store", "resolve_sharded", "store_health",
     "store_occupancy", "to_global", "unshard", "SpillPool", "gc_spill",
+    "cc_size", "distribute_store", "full", "full_store", "map_shards",
+    "shard_map", "spill_bucket", "store_mesh", "sum_over_shards",
     "init_spill_pool", "spill_buckets_for", "spill_commit",
     "spill_fill_fraction", "spill_occupancy", "reassign_k",
     "reassign_stats", "decay_pressure", "PageSlab", "commit_paged",

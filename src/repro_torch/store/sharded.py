@@ -1,4 +1,5 @@
-"""Record-partitioned version store: logical shards on one device.
+"""Record-partitioned version store: logical shards on one device, or
+one shard a rank over a ``cc`` device mesh.
 
 The port of ``repro.store.sharded``. Global record ``r`` is owned by
 shard ``r % n`` at local index ``r // n``; the store keeps the
@@ -10,9 +11,35 @@ hash-padding: empty rings, no pages, never read or written), so state
 carries across from a reference engine unchanged
 (``repro_torch.core.carry``).
 
-The reference's no-mesh substrate ``vmap``s the per-shard commit over
-the shard axis; here it is a loop over shards whose results are stacked
-(the per-shard arithmetic is the same, so the state is byte-equal).
+Two substrates share one per-shard body:
+
+  * logical shards on one device (no mesh): the reference ``vmap``s the
+    per-shard commit over the shard axis; here it is a loop over shards
+    whose results are stacked (the per-shard arithmetic is the same, so
+    the state is byte-equal);
+  * a ``cc`` mesh (``init_sharded_store(mesh=)`` with the mesh's ``cc``
+    size equal to ``n_shards`` > 1): every rank runs the same program
+    (SPMD) and holds only its own shard. Each array of the store is a
+    ``DTensor`` placed ``Shard(0)`` over the mesh — a caller sees the
+    reference's global [n, ...] shape, and ``full_tensor()`` is the
+    explicit read of the whole — whose local tensor is the rank's
+    [1, ...] shard. ``shard_map`` (the reference's ``shard_map_compat``)
+    hands the per-shard body the rank's local shard and its shard index
+    (the rank in ``cc``) and wraps what the body returns back into
+    DTensors; no torch op ever runs on the [n, ...] DTensors through
+    DTensor's own dispatch. The collectives are few and explicit:
+    commit gathers each shard's metrics (one all-gather), a resolve
+    merges by ownership with one all-reduce SUM (the reference's
+    ``psum``), GC sums its count (one all-reduce), and the host reads
+    (``to_global``, ``unshard``, ``store_health``, the audited sweep)
+    all-gather. Every rank issues them in the same order because every
+    host branch reads replicated values.
+
+The store's own placement picks the substrate: the functions that take
+``mesh=`` accept it for the reference's signatures, and a store built
+without a mesh runs logical shards (as the reference does when the
+mesh's ``cc`` size differs from ``n_shards``).
+
 At ``n_shards == 1`` ``commit_sharded`` and ``resolve_sharded`` keep
 the reference's fast path, for two reasons. The loop would stack a copy
 of the whole store every batch, where the fast path adds a shard axis
@@ -29,9 +56,6 @@ in place with the primary's result as its prior; at most one level
 holds the visible version, so combining is a select, done inside that
 launch. Each read has one owning shard; the shards' results merge by
 ownership (foreign shards contribute zeros).
-
-Not ported yet (raises ``NotImplementedError``): the ``mesh=`` substrate
-(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -39,6 +63,8 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.store.pages import (PageSlab, commit_paged, gc_pages,
@@ -58,12 +84,6 @@ PAD_KEY = 0xFFFFFFFF      # the plan's pad key (repro_torch.core.plan)
 
 _EVICT_KEYS = ("evict_rec", "evict_begin", "evict_end", "evict_payload",
                "evict_valid")
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: repro_torch runs logical shards on "
-        "one device (ROADMAP.md, queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,13 +168,162 @@ def _take_spill(store: ShardedVersionStore, s: int) -> Optional[SpillPool]:
     return _map(lambda x: x[s], store.spill)
 
 
+# ---------------------------------------------------------------------------
+# The mesh substrate: the rank's shard, the mapping helper, the collectives.
+# ---------------------------------------------------------------------------
+def cc_size(mesh, axis: str = "cc") -> int:
+    """The size of ``mesh``'s ``axis`` dim; 0 when there is no mesh or it
+    has no such dim (the reference's ``axis in mesh.shape`` test)."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if axis not in names:
+        return 0
+    return int(mesh.size(names.index(axis)))
+
+
+def cc_submesh(mesh, axis: str = "cc"):
+    """The one-dim ``axis`` mesh of ``mesh`` (``mesh`` itself when it has
+    no other dim)."""
+    return mesh if mesh.ndim == 1 else mesh[axis]
+
+
+def store_mesh(store: ShardedVersionStore):
+    """The one-dim mesh a store is sharded over, or None for logical
+    shards."""
+    k = store.k_eff
+    return k.device_mesh if isinstance(k, DTensor) else None
+
+
+def _tree(fn, obj):
+    """Apply ``fn`` to every tensor in ``obj`` (a tensor, None, or a
+    dataclass / tuple / list / dict of them, nested)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if obj is None or isinstance(obj, (int, float, bool, str)):
+        return obj
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(*(_tree(fn, getattr(obj, f.name))
+                           for f in dataclasses.fields(obj)))
+    if isinstance(obj, dict):
+        return {k: _tree(fn, v) for k, v in obj.items()}
+    return type(obj)(_tree(fn, v) for v in obj)
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _shard(local: torch.Tensor, mesh) -> DTensor:
+    """A rank's [1, ...] shard as the [n, ...] DTensor placed Shard(0)."""
+    return DTensor.from_local(local, mesh, [Shard(0)], run_check=False)
+
+
+def shard_map(fn, mesh, *args):
+    """Run a per-shard body on this rank's shard: every DTensor in
+    ``args`` becomes its local [1, ...] tensor, and ``fn(shard, *args)``
+    gets the rank's shard index first. ``fn`` returns ``(sharded,
+    replicated)``: each tensor of ``sharded`` is the rank's [1, ...]
+    shard and comes back as the [n, ...] DTensor; ``replicated`` comes
+    back as it is. The port's counterpart of the reference's
+    ``shard_map_compat``: the reference's three shard_map sites (the CC
+    plan, commit, resolve) and the functions it leaves to jit's
+    partitioner all go through it."""
+    sharded, replicated = fn(mesh.get_local_rank(), *_tree(_local, args))
+    return _tree(lambda x: _shard(x, mesh), sharded), replicated
+
+
+def map_shards(fn, *xs):
+    """``fn(*xs)`` for a shard-wise ``fn`` (elementwise, or one that works
+    row by row): on DTensors ``fn`` of the rank's shards, wrapped back."""
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    return shard_map(lambda s, *loc: (fn(*loc), None), xs[0].device_mesh,
+                     *xs)[0]
+
+
+def _group(mesh):
+    return mesh.get_group()
+
+
+def all_gather(local: torch.Tensor, mesh) -> torch.Tensor:
+    """[...] on every rank -> [n, ...], rank order."""
+    n = mesh.size()
+    out = local.new_empty((n * local.numel(),))
+    # all_gather_single is the newer name of all_gather_into_tensor
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, local.contiguous().reshape(-1), group=_group(mesh))
+    return out.reshape((n,) + tuple(local.shape))
+
+
+def all_reduce(x: torch.Tensor, mesh, op=None) -> torch.Tensor:
+    """In-place all-reduce of ``x`` over the mesh (SUM unless ``op``)."""
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=_group(mesh))
+    return x
+
+
+def gather_many(tensors, mesh) -> list:
+    """All-gather several tensors in ONE collective: each rank packs them
+    into one float64 vector (exact for int32, int64 below 2^53, bool and
+    float32 values), the gather stacks the ranks, and each comes back as
+    [n, *its shape] in its own dtype."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    rows = all_gather(flat, mesh)
+    out, off = [], 0
+    for t in tensors:
+        k = t.numel()
+        out.append(rows[:, off:off + k].reshape(
+            (rows.shape[0],) + tuple(t.shape)).to(t.dtype))
+        off += k
+    return out
+
+
+def full(x):
+    """The whole [n, ...] tensor of a DTensor sharded over a mesh (an
+    all-gather every rank joins); any other tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return all_gather(x.to_local(), x.device_mesh).reshape(x.shape)
+
+
+def full_store(store: ShardedVersionStore) -> ShardedVersionStore:
+    """The store with every array whole on this rank (the logical layout
+    the same state has on one device); a logical store as it is."""
+    if store_mesh(store) is None:
+        return store
+    return _tree(full, store)
+
+
+def distribute_store(store: ShardedVersionStore, mesh
+                     ) -> ShardedVersionStore:
+    """A logical [n, ...] store sharded over ``mesh``: each rank keeps its
+    own row of every array (as DTensors). Inverse of ``full_store``."""
+    s = mesh.get_local_rank()
+    return _tree(lambda x: _shard(x[s:s + 1].contiguous(), mesh), store)
+
+
+def local_store(store: ShardedVersionStore) -> ShardedVersionStore:
+    """The rank's shard as a one-shard logical store (the mesh store's
+    local tensors)."""
+    return _tree(_local, store)
+
+
+def sum_over_shards(fn, x) -> torch.Tensor:
+    """``fn(x)`` for a reduction ``fn`` that sums over the shard axis
+    (and more): on a mesh, ``fn`` of the rank's shard summed over the
+    ranks."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return all_reduce(fn(x.to_local()), x.device_mesh)
+
+
 def init_sharded_store(base: torch.Tensor,
                        base_ts: Optional[torch.Tensor] = None,
                        num_slots: int = 4, n_shards: int = 1,
                        spill_buckets: int = 0, spill_slots: int = 0,
                        k_init: Optional[int] = None, paged: bool = False,
                        page_slots: int = 4,
-                       pages_per_shard: Optional[int] = None
+                       pages_per_shard: Optional[int] = None,
+                       mesh=None, axis: str = "cc"
                        ) -> ShardedVersionStore:
     """Store whose slot 0 holds the initial open version of every record;
     ``spill_buckets`` x ``spill_slots`` > 0 attaches a spill pool;
@@ -165,7 +334,12 @@ def init_sharded_store(base: torch.Tensor,
     ``pages_per_shard`` pages of ``page_slots`` slots and page tables of
     ``ceil(num_slots / page_slots)`` entries; every record starts with
     exactly its initial page. Global record ``r`` lands at
-    ``[r % n_shards, r // n_shards]``."""
+    ``[r % n_shards, r // n_shards]``.
+
+    ``mesh`` whose ``axis`` size equals ``n_shards`` > 1 shards the store
+    over the mesh: each rank allocates only its own shard (``base`` is
+    the replicated head store) and every array is a DTensor placed
+    Shard(0). Any other mesh leaves the store logical."""
     R, D = base.shape
     dev = base.device
     if base_ts is None:
@@ -173,14 +347,22 @@ def init_sharded_store(base: torch.Tensor,
     n = int(n_shards)
     if n < 1:
         raise ValueError("n_shards must be >= 1")
+    on_mesh = n > 1 and cc_size(mesh, axis) == n
+    if on_mesh:
+        mesh = cc_submesh(mesh, axis)
+        shards = [mesh.get_local_rank()]
+    else:
+        shards = list(range(n))
     Rl = -(-R // n)
     pad = Rl * n - R
     basep = torch.cat([base, base.new_zeros((pad, D))])
     tsp = torch.cat([base_ts.to(torch.int32),
                      torch.zeros((pad,), dtype=torch.int32, device=dev)])
-    base_sh = basep.reshape(Rl, n, D).movedim(0, 1)          # [n, Rl, D]
-    ts_sh = tsp.reshape(Rl, n).T                             # [n, Rl]
-    real = global_record_ids(n, Rl, dev) < R                 # [n, Rl]
+    ix = torch.tensor(shards, device=dev)
+    base_sh = basep.reshape(Rl, n, D).movedim(0, 1)[ix]     # [m, Rl, D]
+    ts_sh = tsp.reshape(Rl, n).T[ix]                         # [m, Rl]
+    real = global_record_ids(n, Rl, dev)[ix] < R             # [m, Rl]
+    m = len(shards)
     rings = pages = None
     if paged:
         max_pages = -(-int(num_slots) // int(page_slots))
@@ -189,19 +371,19 @@ def init_sharded_store(base: torch.Tensor,
             # needs ceil(k / S) whole pages to physically reach its k_eff
             pages_per_shard = Rl * -(-int(k_init or num_slots)
                                      // int(page_slots))
-        pages = _stack([init_page_slab(base_sh[s], ts_sh[s], real[s],
+        pages = _stack([init_page_slab(base_sh[i], ts_sh[i], real[i],
                                        pages_per_shard, page_slots,
-                                       max_pages) for s in range(n)])
+                                       max_pages) for i in range(m)])
     else:
-        begin = torch.full((n, Rl, num_slots), INF_TS, dtype=torch.int32,
+        begin = torch.full((m, Rl, num_slots), INF_TS, dtype=torch.int32,
                            device=dev)
         begin[:, :, 0] = torch.where(real, ts_sh, INF_TS)
-        end = torch.full((n, Rl, num_slots), INF_TS, dtype=torch.int32,
+        end = torch.full((m, Rl, num_slots), INF_TS, dtype=torch.int32,
                          device=dev)
-        payload = torch.zeros((n, Rl, num_slots, D), dtype=base.dtype,
+        payload = torch.zeros((m, Rl, num_slots, D), dtype=base.dtype,
                               device=dev)
         payload[:, :, 0, :] = torch.where(real[..., None], base_sh, 0)
-        head = torch.full((n, Rl), 1 % num_slots, dtype=torch.int32,
+        head = torch.full((m, Rl), 1 % num_slots, dtype=torch.int32,
                           device=dev)
         rings = VersionRing(begin=begin, end=end, payload=payload,
                             head=head)
@@ -209,12 +391,15 @@ def init_sharded_store(base: torch.Tensor,
     if int(spill_buckets) > 0 and int(spill_slots) > 0:
         pool = init_spill_pool(spill_buckets, spill_slots, D, base.dtype,
                                dev)
-        spill = _map(lambda x: x[None].repeat((n,) + (1,) * x.dim()), pool)
+        spill = _map(lambda x: x[None].repeat((m,) + (1,) * x.dim()), pool)
     k0 = num_slots if k_init is None else min(int(k_init), num_slots)
-    return ShardedVersionStore(
+    store = ShardedVersionStore(
         rings=rings, spill=spill,
-        k_eff=torch.full((n, Rl), k0, dtype=torch.int32, device=dev),
+        k_eff=torch.full((m, Rl), k0, dtype=torch.int32, device=dev),
         num_records=R, pages=pages)
+    if on_mesh:
+        store = _tree(lambda x: _shard(x, mesh), store)
+    return store
 
 
 def global_record_ids(n_shards: int, records_per_shard: int,
@@ -238,26 +423,38 @@ def unshard(store: ShardedVersionStore) -> VersionRing:
 
 def to_global(store: ShardedVersionStore,
               per_shard: torch.Tensor) -> torch.Tensor:
-    """Re-index a per-shard [n, Rl] record statistic to global [R]."""
+    """Re-index a per-shard [n, Rl] record statistic to global [R] (on a
+    mesh: gathered, the same on every rank)."""
     n, Rl = store.n_shards, store.records_per_shard
+    per_shard = full(per_shard)
     return per_shard.movedim(0, 1).reshape(
         (Rl * n,) + tuple(per_shard.shape[2:]))[:store.num_records]
 
 
 def from_global(store: ShardedVersionStore, per_record: torch.Tensor,
                 pad_value: int = 0) -> torch.Tensor:
-    """Inverse of ``to_global`` (hash-padding records get ``pad_value``)."""
+    """Inverse of ``to_global`` (hash-padding records get ``pad_value``);
+    on a mesh each rank keeps its own shard's row."""
     n, Rl = store.n_shards, store.records_per_shard
     pad = Rl * n - store.num_records
     fill = torch.full((pad,) + tuple(per_record.shape[1:]), pad_value,
                       dtype=per_record.dtype, device=per_record.device)
     padded = torch.cat([per_record, fill])
-    return padded.reshape((Rl, n) + tuple(per_record.shape[1:])).movedim(
+    out = padded.reshape((Rl, n) + tuple(per_record.shape[1:])).movedim(
         0, 1)
+    mesh = store_mesh(store)
+    if mesh is None:
+        return out
+    s = mesh.get_local_rank()
+    return _shard(out[s:s + 1].contiguous(), mesh)
 
 
 def _occupancy(store: ShardedVersionStore) -> torch.Tensor:
     """[n, Rl] live version count per record."""
+    mesh = store_mesh(store)
+    if mesh is not None:
+        return shard_map(lambda s, loc: (_occupancy(loc), None), mesh,
+                         store)[0]
     if store.rings is not None:
         return ring_occupancy(store.rings)
     return torch.stack([paged_occupancy(_take_shard(store, s))
@@ -271,13 +468,18 @@ def store_occupancy(store: ShardedVersionStore) -> torch.Tensor:
 
 def store_health(store: ShardedVersionStore) -> Dict[str, torch.Tensor]:
     """Per-shard health gauges as device tensors (nothing here
-    synchronises):
+    synchronises; on a mesh one all-gather):
 
       live_versions [n]   live version count per shard
       k_eff_slots   [n]   effective (policy-granted) slot capacity
       pages_mapped / pages_free / slab_fill [n]  (paged stores)
       spill_occupancy / spill_fill [n]           (spill tier attached)
     """
+    mesh = store_mesh(store)
+    if mesh is not None:
+        out = store_health(local_store(store))
+        rows = gather_many(list(out.values()), mesh)
+        return {k: v.reshape(-1) for k, v in zip(out, rows)}
     out: Dict[str, torch.Tensor] = {
         "k_eff_slots": store.k_eff.sum(-1, dtype=torch.int32),
         "live_versions": _occupancy(store).sum(-1, dtype=torch.int32)}
@@ -296,6 +498,24 @@ def store_health(store: ShardedVersionStore) -> Dict[str, torch.Tensor]:
         out["spill_fill"] = torch.stack([spill_fill_fraction(p)
                                          for p in pools])
     return out
+
+
+def spill_bucket(store: ShardedVersionStore, record: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rec, begin, end) [S] of the spill bucket that holds ``record``'s
+    spilled versions (shard-local record ids; on a mesh one all-gather).
+    Requires a spill tier."""
+    n = store.n_shards
+    shard, loc = record % n, record // n
+    sp = store.spill
+    bkt = loc % sp.num_buckets
+    mesh = store_mesh(store)
+    if mesh is None:
+        return sp.rec[shard, bkt], sp.begin[shard, bkt], sp.end[shard, bkt]
+    mine = local_store(store).spill
+    rows = all_gather(torch.stack([mine.rec[0, bkt], mine.begin[0, bkt],
+                                   mine.end[0, bkt]]), mesh)[shard]
+    return rows[0], rows[1], rows[2]
 
 
 # ---------------------------------------------------------------------------
@@ -362,11 +582,14 @@ def _commit_one_shard(ring_s, spill_s: Optional[SpillPool],
     return ring_o, spill_s, m
 
 
+_PER_RECORD = ("ring_overwrote_rec", "ring_overwrote_dead_rec")
+
+
 def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
                    w_key: torch.Tensor, w_valid: torch.Tensor,
                    w_begin_ts: torch.Tensor, w_end_ts: torch.Tensor,
                    w_data: torch.Tensor, watermark, mesh=None,
-                   ts_window: Optional[Tuple] = None,
+                   axis: str = "cc", ts_window: Optional[Tuple] = None,
                    pin_ts: Optional[torch.Tensor] = None,
                    with_audit: bool = False
                    ) -> Tuple[ShardedVersionStore, Dict[str, torch.Tensor]]:
@@ -377,16 +600,20 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
     per-shard [n, Rl] layout as in the reference; a paged store adds the
     allocator's counters. ``with_audit=True`` adds ``ring_committed`` and
     the lifecycle audit arrays flattened over shards, record ids GLOBAL
-    (-1 where the state is 0) — device tensors; nothing synchronises."""
-    if mesh is not None:
-        raise _unported("the mesh= substrate")
+    (-1 where the state is 0) — device tensors; nothing synchronises.
+
+    A store sharded over a mesh commits each rank's shard in the rank
+    (``shard_map``): the inputs are the merged plan's global arrays,
+    identical on every rank; one all-gather brings every shard's metrics
+    to every rank (the per-record pair stays sharded), so they aggregate
+    as the logical shards' do."""
     n = store.n_shards
     if n == 1:
         ring, spill0, metrics = _commit_one_shard(
             _ring0(store), _take_spill(store, 0), store.k_eff[0], w_rec,
             w_key, w_valid, w_begin_ts, w_end_ts, w_data, watermark,
             ts_window, pin_ts, with_audit=with_audit)
-        for k in ("ring_overwrote_rec", "ring_overwrote_dead_rec"):
+        for k in _PER_RECORD:
             metrics[k] = metrics[k][None]
         if with_audit:
             metrics["audit_rec"] = torch.where(
@@ -397,58 +624,75 @@ def commit_sharded(store: ShardedVersionStore, w_rec: torch.Tensor,
             _with_primary(store, _map(lambda x: x[None], ring)),
             spill=new_spill), metrics
 
-    prims, spills, per = [], [], []
-    for s in range(n):
+    def one_shard(s, prim, spill, k_eff):
         rec_l, key_l, owned = _mask_to_shard(n, s, w_rec, w_key, w_valid)
-        prim_s, spill_s, m = _commit_one_shard(
-            _take_shard(store, s), _take_spill(store, s), store.k_eff[s],
-            rec_l, key_l, owned, w_begin_ts, w_end_ts, w_data, watermark,
-            ts_window, pin_ts, with_audit=with_audit)
-        prims.append(prim_s)
-        spills.append(spill_s)
-        per.append(m)
+        return _commit_one_shard(prim, spill, k_eff, rec_l, key_l, owned,
+                                 w_begin_ts, w_end_ts, w_data, watermark,
+                                 ts_window, pin_ts, with_audit=with_audit)
+
+    on_mesh = store_mesh(store)
+    if on_mesh is not None:
+        def body(s, loc):
+            prim_s, spill_s, m = one_shard(s, _take_shard(loc, 0),
+                                           _take_spill(loc, 0),
+                                           loc.k_eff[0])
+            grow = (lambda x: x[None])
+            return ((_map(grow, prim_s),
+                     None if spill_s is None else _map(grow, spill_s),
+                     {k: m.pop(k)[None] for k in _PER_RECORD}), m)
+
+        (prim, new_spill, per), m = shard_map(body, on_mesh, store)
+        keys = list(m)
+        per.update(zip(keys, gather_many([m[k] for k in keys], on_mesh)))
+    else:
+        prims, spills, parts = [], [], []
+        for s in range(n):
+            prim_s, spill_s, m = one_shard(s, _take_shard(store, s),
+                                           _take_spill(store, s),
+                                           store.k_eff[s])
+            prims.append(prim_s)
+            spills.append(spill_s)
+            parts.append(m)
+        prim = _stack(prims)
+        new_spill = None if store.spill is None else _stack(spills)
+        per = {k: torch.stack([m[k] for m in parts]) for k in parts[0]}
 
     def total(key):
-        return torch.stack([m[key] for m in per]).sum(dtype=torch.int32)
+        return per[key].sum(dtype=torch.int32)
 
     metrics = {k: total(k) for k in ("ring_evicted",
                                      "ring_overflow_dropped",
                                      "ring_overwrote_live",
                                      "ring_overwrote_dead")}
-    for k in ("ring_overwrote_rec", "ring_overwrote_dead_rec"):
-        metrics[k] = torch.stack([m[k] for m in per])          # [n, Rl]
-    metrics["ring_occ_max"] = torch.stack(
-        [m["ring_occ_max"] for m in per]).max()
+    for k in _PER_RECORD:
+        metrics[k] = per[k]                                    # [n, Rl]
+    metrics["ring_occ_max"] = per["ring_occ_max"].max()
     # per-shard means weight hash-padding records with 0 occupancy;
     # renormalise to the real record count
-    metrics["ring_occ_mean"] = torch.stack(
-        [m["ring_occ_mean"] for m in per]).sum() \
+    metrics["ring_occ_mean"] = per["ring_occ_mean"].sum() \
         * store.records_per_shard / store.num_records
     if store.paged:
         for k in ("paged_alloc_failed", "paged_pages_allocated",
                   "paged_pages_free"):
             metrics[k] = total(k)
-    new_spill = None
     if store.spill is not None:
         for k in ("spill_freed", "spill_admitted", "spill_dropped",
                   "spill_overwrote", "spill_overwrote_pinned",
                   "spill_occupancy"):
             metrics[k] = total(k)
-        new_spill = _stack(spills)
     if with_audit:
         metrics["ring_committed"] = total("ring_committed")
         # shard-local ids -> global (r = local * n + shard), flattened
         # over the shard axis; masked entries stay rec = -1
-        state = torch.stack([m["audit_state"] for m in per])
+        state = per["audit_state"]
         shard_ix = torch.arange(n, dtype=torch.int32,
                                 device=state.device)[:, None]
-        rec = torch.stack([m["audit_rec"] for m in per])
         metrics["audit_rec"] = torch.where(
-            state > 0, rec * n + shard_ix, -1).reshape(-1)
+            state > 0, per["audit_rec"] * n + shard_ix, -1).reshape(-1)
         for k in ("audit_begin", "audit_end"):
-            metrics[k] = torch.stack([m[k] for m in per]).reshape(-1)
+            metrics[k] = per[k].reshape(-1)
         metrics["audit_state"] = state.reshape(-1)
-    return dataclasses.replace(_with_primary(store, _stack(prims)),
+    return dataclasses.replace(_with_primary(store, prim),
                                spill=new_spill), metrics
 
 
@@ -456,7 +700,13 @@ def gc_sharded(store: ShardedVersionStore, watermark
                ) -> Tuple[ShardedVersionStore, torch.Tensor]:
     """Standalone watermark GC sweep over the primary and the spill pool
     (see ``gc_ring`` / ``gc_pages`` / ``gc_spill``). The paged sweep also
-    returns fully drained stranded pages to the free list."""
+    returns fully drained stranded pages to the free list. On a mesh each
+    rank sweeps its shard and the counts are summed (one all-reduce)."""
+    mesh = store_mesh(store)
+    if mesh is not None:
+        swept, evicted = shard_map(lambda s, loc: gc_sharded(loc, watermark),
+                                   mesh, store)
+        return swept, all_reduce(evicted, mesh)
     if store.rings is not None:
         prim, evicted = gc_ring(store.rings, watermark)
     else:
@@ -472,44 +722,40 @@ def gc_sharded(store: ShardedVersionStore, watermark
                                spill=spill), evicted
 
 
-def _audit_dead_flat(store: ShardedVersionStore, watermark
-                     ) -> Tuple[torch.Tensor, ...]:
-    """Flatten every version the sweep at ``watermark`` is about to
-    reclaim — primary (dense or paged) plus spill — into parallel
-    (rec_global, begin, end, dead) arrays. Record ids are global (-1
-    where not reclaimed / unowned)."""
-    n, Rl = store.n_shards, store.records_per_shard
+def _audit_dead_parts(store: ShardedVersionStore, watermark, n: int,
+                      shards: torch.Tensor) -> list:
+    """Every version the sweep at ``watermark`` is about to reclaim, one
+    level at a time — primary (dense or paged), then spill — as flat
+    parallel (rec_global, begin, end, dead) arrays. ``shards`` [m] are
+    the global shard ids of the store's m stacked shards out of ``n``.
+    Record ids are global (-1 where not reclaimed / unowned)."""
+    Rl = store.records_per_shard
     dev = _primary_key(store).device
     wm = i32(watermark, dev)
+    shard = shards.to(torch.int32)[:, None]
     parts = []
     if store.rings is not None:
         r = store.rings
-        dead = (r.begin != INF_TS) & (r.end <= wm)         # [n, Rl, K]
-        rec_g = global_record_ids(n, Rl, dev)[..., None].expand(dead.shape)
+        dead = (r.begin != INF_TS) & (r.end <= wm)         # [m, Rl, K]
+        local = torch.arange(Rl, dtype=torch.int32, device=dev)[None, :]
+        rec_g = (local * n + shard)[..., None].expand(dead.shape)
         parts.append((rec_g, r.begin, r.end, dead))
     else:
         p = store.pages
-        dead = (p.begin != INF_TS) & (p.end <= wm)         # [n, P, S]
-        owner = torch.stack([page_owner_index(p.page_table[s],
+        dead = (p.begin != INF_TS) & (p.end <= wm)         # [m, P, S]
+        owner = torch.stack([page_owner_index(p.page_table[i],
                                               p.num_pages)[0]
-                             for s in range(n)])           # [n, P]
-        shard = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+                             for i in range(dead.shape[0])])   # [m, P]
         rec_g = torch.where(owner >= 0, owner * n + shard, -1)
         rec_g = rec_g[..., None].expand(dead.shape)
         parts.append((rec_g, p.begin, p.end, dead & (rec_g >= 0)))
     if store.spill is not None:
         sp = store.spill
-        dead = (sp.rec >= 0) & (sp.end <= wm)              # [n, B, S]
-        shard = torch.arange(n, dtype=torch.int32,
-                             device=dev)[:, None, None]
-        rec_g = torch.where(sp.rec >= 0, sp.rec * n + shard, -1)
+        dead = (sp.rec >= 0) & (sp.end <= wm)              # [m, B, S]
+        rec_g = torch.where(sp.rec >= 0, sp.rec * n + shard[..., None], -1)
         parts.append((rec_g, sp.begin, sp.end, dead))
-    rec = torch.cat([torch.where(d, r, -1).reshape(-1)
-                     for r, _, _, d in parts])
-    begin = torch.cat([b.reshape(-1) for _, b, _, _ in parts])
-    end = torch.cat([e.reshape(-1) for _, _, e, _ in parts])
-    dead = torch.cat([d.reshape(-1) for _, _, _, d in parts])
-    return rec, begin, end, dead
+    return [(torch.where(d, r, -1).reshape(-1), b.reshape(-1),
+             e.reshape(-1), d.reshape(-1)) for r, b, e, d in parts]
 
 
 def _first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
@@ -525,6 +771,33 @@ def _first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
     out.index_copy_(0, torch.where(take, pos, size),
                     torch.arange(n_flat, device=mask.device))
     return out[:size]
+
+
+def _take_events(rec, begin, end, dead, cap: int):
+    """The first ``cap`` reclaimed versions of flat arrays, padded with
+    rec -1 / INF_TS."""
+    idx = _first_true(dead, cap)
+
+    def take(x, fill):
+        return torch.cat([x, torch.full((1,), fill, dtype=x.dtype,
+                                        device=x.device)])[idx]
+
+    return take(rec, -1), take(begin, INF_TS), take(end, INF_TS)
+
+
+def _gc_stats(rec, begin, end, dead, wm, pin_ts):
+    """The sweep's delay and pin statistics over flat arrays."""
+    delay = torch.where(dead, wm - end, 0)
+    # float32 log2, as the reference computes the bucket
+    bucket = torch.floor(torch.log2(delay.to(torch.float32) + 1.0)) \
+        .clamp(0, 15).to(torch.int64)
+    hist = torch.zeros(17, dtype=torch.int32, device=wm.device)
+    hist.index_add_(0, torch.where(dead, bucket, 16),
+                    torch.ones_like(bucket, dtype=torch.int32))
+    stabbed = dead & pin_stabbed(begin, end, pin_ts)
+    return {"gc_dead_total": isum(dead), "gc_delay_sum": isum(delay),
+            "gc_delay_max": delay.max(), "gc_delay_hist": hist[:16],
+            "gc_pin_stabbed": isum(stabbed)}
 
 
 def gc_sharded_audited(store: ShardedVersionStore, watermark,
@@ -545,34 +818,44 @@ def gc_sharded_audited(store: ShardedVersionStore, watermark,
       gc_pin_stabbed    []    reclaimed versions a pin stabs (cert == 0)
       gc_event_rec/begin/end [event_cap]  the first ``event_cap``
                         reclaimed versions (global rec, -1/INF padded)
-    """
-    wm = i32(watermark, _primary_key(store).device)
-    rec, begin, end, dead = _audit_dead_flat(store, wm)
-    delay = torch.where(dead, wm - end, 0)
-    # float32 log2, as the reference computes the bucket
-    bucket = torch.floor(torch.log2(delay.to(torch.float32) + 1.0)) \
-        .clamp(0, 15).to(torch.int64)
-    hist = torch.zeros(17, dtype=torch.int32, device=wm.device)
-    hist.index_add_(0, torch.where(dead, bucket, 16),
-                    torch.ones_like(bucket, dtype=torch.int32))
-    stabbed = dead & pin_stabbed(begin, end, pin_ts)
-    idx = _first_true(dead, int(event_cap))
 
-    def take(x, fill):
-        return torch.cat([x, torch.full((1,), fill, dtype=x.dtype,
-                                        device=x.device)])[idx]
-
-    audit = {
-        "gc_watermark": wm,
-        "gc_dead_total": isum(dead),
-        "gc_delay_sum": isum(delay),
-        "gc_delay_max": delay.max(),
-        "gc_delay_hist": hist[:16],
-        "gc_pin_stabbed": isum(stabbed),
-        "gc_event_rec": take(rec, -1),
-        "gc_event_begin": take(begin, INF_TS),
-        "gc_event_end": take(end, INF_TS),
-    }
+    The events are the first in the reference's flat order: every
+    shard's primary level, then every shard's spill pool. On a mesh each
+    rank audits its shard and one all-gather brings every rank's counts
+    and its first ``event_cap`` events of each level to every rank,
+    which reduce and merge them in that order."""
+    n, cap = store.n_shards, int(event_cap)
+    dev = _primary_key(store).device
+    wm = i32(watermark, dev)
+    mesh = store_mesh(store)
+    if mesh is None:
+        parts = _audit_dead_parts(store, wm, n, torch.arange(n, device=dev))
+        flat = [torch.cat(x) for x in zip(*parts)]
+        audit = dict(gc_watermark=wm, **_gc_stats(*flat, wm, pin_ts))
+        ev = _take_events(*flat, cap)
+    else:
+        s = mesh.get_local_rank()
+        parts = _audit_dead_parts(local_store(store), wm, n,
+                                  torch.tensor([s], device=dev))
+        stats = _gc_stats(*[torch.cat(x) for x in zip(*parts)], wm, pin_ts)
+        mine = list(stats.values())
+        for part in parts:                  # per level: count + events
+            mine += [isum(part[3]), *_take_events(*part, cap)]
+        rows = gather_many(mine, mesh)      # each [n, ...]
+        audit = {"gc_watermark": wm}
+        for k, v in zip(stats, rows):
+            audit[k] = (v.max() if k == "gc_delay_max"
+                        else v.sum(0, dtype=torch.int32))
+        # level-major, rank-minor: the logical flat order
+        levels = [rows[len(stats) + 4 * i: len(stats) + 4 * i + 4]
+                  for i in range(len(parts))]
+        slot = torch.arange(cap, device=dev)[None, :]
+        dead = torch.cat([(slot < cnt[:, None]).reshape(-1)
+                          for cnt, *_ in levels])
+        ev = _take_events(*(torch.cat([lv[j].reshape(-1) for lv in levels])
+                            for j in (1, 2, 3)), dead, cap)
+    audit.update(gc_event_rec=ev[0], gc_event_begin=ev[1],
+                 gc_event_end=ev[2])
     new_store, evicted = gc_sharded(store, wm)
     return new_store, evicted, audit
 
@@ -589,7 +872,8 @@ def gather_windows_sharded(store: ShardedVersionStore,
     """(begin [B, K], end [B, K], payload [B, K, D]) primary windows. For
     a paged store they are materialised through the page table (K =
     MaxP * S, unmapped pages give empty slots) — a diagnostic path; reads
-    go through ``mvcc_resolve_paged``."""
+    go through ``mvcc_resolve_paged``. On a mesh each rank gathers the
+    reads it owns (zeros elsewhere) and one all-reduce SUM merges them."""
     n = store.n_shards
     rec = records.to(torch.int32).clamp(min=0).long()
     shard = rec % n
@@ -597,6 +881,19 @@ def gather_windows_sharded(store: ShardedVersionStore,
     # reference's clamped gathers do
     loc = torch.div(rec, n, rounding_mode="floor").clamp(
         max=store.records_per_shard - 1)
+    on_mesh = store_mesh(store)
+    if on_mesh is None:
+        return _gather_rows(store, shard, loc)
+    s = on_mesh.get_local_rank()
+    owned = shard == s
+    b, e, p = _gather_rows(local_store(store), torch.zeros_like(shard), loc)
+    b, e = (torch.where(owned[:, None], x, 0) for x in (b, e))
+    p = torch.where(owned[:, None, None], p, 0)
+    return _merge_windows(b, e, p, on_mesh)
+
+
+def _gather_rows(store: ShardedVersionStore, shard: torch.Tensor,
+                 loc: torch.Tensor):
     if store.paged:
         p = store.pages
         pt = p.page_table[shard, loc]                          # [B, MaxP]
@@ -606,6 +903,11 @@ def gather_windows_sharded(store: ShardedVersionStore,
                                      p.payload[sh, safe])
     r = store.rings
     return r.begin[shard, loc], r.end[shard, loc], r.payload[shard, loc]
+
+
+def _merge_windows(b, e, p, mesh):
+    """Sum the ranks' owned windows (each read has one owner)."""
+    return all_reduce(b, mesh), all_reduce(e, mesh), all_reduce(p, mesh)
 
 
 def _resolve_two_level(prim_s, spill_s: Optional[SpillPool],
@@ -637,16 +939,19 @@ def _resolve_two_level(prim_s, spill_s: Optional[SpillPool],
 
 
 def resolve_sharded(store: ShardedVersionStore, records: torch.Tensor,
-                    ts: torch.Tensor, mesh=None
+                    ts: torch.Tensor, mesh=None, axis: str = "cc"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve ``records`` [B] at snapshot timestamps ``ts`` [B] through
     the kernels, primary level then spill, once per shard; results merge
     by ownership. An id past the store reads its shard's last row and a
     negative one row 0, as the reference's clamped gathers do; the spill
     pool's owner test takes the id unclamped above, so it never matches
-    there. Returns (vals [B, D], found [B])."""
-    if mesh is not None:
-        raise _unported("the mesh= substrate")
+    there. Returns (vals [B, D], found [B]).
+
+    On a mesh every rank resolves every read against its own shard (the
+    reads are replicated) and one all-reduce SUM of (vals, found as an
+    int) merges them: each read has exactly one owner, so the sum is the
+    reference's ``psum`` select."""
     n, last = store.n_shards, store.records_per_shard - 1
     records = records.to(torch.int32)
     ts = ts.to(torch.int32).contiguous()
@@ -660,14 +965,24 @@ def resolve_sharded(store: ShardedVersionStore, records: torch.Tensor,
     owner = records % n
     local = torch.div(records, n, rounding_mode="floor")
     rows = local.clamp(0, last)
+
+    def one_shard(s, prim, spill):
+        owned = owner == s
+        v_s, f_s = _resolve_two_level(prim, spill, rows, local, ts)
+        return torch.where(owned[:, None], v_s, 0), owned & f_s
+
+    on_mesh = store_mesh(store)
+    if on_mesh is not None:
+        _, (vals, found) = shard_map(
+            lambda s, loc: (None, one_shard(s, _take_shard(loc, 0),
+                                            _take_spill(loc, 0))),
+            on_mesh, store)
+        both = all_reduce(torch.cat([vals, found.to(vals.dtype)[:, None]],
+                                    1), on_mesh)
+        return both[:, :-1], both[:, -1] > 0
     vals = found = None
     for s in range(n):
-        owned = owner == s
-        v_s, f_s = _resolve_two_level(_take_shard(store, s),
-                                      _take_spill(store, s), rows, local,
-                                      ts)
-        v_s = torch.where(owned[:, None], v_s, 0)
-        f_s = owned & f_s
+        v_s, f_s = one_shard(s, _take_shard(store, s), _take_spill(store, s))
         # each read has exactly one owner: the sum is a select
         vals = v_s if vals is None else vals + v_s
         found = f_s if found is None else found | f_s

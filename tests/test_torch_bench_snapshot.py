@@ -80,7 +80,8 @@ def test_snapshot_probe_returns_the_pinned_state(monkeypatch):
 
 def test_microbench_rows_match_reference(monkeypatch):
     """The ``cc_shards=1`` column: batch sizes, waves and row keys equal
-    (the reference's other columns need ``mesh=``)."""
+    (on one device neither runs the mesh columns;
+    ``test_torch_mesh_plan.py`` rehearses them)."""
     _shrink(monkeypatch, (ref_micro, port_micro), N_RECORDS=8192)
     sizes = (64, 256)
     ref_rows = ref_micro.run(cc_shards=(1,), batch_sizes=sizes)

@@ -47,6 +47,39 @@ def test_package_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
 
 
+def test_package_and_mesh_path_import_no_torch_testing():
+    """Importing every module of the package, and building and driving a
+    one-rank ``cc`` mesh engine over gloo, loads nothing of
+    ``torch.testing._internal.distributed``: only the tests and
+    ``chip_smoke.py`` use torch's threaded process group. (DTensor
+    itself imports two other ``torch.testing._internal`` modules.)"""
+    code = (
+        "import sys, importlib, pkgutil, torch\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from repro_torch.core.engine import BohmEngine\n"
+        "from repro_torch.core.txn import make_batch\n"
+        "from repro_torch.core.workloads import make_ycsb\n"
+        "from repro_torch.launch.mesh import cc_mesh\n"
+        "dist.init_process_group('gloo', store=dist.HashStore(), rank=0, "
+        "world_size=1)\n"
+        "eng = BohmEngine(16, make_ycsb(2, 2), mesh=cc_mesh('cpu'), "
+        "device='cpu')\n"
+        "eng.run_batch(make_batch([[1, 2]], [[1, 2]], [0], [[1]], "
+        "device='cpu'))\n"
+        "eng.snapshot_read(torch.arange(16)); eng.gc_sweep()\n"
+        "bad = [m for m in sys.modules if m.startswith("
+        "'torch.testing._internal.distributed')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [
         *PKG.rglob("*.py"), *(ROOT / "benchmarks_torch").rglob("*.py"),
@@ -188,14 +221,16 @@ def test_logical_shard_options_run(kwargs):
                                     dict(n_shards=2, mesh=object()),
                                     dict(auditor="audited", mesh=object())])
 def test_unported_options_raise(kwargs):
-    """Unported options raise, also beside the ported paged, adaptive-K,
+    """Every option of the reference engine is ported; ``mesh=`` takes a
+    ``DeviceMesh`` (``tests/test_torch_mesh_engine.py`` drives it), and
+    anything else raises, also beside the paged, adaptive-K,
     logical-shard and lifecycle-auditor options."""
     from repro_torch.core.engine import BohmEngine
     from repro_torch.core.workloads import make_ycsb
     from repro_torch.obs import LifecycleAuditor
     if kwargs.get("auditor") == "audited":
         kwargs = dict(kwargs, auditor=LifecycleAuditor())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BohmEngine(16, make_ycsb(), device="cpu", **kwargs)
 
 
