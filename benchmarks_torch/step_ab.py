@@ -1,7 +1,7 @@
 """The port's main paths timed from one tree, for an A/B of two trees on
 one card.
 
-    python3 benchmarks_torch/step_ab.py [--tree DIR] [--parts train,models,grad,serve,host]
+    python3 benchmarks_torch/step_ab.py [--tree DIR] [--parts train,mla_train,models,grad,serve,host]
 
 Imports ``chip_smoke`` and ``repro_torch`` from ``DIR`` (a checkout of
 the repo; this one by default), so the same script times a parent
@@ -12,6 +12,12 @@ call, in the order parent, change, change, parent. The parts:
   full width and depth, bf16, remat "full", B=8 x S=2,048): the median
   step (steps 2-20, host clock around a step that ends in a
   synchronisation) and the step-20 loss;
+* ``mla_train``: phase 15's deepseek-v2-lite run (published widths, its
+  first 2 of 27 layers, bf16, remat "full", AdamW, B=2 x S=2,048, 5
+  steps): the median step (steps 2-5), the step-5 loss, the peak memory
+  and the backward's launches by route. It drives ``Trainer`` itself,
+  with no save, so that a tree whose ``train_steps`` always saves and
+  restores times the same 5 steps;
 * ``models``: phase 14's ``model_bf16`` for each configuration (B=2,
   S=512, bf16): the median prefill and decode step;
 * ``grad``: one loss and gradient (``value_and_grad``) of hymba-1.5b and
@@ -45,6 +51,7 @@ from pathlib import Path
 import torch
 
 GRAD_ARCHS, GRAD_REPS = ("hymba-1.5b", "seamless-m4t-large-v2"), 5
+MLA_ARCH, MLA_LAYERS, MLA_STEPS = "deepseek-v2-lite-16b", 2, 5
 HOST_REPS = 2000
 HINTS = ("constrain_batch", "constrain_residual", "gather_params",
          "one_axis_batch", "row_gather")
@@ -67,6 +74,38 @@ def part_train(cs):
     return {"median_step_ms": statistics.median(ms[1:]),
             "step_ms": [round(x, 3) for x in ms],
             "loss20": r["hist"][-1]["loss"], "peak_gib": r["peak_gib"]}
+
+
+def part_mla_train(cs):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (PackedBatchIterator,
+                                           SyntheticTokenSource)
+    from repro_torch.kernels import ops
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS,
+                              dtype="bfloat16", remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = PackedBatchIterator(SyntheticTokenSource(cfg.vocab_size, seed=0),
+                               batch=2, seq_len=2048)
+    trainer = Trainer(cfg, TrainConfig(steps=MLA_STEPS, log_every=1), data,
+                      device="cuda")
+    trainer.on_log = lambda entry: None
+    ops.reset_launches()
+    trainer.run(MLA_STEPS)
+    data.close()
+    ms = [h["step_time_s"] * 1e3 for h in trainer.history]
+    routes = {k: v for k, v in ops.LAUNCHES.items()
+              if k.startswith("flash_attention_causal_bwd/") and v}
+    out = {"median_step_ms": statistics.median(ms[1:]),
+           "step_ms": [round(x, 3) for x in ms],
+           "loss5": trainer.history[-1]["loss"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bwd_launches": routes}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
 
 
 def part_models(cs):
@@ -206,8 +245,9 @@ def part_host(cs):
     return out
 
 
-PARTS = {"train": part_train, "models": part_models, "grad": part_grad,
-         "serve": part_serve, "host": part_host}
+PARTS = {"train": part_train, "mla_train": part_mla_train,
+         "models": part_models, "grad": part_grad, "serve": part_serve,
+         "host": part_host}
 
 
 def main() -> int:

@@ -41,10 +41,11 @@ the JAX package. Phases, each of which must pass:
    ``cuda_cores``; decode: ``split_cluster``); and the backward of
    ``flash_attention_causal`` (``flash_attention_causal_bwd``: three
    kernels, row statistics, dk/dv, dq; the ``wgmma`` route on the tensor
-   cores for bf16 with Dh % 16 == 0 and Dh <= 128, else ``cuda_cores``)
+   cores for bf16 with Dh % 16 == 0 and Dh <= 192, else ``cuda_cores``)
    against its plain version in
    float32 and bf16 at the reference tests' shapes, odd S, G = 1 and 3-7,
-   Dh = 32-192 and the training shape (8, 2,048, 5, 3, 64): within 2e-5
+   Dh = 32-192 and the training shapes (8, 2,048, 5, 3, 64) and MLA's
+   (2, 2,048, 16, 1, 192): within 2e-5
    (float32) and 1e-2 (bf16) of the plain gradient's largest magnitude,
    the same bits on a second call, one launch of each kernel and of the
    expected route, timed
@@ -245,7 +246,17 @@ the JAX package. Phases, each of which must pass:
    bit-equal parameters and
    optimizer state, and the next step of both on one batch the same
    loss; the last step's latest forward and backward launch are held
-   against the plain versions. Then a float32 gradient replay (TF32 off)
+   against the plain versions. Then deepseek-v2-lite-16b's bf16 step at
+   full width, cut to its first 2 of 27 layers (layer 0 dense, d_ff
+   10,944; layer 1 MoE: 64 routed experts top-6 and 2 shared, capacity
+   factor 1.25), remat "full", AdamW, B=2, S=2,048 on
+   ``SyntheticTokenSource``, 5 steps, no save: losses finite; every step
+   launches exactly 3 ``flash_attention_causal`` (the dense layer 0 runs
+   outside remat, as in the reference; the MoE layer's is recomputed) and
+   2 ``flash_attention_causal_bwd`` calls, all on the wgmma routes (MLA's
+   backward at Dh = 192 on the tensor cores), and no blockwise call; the
+   last step's latest forward and backward launch held against the plain
+   versions. Then a float32 gradient replay (TF32 off)
    of smollm, hymba, seamless, llava and deepseek-v2-lite (MLA at Dh =
    192, MoE at a capacity that drops nothing) at full width and 2 layers,
    B=1 and 32 tokens (hymba one SSD chunk, 256): the card's loss and
@@ -254,7 +265,9 @@ the JAX package. Phases, each of which must pass:
    chunk overflows in the reference too: ROADMAP.md, known limits).
    Prints the median step ms, tokens/s, the share of the bf16 peak that
    6 N tokens / step time reaches, peak memory, launches and the held
-   errors beside the card's name and power limit.
+   errors beside the card's name and power limit (for deepseek-v2-lite:
+   the median of steps 2-5, tokens/s, ``max_memory_allocated`` and the
+   cuts).
 
 16. the roofline of phase 15's step: ``launch.dryrun.measure`` counts
    the same step (``launch.specs.make_train_step``: smollm-360m, B=8,
@@ -1231,7 +1244,8 @@ def attention_phase(device="cuda"):
 # ---------------------------------------------------------------------------
 # flash_attention_causal's backward (B, S, KvH, G, Dh): the reference
 # tests' shapes, odd ones, G = 1-7, Dh = 32-192 and the training path's
-# shape (phase 15: smollm-360m at B=8, S=2,048)
+# shapes (phase 15: smollm-360m at B=8, S=2,048; deepseek-v2-lite's MLA
+# at B=2, S=2,048, Dh = 192)
 # ---------------------------------------------------------------------------
 BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
              ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
@@ -1241,7 +1255,8 @@ BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
              ((2, 512, 8, 6, 128), "models"),          # grok, G = 6
              ((2, 512, 8, 4, 128), "models"),          # llava's heads
              ((2, 512, 16, 1, 192), "models"),         # MLA, Dh = 192
-             ((8, 2048, 5, 3, 64), "training")]
+             ((8, 2048, 5, 3, 64), "training"),
+             ((2, 2048, 16, 1, 192), "training")]      # MLA's step
 TRAIN_SHAPE = (8, 2048, 5, 3, 64)
 # relative to the plain backward's largest magnitude: float32 sums in
 # another order (measured <= 5e-6 on an H100); bf16 adds one rounding of
@@ -1338,7 +1353,7 @@ def bwd_attention_phase(device="cuda"):
                                      f"errors {errs} above {tol}")
             err = max(float((a.float() - r.float()).abs().max())
                       for a, r in zip(got, ref))
-            big = shape == TRAIN_SHAPE
+            big = label == "training"
             timing = dict(rounds=5, reps=2) if big else \
                 dict(rounds=11, reps=10)
             sdpa = _sdpa_bwd_args(args[0], args[1], args[2], args[4])
@@ -1359,7 +1374,7 @@ def bwd_attention_phase(device="cuda"):
                 f"sdpa backward {lib_ms * 1e3:.2f} us, bound "
                 f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} B, {flops} "
                 f"flop), {100 * bound_ms / ms:.2f} % of bound")
-            if big and dtype == torch.bfloat16:
+            if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
                 row = {"name": "flash_attention_causal_bwd", "route": "cuda",
                        "source": ATT_SOURCE["flash_attention_causal_bwd"],
                        "replaces": REPLACES["flash_attention_causal_bwd"],
@@ -2754,6 +2769,11 @@ def models_phase(device="cuda"):
 # the training path: smollm-360m at full width and depth (phase 15)
 # ---------------------------------------------------------------------------
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_SAVE_AT = "smollm-360m", 20, 10
+# deepseek-v2-lite's bf16 step, which takes MLA's backward at Dh = 192:
+# its first 2 of 27 layers (layer 0 dense, layer 1 MoE), B=2 x S=2,048,
+# 5 steps, no save (its ~1.1 G parameters and their moments are ~11 GB)
+MLA_ARCH, MLA_LAYERS, MLA_BATCH, MLA_STEPS = ("deepseek-v2-lite-16b", 2, 2,
+                                              5)
 # the float32 gradient replay: 2 layers of each family at full width, B=1
 # and 32 tokens (256, one SSD chunk, with SSM heads; llava 32 patches +
 # 32 tokens), MoE at a capacity that drops nothing
@@ -2838,11 +2858,11 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
                 steps=TRAIN_STEPS, save_at=TRAIN_SAVE_AT):
     """``Trainer`` (remat "full", AdamW) over ``SyntheticTokenSource``:
     ``steps`` steps with the launches and blockwise calls of each step
-    counted from zero; at ``save_at`` a save through ``CheckpointManager``,
-    a restore into a fresh ``Trainer`` (parameters and optimizer state
-    bit-equal) and one step of both on one batch (the losses compared);
-    the latest flash forward and backward launch held against the plain
-    versions. Returns what phase 15 prints."""
+    counted from zero; at ``save_at`` (``None``: no save) a save through
+    ``CheckpointManager``, a restore into a fresh ``Trainer`` (parameters
+    and optimizer state bit-equal) and one step of both on one batch (the
+    losses compared); the latest flash forward and backward launch held
+    against the plain versions. Returns what phase 15 prints."""
     from repro_torch.data.pipeline import (PackedBatchIterator,
                                            SyntheticTokenSource)
     from repro_torch.training.train_loop import TrainConfig, Trainer
@@ -2859,9 +2879,11 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
         ops.reset_launches()
         model_layers.reset_blockwise()
 
+    losses, restore_s = [], 0.0
     with tempfile.TemporaryDirectory() as root, HeldTraining() as held:
-        tcfg = TrainConfig(steps=steps, log_every=1, checkpoint_dir=root,
-                           checkpoint_every=save_at)
+        tcfg = TrainConfig(steps=steps, log_every=1,
+                           checkpoint_dir=None if save_at is None else root,
+                           checkpoint_every=save_at or steps)
         t0 = time.perf_counter()
         trainer = Trainer(cfg, tcfg, data, device=device)
         _sync(device)
@@ -2869,30 +2891,32 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
         trainer.on_log = count
         ops.reset_launches()
         model_layers.reset_blockwise()
-        trainer.run(save_at)                # saves at save_at
-        t0 = time.perf_counter()
-        fresh = Trainer(cfg, tcfg, data, device=device, seed=1)
-        if not fresh.try_restore() or fresh.step != save_at:
-            raise AssertionError("restore did not find the saved step")
-        restore_s = time.perf_counter() - t0
-        _same_state(fresh.params, trainer.params, "restored parameters")
-        _same_state(fresh.opt_state, trainer.opt_state,
-                    "restored optimizer state")
-        # the pipeline's next batch through both: the original trainer
-        # counts it as its step save_at + 1
-        one = next(data)
-        kept = trainer.data
-        trainer.ckpt = fresh.ckpt = None
-        fresh.on_log = lambda entry: None
-        losses = []
-        for t in (trainer, fresh):
-            t.data = iter([one])
-            losses.append(t.run(1)["loss"])
-        del fresh
-        trainer.data = kept
-        ops.reset_launches()
-        model_layers.reset_blockwise()
-        trainer.run(steps - save_at - 2)
+        if save_at is None:
+            trainer.run(steps - 1)
+        else:
+            trainer.run(save_at)                # saves at save_at
+            t0 = time.perf_counter()
+            fresh = Trainer(cfg, tcfg, data, device=device, seed=1)
+            if not fresh.try_restore() or fresh.step != save_at:
+                raise AssertionError("restore did not find the saved step")
+            restore_s = time.perf_counter() - t0
+            _same_state(fresh.params, trainer.params, "restored parameters")
+            _same_state(fresh.opt_state, trainer.opt_state,
+                        "restored optimizer state")
+            # the pipeline's next batch through both: the original trainer
+            # counts it as its step save_at + 1
+            one = next(data)
+            kept = trainer.data
+            trainer.ckpt = fresh.ckpt = None
+            fresh.on_log = lambda entry: None
+            for t in (trainer, fresh):
+                t.data = iter([one])
+                losses.append(t.run(1)["loss"])
+            del fresh
+            trainer.data = kept
+            ops.reset_launches()
+            model_layers.reset_blockwise()
+            trainer.run(steps - save_at - 2)
         held.armed = True                   # the last step's launches
         trainer.run(1)
         held_errs = held.check("training") if on_card else {}
@@ -2906,13 +2930,23 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
                          if on_card else 0.0)}
 
 
+def mla_train_config():
+    """deepseek-v2-lite-16b at its published widths, cut to MLA_LAYERS
+    layers; bf16, remat "full", MoE at its capacity factor (1.25)."""
+    return dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS,
+                               dtype="bfloat16", remat="full")
+
+
 def check_train_launches(cfg, per_step, on_card=True):
-    """Per step: 2 x layers forward launches (the remat recompute), one
-    backward call (three kernels) a layer on the wgmma route, no
-    blockwise call."""
+    """Per step: two forward launches a layer under remat (the
+    recompute) and one a prefix layer (the dense layers before the first
+    MoE one run outside remat, as the reference's), one backward call
+    (three kernels) a layer on the wgmma route, no blockwise call."""
     n = cfg.num_layers
-    want = {"flash_attention_causal": 2 * n,
-            "flash_attention_causal/wgmma": 2 * n,
+    prefix = cfg.moe.first_moe_layer if cfg.moe else 0
+    fwd = prefix + 2 * (n - prefix)
+    want = {"flash_attention_causal": fwd,
+            "flash_attention_causal/wgmma": fwd,
             "flash_attention_causal_bwd": n,
             "flash_attention_causal_bwd/wgmma": n}
     want.update({f"flash_attention_causal_bwd/{k}": n
@@ -3056,6 +3090,9 @@ def training_phase(device="cuda"):
         f"Trainer ({r['restore_s']:.2f} s): parameters and optimizer state "
         f"bit-equal; the next step on one batch: loss {b} == {a} (the "
         f"original trainer's)")
+    del r
+    torch.cuda.empty_cache()
+    mla = mla_training(device)
     for name in GRAD_ARCHS:
         t1 = time.perf_counter()
         g = grad_replay(name, device)
@@ -3069,7 +3106,44 @@ def training_phase(device="cuda"):
             f"({time.perf_counter() - t1:.1f} s: "
             f"{ {k: round(v, 2) for k, v in g['seconds'].items()} })")
     log(f"training phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
-    return dict(total), med
+    return dict(total), med, mla
+
+
+def mla_training(device="cuda"):
+    """Phase 15's deepseek-v2-lite run (see the module doc). Returns its
+    launches over the counted steps."""
+    t0 = time.perf_counter()
+    r = train_steps(device, cfg=mla_train_config(), batch=MLA_BATCH,
+                    steps=MLA_STEPS, save_at=None)
+    cfg, hist = r["cfg"], r["hist"]
+    want = check_train_launches(cfg, r["per_step"])
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{MLA_ARCH} training losses {losses}")
+    ms = [h["step_time_s"] * 1e3 for h in hist]
+    med = statistics.median(ms[1:])
+    total = collections.Counter()
+    for launches, _ in r["per_step"]:
+        total.update({k: v for k, v in launches.items() if v})
+    log(f"training {MLA_ARCH}: full width, cut to {cfg.num_layers} of "
+        f"{get_config(MLA_ARCH).num_layers} layers (layer 0 dense, d_ff "
+        f"{cfg.moe.dense_d_ff}; layer 1 MoE, {cfg.moe.num_experts} experts "
+        f"top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared, capacity factor "
+        f"{cfg.moe.capacity_factor}) and to {len(hist)} steps, no save; "
+        f"bf16, remat {cfg.remat}, {r['n_params']:,} parameters (init "
+        f"{r['init_s']:.2f} s); B={MLA_BATCH} S=2048 on "
+        f"SyntheticTokenSource, AdamW; losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(h['grad_norm'], 3) for h in hist]}")
+    tokens = hist[0]["tokens"]
+    log(f"training {MLA_ARCH}: step ms {[round(x, 1) for x in ms]}; median "
+        f"(steps 2-{len(hist)}) {med:.3f} ms = {tokens / med * 1e3:.1f} "
+        f"tokens/s; max_memory_allocated {r['peak_gib']:.3f} GiB; launches "
+        f"per step {want} in each of the {len(r['per_step'])} counted steps "
+        f"(0 on flash_attention_causal_bwd/cuda_cores), 0 blockwise calls; "
+        f"the latest forward and backward launch against the plain versions "
+        f"{r['held']} ({time.perf_counter() - t0:.1f} s); {nvidia_smi()}")
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -3729,11 +3803,15 @@ def main() -> int:
         f"{model_launches}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     # -- the training path, counted from zero per step ----------------------
-    train_launches, step_ms = training_phase()
+    train_launches, step_ms, mla_launches = training_phase()
     rows["flash_attention_causal_bwd"]["launches"] = \
         train_launches["flash_attention_causal_bwd"]
+    rows["flash_attention_causal_bwd"]["mla_training_launches"] = \
+        mla_launches["flash_attention_causal_bwd"]
     rows["flash_attention_causal"]["training_launches"] = \
         train_launches["flash_attention_causal"]
+    rows["flash_attention_causal"]["mla_training_launches"] = \
+        mla_launches["flash_attention_causal"]
 
     # -- the roofline of the training step and the sharded path -------------
     roofline_phase(step_ms)

@@ -53,8 +53,8 @@
 // the CUDA cores in float32 from shared memory (each thread a 2 x 4
 // block of (row, key) scores, then a key's (or row's) slice of columns),
 // bound by shared-memory loads, and recomputes S and dP once more for
-// dq. It serves float32 (TF32 would not hold its tolerance), Dh = 192
-// and Dh not a multiple of 16; bf16 with Dh % 16 == 0 and Dh <= 128 takes
+// dq. It serves float32 (TF32 would not hold its tolerance) and bf16
+// with Dh not a multiple of 16; bf16 with Dh % 16 == 0 (up to 192) takes
 // the tensor-core kernels of flash_attention_bwd_wgmma.cu (the wrapper
 // picks by dtype and shape).
 #include "attention.cuh"

@@ -1,5 +1,5 @@
 // The backward of causal grouped-query flash attention on the tensor
-// cores (bf16, Dh % 16 == 0, Dh <= 128), for sm_90a: dq, dk and dv of
+// cores (bf16, Dh % 16 == 0, Dh <= 192), for sm_90a: dq, dk and dv of
 // flash_attention.cu's function, the same function as
 // flash_attention_bwd.cu's CUDA-core kernels compute (its header states
 // it), in the same layout:
@@ -17,10 +17,14 @@
 // What bounds it on an H100: operations. The causal backward needs about
 // 10 Dh flops a (query head, key <= query) pair (S and dP recomputed, then
 // dv, dk and dq); at the training shape (B = 8, S = 2048, KvH = 5, G = 3,
-// Dh = 64) that is 161 GFLOP against ~0.1 ms of bytes. The CUDA-core
-// design computed them in float32 from shared memory at ~11 TFLOP/s,
-// bound by shared-memory loads. This design puts every product on wgmma
-// (bf16 operands, float32 accumulators) and every tile load on TMA:
+// Dh = 64) that is 161 GFLOP against ~0.1 ms of bytes, at MLA's (B = 2,
+// S = 2048, KvH = 16, G = 1, Dh = 192) 129 GFLOP. The CUDA-core design
+// computed them in float32 from shared memory at ~11 TFLOP/s, bound by
+// shared-memory loads. This design puts every product on wgmma (bf16
+// operands, float32 accumulators) and every tile load on TMA. Dh is
+// held as NP = ceil(Dh / 64) panels of 64 columns (NP = 3 above 128);
+// columns past Dh are TMA's zero fill, so nothing assumes the caller
+// padded Dh:
 //
 // * stats_wgmma_kernel: one block per (b, kvh, tile of bq = 64 / G
 //   positions: bq * G rows ordered (position, head), as the forward);
@@ -31,21 +35,44 @@
 //   lse in the log2 domain (log2 sum_j 2^(s_ij log2 e)) and D = dout . out
 //   (the diagonal of dO.O^T on wgmma, summed as dP is), float32
 //   [B, S, KvH, G].
-// * dkdv_wgmma_kernel: one block per (b, kvh, 64-key tile), heaviest (the
-//   first keys) first. K and V stay in shared memory; Q, dO, lse and D
-//   tiles of bq positions (the G heads of each) stream in from a TMA ring
-//   (the producer warp writes lse and D beside each tile). Per tile:
-//   S^T = K.Q^T and dP^T = V.dO^T (ss); P^T and dS^T = P^T (dP^T - D) in
-//   registers, the causal mask as an index test; dV += P^T.dO and
-//   dK += dS^T.Q with P^T and dS^T rounded to bf16 as the register A
-//   operand and dO, Q read MN-major through the descriptor's transpose,
-//   as the forward reads V.
+// * dkdv_wgmma_kernel (NP = 1, 2): one block per (b, kvh, 64-key tile),
+//   heaviest (the first keys) first. K and V stay in shared memory; Q,
+//   dO, lse and D tiles of bq positions (the G heads of each) stream in
+//   from a TMA ring (the producer warp writes lse and D beside each
+//   tile). Per tile: S^T = K.Q^T and dP^T = V.dO^T (ss); P^T and dS^T =
+//   P^T (dP^T - D) in registers, the causal mask as an index test;
+//   dV += P^T.dO and dK += dS^T.Q with P^T and dS^T rounded to bf16 as the
+//   register A operand and dO, Q read MN-major through the descriptor's
+//   transpose, as the forward reads V. One consumer warpgroup holds
+//   dK and dV (2 x 32 NP floats a thread) beside S^T and dP^T (32 each).
+// * dkdv_split_kernel (NP = 3): the same block, ring and products, split
+//   over two consumer warpgroups, because one cannot hold dK and dV at
+//   Dh = 192 (96 + 96 + 32 + 32 = 256 floats a thread, over the 255
+//   registers a thread may have). Warpgroup A computes S^T, forms P^T,
+//   hands it to warpgroup B through shared memory and accumulates
+//   dV += P^T.dO; warpgroup B computes dP^T, reads P^T, forms dS^T and
+//   accumulates dK += dS^T.Q. Each holds one 96-float accumulator and
+//   one 64 x 64 tile; no pair is computed twice (8 Dh flops a pair, as
+//   at NP = 1, 2). P^T goes over in float32 (16 KB a tile, each thread
+//   reading back the very elements its twin wrote), so dS^T is formed
+//   from the same float32 P as at NP = 1, 2 and the route rounds the
+//   same way at every Dh; two buffers (32 KB) let A run one tile ahead.
+//   Named barriers guard them (A arrives "full" after writing and syncs
+//   on "empty" before reusing a buffer; B syncs on "full" and arrives
+//   "empty" after reading). Shared memory: K, V (6 panels) + the Q/dO
+//   ring (18) = 196,608 B, lse/D 1,536 B, the P^T buffers 32,768 B, 7
+//   mbarriers and 1,024 B of alignment slack: 231,992 of the 232,448 B
+//   a block may have. Registers: 384 threads (the two consumer
+//   warpgroups and a producer warpgroup, of which one warp loads) would
+//   get 168 a thread, where the consumers spill; setmaxnreg gives the
+//   producer warpgroup 56 and each consumer 224.
 // * dq_wgmma_kernel: one block per (b, kvh, tile of bq positions),
 //   heaviest (the last positions) first; Q and dO once by TMA, K and V
 //   tiles streamed as in the forward: S = Q.K^T and dP = dO.V^T (ss),
 //   dS in registers, dQ += dS.K (dS in registers, K MN-major). It
 //   recomputes S and dP (6 of the 16 Dh flops it does a pair) so that it
-//   needs no float atomics and no dq-sized scratch.
+//   needs no float atomics and no dq-sized scratch. At NP = 3 one
+//   warpgroup holds dQ (96 floats) beside S and dP (32 each).
 //
 // Dh^-0.5 is applied in float32, to S (with log2 e, as exp2's argument)
 // and to dK and dQ at the end. P and dS are rounded to bf16 for the three
@@ -107,18 +134,21 @@ __device__ __forceinline__ void mma_rs(float (&d)[32 * NP],
                                           kPanel, hopper::kAtomBytes);
     if constexpr (NP == 1)
       hopper::wgmma_m64n64k16_rs_tb(d, a[kk], desc);
-    else
+    else if constexpr (NP == 2)
       hopper::wgmma_m64n128k16_rs_tb(d, a[kk], desc);
+    else
+      hopper::wgmma_m64n192k16_rs_tb(d, a[kk], desc);
   }
 }
 
-// Zero rows [from, 64) of `n` consecutive tiles of NP panels (consumer
-// threads; the caller fences for the async proxy and syncs).
-template <int NP>
+// Zero rows [from, 64) of `n` consecutive tiles of NP panels (the
+// `threads` consumer threads; the caller fences for the async proxy and
+// syncs).
+template <int NP, int threads = kConsumers>
 __device__ __forceinline__ void zero_tail(uint8_t* tiles, int n, int from,
                                           int tid) {
   const int per_panel = (kTile - from) * 8;          // 16-byte chunks
-  for (int i = tid; i < n * NP * per_panel; i += kConsumers) {
+  for (int i = tid; i < n * NP * per_panel; i += threads) {
     const int panel = i / per_panel, c = i - panel * per_panel;
     *reinterpret_cast<uint4*>(tiles + kPanel * panel +
                               (from + c / 8) * hopper::kRowBytes +
@@ -317,10 +347,165 @@ stats_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
 }
 
 // -- dk and dv: one block a 64-key tile ---------------------------------------
-template <int NP>
+// Shared memory of a dk/dv block: K and V ([NP] panels each), the Q and dO
+// ring ([kStages][NP] each), lse and D beside each stage, `n_pt` float32
+// 64 x 64 P^T buffers (the split kernel's hand-over; none at NP = 1, 2),
+// then the mbarriers.
+template <int NP, int n_pt = 0>
 constexpr size_t dkdv_smem() {
   return 1024 + kPanel * NP * (2 + 2 * kStages) + kStages * 2 * kTile * 4 +
-         (2 * kStages + 1) * 8;
+         n_pt * kTile * kTile * 4 + (2 * kStages + 1) * 8;
+}
+
+template <int NP>
+struct DkdvSmem {
+  uint8_t *k_s, *v_s, *q_s, *do_s;
+  float* stat_s;           // [kStages][lse 64 | D 64]
+  float* p_s;              // [n_pt][64 * 64]
+  uint64_t *full, *empty, *kvbar;
+  __device__ DkdvSmem(uint8_t* raw, int n_pt) {
+    k_s = align1024(raw);                       // [NP]
+    v_s = k_s + kPanel * NP;                    // [NP]
+    q_s = v_s + kPanel * NP;                    // [kStages][NP]
+    do_s = q_s + kPanel * NP * kStages;         // [kStages][NP]
+    stat_s = reinterpret_cast<float*>(do_s + kPanel * NP * kStages);
+    p_s = stat_s + kStages * 2 * kTile;
+    full = reinterpret_cast<uint64_t*>(p_s + n_pt * kTile * kTile);
+    empty = full + kStages;
+    kvbar = empty + kStages;
+  }
+};
+
+// The 64-key tile a dk/dv block owns: blocks heaviest (the first keys)
+// first over every (b, kvh) pair.
+struct KeyBlock {
+  int b, h, j0, n_qt;
+  __device__ KeyBlock(int B, int S, int kvh, int bq) {
+    const int bhs = B * kvh;
+    const int kt = static_cast<int>(blockIdx.x) / bhs;
+    const int bh = static_cast<int>(blockIdx.x) % bhs;
+    b = bh / kvh;
+    h = bh - b * kvh;
+    j0 = kt * kTile;
+    n_qt = (S - j0 + bq - 1) / bq;   // tiles of positions >= j0
+  }
+};
+
+// The dk/dv producer warp (`lane` 0-31): K and V once, then for each tile
+// of bq positions its lse and D (written by the lanes) and its Q and dO
+// boxes by TMA into ring stage t % kStages, once every consumer freed it.
+template <int NP>
+__device__ __forceinline__ void dkdv_produce(
+    const DkdvSmem<NP>& sm, const CUtensorMap* tmap_q,
+    const CUtensorMap* tmap_do, const CUtensorMap* tmap_k,
+    const CUtensorMap* tmap_v, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const KeyBlock& blk, int S, int kvh,
+    int g, int bq, int lane) {
+  const int b = blk.b, h = blk.h, j0 = blk.j0;
+  const int rows = bq * g;                   // rows a full tile
+  if (lane == 0) {
+    hopper::mbar_arrive_expect_tx(sm.kvbar, 2 * NP * kPanel);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hopper::tma_load_4d(sm.k_s + kPanel * p, tmap_k, sm.kvbar, 64 * p, h,
+                          j0, b);
+      hopper::tma_load_4d(sm.v_s + kPanel * p, tmap_v, sm.kvbar, 64 * p, h,
+                          j0, b);
+    }
+  }
+  for (int t = 0; t < blk.n_qt; ++t) {
+    const int st = t % kStages, round = t / kStages;
+    const int p0 = j0 + t * bq;
+    if (round > 0) hopper::mbar_wait(&sm.empty[st], (round - 1) & 1);
+    float* ls = sm.stat_s + st * 2 * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = lane + 32 * half;
+      const bool valid = r < rows && p0 + r / g < S;
+      const long long idx = valid ? row_of(b, S, kvh, h, g, p0, r) : 0;
+      ls[r] = valid ? lse[idx] : INFINITY;      // P = 0 in absent rows
+      ls[kTile + r] = valid ? dvec[idx] : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&sm.full[st],
+                                    2 * NP * hopper::kRowBytes * rows);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_5d(sm.q_s + kPanel * (st * NP + p), tmap_q,
+                            &sm.full[st], 64 * p, 0, h, p0, b);
+        hopper::tma_load_5d(sm.do_s + kPanel * (st * NP + p), tmap_do,
+                            &sm.full[st], 64 * p, 0, h, p0, b);
+      }
+    } else {
+      hopper::mbar_arrive(&sm.full[st]);
+    }
+  }
+}
+
+// Ring barriers of a dk/dv block: `full` completes when the producer's 32
+// lanes arrived and the stage's TMA bytes landed, `empty` when all
+// `consumers` threads are done with the stage.
+template <int NP>
+__device__ __forceinline__ void dkdv_init(const DkdvSmem<NP>& sm,
+                                          int consumers) {
+  for (int st = 0; st < kStages; ++st) {
+    hopper::mbar_init(&sm.full[st], 32);      // the producer warp's lanes
+    hopper::mbar_init(&sm.empty[st], consumers);
+  }
+  hopper::mbar_init(sm.kvbar, 1);
+  hopper::fence_barrier_init();
+}
+
+// P^T for keys key0 and key0 + 8 (this thread's rows of the m64 tile)
+// and tile rows 8 jn + col + {0, 1} from S^T (in place): exp2 of the
+// scaled score less the row's lse, 0 above the diagonal (rows before the
+// key).
+__device__ __forceinline__ void form_p(float (&s)[32], const float* ls,
+                                       int key0, int j0, int p0, int g,
+                                       int col, float scale_log2) {
+  // column c (row p0 + c / g) is visible to key j iff j <= p0 + c / g,
+  // i.e. c >= (j - p0) g
+  const bool diag = p0 < j0 + kTile - 1;
+  const int lim0 = (key0 - p0) * g, lim1 = lim0 + 8 * g;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const int c = 8 * jn + col;
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = 4 * jn + x;
+      float p = exp2f(s[i] * scale_log2 - ((x & 1) ? l2.y : l2.x));
+      if (diag && c + (x & 1) < (x >= 2 ? lim1 : lim0)) p = 0.f;
+      s[i] = p;
+    }
+  }
+}
+
+// dK (scaled) and dV of keys key0 / key1 in bf16, columns below dh.
+template <int NP>
+__device__ __forceinline__ void store_keys(bf16* __restrict__ out,
+                                           const float (&acc)[32 * NP],
+                                           float scale, int b, int S,
+                                           int kvh, int h, int dh, int key0,
+                                           int col) {
+  const int key1 = key0 + 8;
+  const long long base0 = ((static_cast<long long>(b) * S + key0) * kvh + h) *
+                          dh;
+  const long long base1 = ((static_cast<long long>(b) * S + key1) * kvh + h) *
+                          dh;
+#pragma unroll
+  for (int jn = 0; jn < 8 * NP; ++jn) {
+    const int d = 8 * jn + col;
+    if (d >= dh) continue;
+    if (key0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + base0 + d) =
+          __floats2bfloat162_rn(acc[4 * jn] * scale, acc[4 * jn + 1] * scale);
+    if (key1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + base1 + d) =
+          __floats2bfloat162_rn(acc[4 * jn + 2] * scale,
+                                acc[4 * jn + 3] * scale);
+  }
 }
 
 template <int NP>
@@ -334,131 +519,63 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                   bf16* __restrict__ dv, int B, int S, int kvh, int g,
                   int dh, int bq, float scale_log2, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* k_s = align1024(smem_raw);                 // [NP]
-  uint8_t* v_s = k_s + kPanel * NP;                   // [NP]
-  uint8_t* q_s = v_s + kPanel * NP;                   // [kStages][NP]
-  uint8_t* do_s = q_s + kPanel * NP * kStages;        // [kStages][NP]
-  float* stat_s = reinterpret_cast<float*>(do_s + kPanel * NP * kStages);
-  // stat_s: [kStages][lse 64 | D 64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(stat_s + kStages * 2 * kTile);
-  uint64_t* empty = full + kStages;
-  uint64_t* kvbar = empty + kStages;
-
-  const int bhs = B * kvh;
-  const int kt = static_cast<int>(blockIdx.x) / bhs;   // heavy first
-  const int bh = static_cast<int>(blockIdx.x) % bhs;
-  const int b = bh / kvh, h = bh - b * kvh;
-  const int j0 = kt * kTile;
-  const int n_qt = (S - j0 + bq - 1) / bq;   // tiles of positions >= j0
-  const int rows = bq * g;                   // rows a full tile
+  const DkdvSmem<NP> sm(smem_raw, 0);
+  const KeyBlock blk(B, S, kvh, bq);
+  const int j0 = blk.j0;
   const int tid = threadIdx.x;
 
-  if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      hopper::mbar_init(&full[st], 32);      // the producer warp's lanes
-      hopper::mbar_init(&empty[st], kConsumers);
-    }
-    hopper::mbar_init(kvbar, 1);
-    hopper::fence_barrier_init();
-  }
+  if (tid == 0) dkdv_init(sm, kConsumers);
   __syncthreads();
 
   if (tid >= kConsumers) {                 // the producer warp
-    const int lane = tid - kConsumers;
-    if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(kvbar, 2 * NP * kPanel);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        hopper::tma_load_4d(k_s + kPanel * p, &tmap_k, kvbar, 64 * p, h, j0,
-                            b);
-        hopper::tma_load_4d(v_s + kPanel * p, &tmap_v, kvbar, 64 * p, h, j0,
-                            b);
-      }
-    }
-    for (int t = 0; t < n_qt; ++t) {
-      const int st = t % kStages, round = t / kStages;
-      const int p0 = j0 + t * bq;
-      if (round > 0) hopper::mbar_wait(&empty[st], (round - 1) & 1);
-      float* ls = stat_s + st * 2 * kTile;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = lane + 32 * half;
-        const bool valid = r < rows && p0 + r / g < S;
-        const long long idx = valid ? row_of(b, S, kvh, h, g, p0, r) : 0;
-        ls[r] = valid ? lse[idx] : INFINITY;      // P = 0 in absent rows
-        ls[kTile + r] = valid ? dvec[idx] : 0.f;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        hopper::mbar_arrive_expect_tx(&full[st],
-                                      2 * NP * hopper::kRowBytes * rows);
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          hopper::tma_load_5d(q_s + kPanel * (st * NP + p), &tmap_q,
-                              &full[st], 64 * p, 0, h, p0, b);
-          hopper::tma_load_5d(do_s + kPanel * (st * NP + p), &tmap_do,
-                              &full[st], 64 * p, 0, h, p0, b);
-        }
-      } else {
-        hopper::mbar_arrive(&full[st]);
-      }
-    }
+    dkdv_produce(sm, &tmap_q, &tmap_do, &tmap_k, &tmap_v, lse, dvec, blk, S,
+                 kvh, g, bq, tid - kConsumers);
     return;
   }
 
-  zero_tail<NP>(q_s, kStages, rows, tid);
-  zero_tail<NP>(do_s, kStages, rows, tid);
+  zero_tail<NP>(sm.q_s, kStages, bq * g, tid);
+  zero_tail<NP>(sm.do_s, kStages, bq * g, tid);
   hopper::fence_proxy_async();
   hopper::named_barrier_sync(1, kConsumers);
 
   // This thread's two keys (rows of the m64 accumulator) and its columns
   // 8 jn + col + {0, 1} (tile rows) of every n8 block jn.
   const int warp = tid >> 5, lane = tid & 31;
-  const int key0 = j0 + 16 * warp + (lane >> 2), key1 = key0 + 8;
+  const int key0 = j0 + 16 * warp + (lane >> 2);
   const int col = 2 * (lane & 3);
   float acc_k[32 * NP], acc_v[32 * NP];
 #pragma unroll
   for (int i = 0; i < 32 * NP; ++i) acc_k[i] = acc_v[i] = 0.f;
-  hopper::mbar_wait(kvbar, 0);
+  hopper::mbar_wait(sm.kvbar, 0);
 
-  for (int t = 0; t < n_qt; ++t) {
+  for (int t = 0; t < blk.n_qt; ++t) {
     const int st = t % kStages;
     const int p0 = j0 + t * bq;
-    hopper::mbar_wait(&full[st], (t / kStages) & 1);
-    const uint8_t* qt = q_s + kPanel * st * NP;
-    const uint8_t* dt = do_s + kPanel * st * NP;
-    const float* ls = stat_s + st * 2 * kTile;
+    hopper::mbar_wait(&sm.full[st], (t / kStages) & 1);
+    const uint8_t* qt = sm.q_s + kPanel * st * NP;
+    const uint8_t* dt = sm.do_s + kPanel * st * NP;
+    const float* ls = sm.stat_s + st * 2 * kTile;
 
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
     hopper::wgmma_fence();
-    mma_ss<NP>(s, k_s, qt);           // S^T = K . Q^T
-    mma_ss<NP>(dp, v_s, dt);          // dP^T = V . dO^T
+    mma_ss<NP>(s, sm.k_s, qt);        // S^T = K . Q^T
+    mma_ss<NP>(dp, sm.v_s, dt);       // dP^T = V . dO^T
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
 
-    // column c (row p0 + c / g) is visible to key j iff j <= p0 + c / g,
-    // i.e. c >= (j - p0) g
-    const bool diag = p0 < j0 + kTile - 1;
-    const int lim0 = (key0 - p0) * g, lim1 = (key1 - p0) * g;
+    form_p(s, ls, key0, j0, p0, g, col, scale_log2);
 #pragma unroll
-    for (int jn = 0; jn < 8; ++jn) {
-      const int c = 8 * jn + col;
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
-      const float2 d2 = *reinterpret_cast<const float2*>(ls + kTile + c);
+    for (int jn = 0; jn < 8; ++jn) {       // dS^T = P^T (dP^T - D)
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(ls + kTile + 8 * jn + col);
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int i = 4 * jn + x;
-        const bool hi = x >= 2;
-        const int cc = c + (x & 1);
-        float p = exp2f(s[i] * scale_log2 - ((x & 1) ? l2.y : l2.x));
-        if (diag && cc < (hi ? lim1 : lim0)) p = 0.f;
-        s[i] = p;
-        dp[i] = p * (dp[i] - ((x & 1) ? d2.y : d2.x));
-      }
+      for (int x = 0; x < 4; ++x)
+        dp[4 * jn + x] = s[4 * jn + x] *
+                         (dp[4 * jn + x] - ((x & 1) ? d2.y : d2.x));
     }
     uint32_t pa[4][4], da[4][4];
     to_a(s, pa);
@@ -470,32 +587,135 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
     hopper::wgmma_wait_all();
     hopper::fence_regs(acc_v);
     hopper::fence_regs(acc_k);
-    hopper::mbar_arrive(&empty[st]);   // this thread is done with stage st
+    hopper::mbar_arrive(&sm.empty[st]);   // this thread is done with stage st
   }
 
-  const long long base0 = ((static_cast<long long>(b) * S + key0) * kvh + h) *
-                          dh;
-  const long long base1 = ((static_cast<long long>(b) * S + key1) * kvh + h) *
-                          dh;
-#pragma unroll
-  for (int jn = 0; jn < 8 * NP; ++jn) {
-    const int d = 8 * jn + col;
-    if (d >= dh) continue;
-    if (key0 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + base0 + d) =
-          __floats2bfloat162_rn(acc_k[4 * jn] * scale,
-                                acc_k[4 * jn + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + base0 + d) =
-          __floats2bfloat162_rn(acc_v[4 * jn], acc_v[4 * jn + 1]);
-    }
-    if (key1 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + base1 + d) =
-          __floats2bfloat162_rn(acc_k[4 * jn + 2] * scale,
-                                acc_k[4 * jn + 3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + base1 + d) =
-          __floats2bfloat162_rn(acc_v[4 * jn + 2], acc_v[4 * jn + 3]);
-    }
+  store_keys<NP>(dk, acc_k, scale, blk.b, S, kvh, blk.h, dh, key0, col);
+  store_keys<NP>(dv, acc_v, 1.f, blk.b, S, kvh, blk.h, dh, key0, col);
+}
+
+// -- dk and dv at NP = 3: two consumer warpgroups -------------------------------
+constexpr int kSplitConsumers = 2 * kConsumers;            // A and B
+// + a producer warpgroup (one warp of it loads), so that setmaxnreg can
+// give it few registers and the consumers 224 of the file's 65,536
+constexpr int kSplitThreads = kSplitConsumers + kConsumers;
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(kProducerRegs * kConsumers + kConsumerRegs * kSplitConsumers <=
+                  65536,
+              "the split kernel's register budgets exceed an SM's file");
+constexpr int kPtBuffers = 2;
+// named barriers (0 is __syncthreads): the consumers' start, then per P^T
+// buffer "full" (A wrote it) and "empty" (B read it)
+constexpr int kBarConsumers = 1, kBarFull = 2, kBarEmpty = 2 + kPtBuffers;
+
+__global__ void __launch_bounds__(kSplitThreads, 1)
+dkdv_split_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                  const __grid_constant__ CUtensorMap tmap_do,
+                  const __grid_constant__ CUtensorMap tmap_k,
+                  const __grid_constant__ CUtensorMap tmap_v,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dvec, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int B, int S, int kvh, int g,
+                  int dh, int bq, float scale_log2, float scale) {
+  constexpr int NP = 3;
+  extern __shared__ uint8_t smem_raw[];
+  const DkdvSmem<NP> sm(smem_raw, kPtBuffers);
+  const KeyBlock blk(B, S, kvh, bq);
+  const int j0 = blk.j0, n_qt = blk.n_qt;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) dkdv_init(sm, kSplitConsumers);
+  __syncthreads();
+
+  if (tid >= kSplitConsumers) {            // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid < kSplitConsumers + 32)        // its first warp loads
+      dkdv_produce(sm, &tmap_q, &tmap_do, &tmap_k, &tmap_v, lse, dvec, blk,
+                   S, kvh, g, bq, tid - kSplitConsumers);
+    return;
   }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  zero_tail<NP, kSplitConsumers>(sm.q_s, kStages, bq * g, tid);
+  zero_tail<NP, kSplitConsumers>(sm.do_s, kStages, bq * g, tid);
+  hopper::fence_proxy_async();
+  hopper::named_barrier_sync(kBarConsumers, kSplitConsumers);
+
+  // Warpgroup A (wg 0): S^T = K.Q^T, P^T, dV += P^T.dO; warpgroup B (wg 1):
+  // dP^T = V.dO^T, dS^T, dK += dS^T.Q. Thread u of each holds the same
+  // keys and tile rows (the m64 accumulator layout), so B's thread u reads
+  // P^T exactly where A's thread u wrote it.
+  const bool wg_a = tid < kConsumers;
+  const int u = tid % kConsumers;
+  const int warp = u >> 5, lane = u & 31;
+  const int key0 = j0 + 16 * warp + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  const uint8_t* left = wg_a ? sm.k_s : sm.v_s;
+  float acc[32 * NP];
+#pragma unroll
+  for (int i = 0; i < 32 * NP; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(sm.kvbar, 0);
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int st = t % kStages, buf = t % kPtBuffers;
+    const int p0 = j0 + t * bq;
+    hopper::mbar_wait(&sm.full[st], (t / kStages) & 1);
+    const uint8_t* qt = sm.q_s + kPanel * st * NP;
+    const uint8_t* dt = sm.do_s + kPanel * st * NP;
+    const float* ls = sm.stat_s + st * 2 * kTile;
+    float4* pt = reinterpret_cast<float4*>(sm.p_s + buf * kTile * kTile) + u;
+
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    hopper::wgmma_fence();
+    mma_ss<NP>(x, left, wg_a ? qt : dt);   // S^T = K.Q^T | dP^T = V.dO^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(x);
+
+    if (wg_a) {
+      form_p(x, ls, key0, j0, p0, g, col, scale_log2);
+      // B is done with this buffer's previous tile (t - kPtBuffers)
+      if (t >= kPtBuffers)
+        hopper::named_barrier_sync(kBarEmpty + buf, kSplitConsumers);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        pt[i * kConsumers] =
+            make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+      hopper::named_barrier_arrive(kBarFull + buf, kSplitConsumers);
+    } else {
+      // dS^T = P^T (dP^T - D), P^T read a float4 (one n8 block) at a
+      // time: no second 32-float tile beside dP^T and dK
+      hopper::named_barrier_sync(kBarFull + buf, kSplitConsumers);
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float4 p4 = pt[jn * kConsumers];
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(ls + kTile + 8 * jn + col);
+        x[4 * jn] = p4.x * (x[4 * jn] - d2.x);
+        x[4 * jn + 1] = p4.y * (x[4 * jn + 1] - d2.y);
+        x[4 * jn + 2] = p4.z * (x[4 * jn + 2] - d2.x);
+        x[4 * jn + 3] = p4.w * (x[4 * jn + 3] - d2.y);
+      }
+      // A writes this buffer again only for tile t + kPtBuffers
+      if (t + kPtBuffers < n_qt)
+        hopper::named_barrier_arrive(kBarEmpty + buf, kSplitConsumers);
+    }
+    uint32_t xa[4][4];
+    to_a(x, xa);
+    hopper::wgmma_fence();
+    mma_rs<NP>(acc, xa, wg_a ? dt : qt);  // dV += P^T.dO | dK += dS^T.Q
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(&sm.empty[st]);   // this thread is done with stage st
+  }
+
+  if (wg_a)
+    store_keys<NP>(dv, acc, 1.f, blk.b, S, kvh, blk.h, dh, key0, col);
+  else
+    store_keys<NP>(dk, acc, scale, blk.b, S, kvh, blk.h, dh, key0, col);
 }
 
 // -- dq: one block a tile of rows ---------------------------------------------
@@ -681,12 +901,20 @@ int dkdv_np(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   CUtensorMap maps[4];
   const int err = encode_all(maps, q, k, v, dout, B, S, kvh, g, dh, bq);
   if (err != 0) return err;
-  auto kernel = dkdv_wgmma_kernel<NP>;
-  cudaError_t e = attn::allow_smem(kernel, dkdv_smem<NP>());
+  // NP = 3: the two-warpgroup kernel and its P^T buffers
+  auto kernel = dkdv_split_kernel;
+  size_t smem = dkdv_smem<NP, kPtBuffers>();
+  int threads = kSplitThreads;
+  if constexpr (NP < 3) {
+    kernel = dkdv_wgmma_kernel<NP>;
+    smem = dkdv_smem<NP>();
+    threads = kThreads;
+  }
+  cudaError_t e = attn::allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = static_cast<unsigned>(
       static_cast<long long>(B) * kvh * ((S + kTile - 1) / kTile));
-  kernel<<<blocks, kThreads, dkdv_smem<NP>(), stream>>>(
+  kernel<<<blocks, threads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dvec, dk, dv, B, S, kvh, g, dh,
       bq, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());
@@ -711,6 +939,12 @@ int dq_np(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 
 static_assert(dkdv_smem<2>() <= 232448 && dq_smem<2>() <= 232448,
               "NP = 2 must fit an H100 block's shared memory");
+static_assert(dkdv_smem<3, kPtBuffers>() <= 232448 && dq_smem<3>() <= 232448 &&
+                  stats_smem<3>() <= 232448,
+              "NP = 3 must fit an H100 block's shared memory");
+
+// Dh <= 64, <= 128, <= 192: one, two or three 64-column panels.
+inline int panels(int dh) { return dh <= 64 ? 1 : dh <= 128 ? 2 : 3; }
 
 }  // namespace
 
@@ -718,7 +952,7 @@ static_assert(dkdv_smem<2>() <= 232448 && dq_smem<2>() <= 232448,
 // signatures. Each function returns the cudaError_t of its launch (or
 // hopper::kEncodeError + a CUresult); 0 means the launch was accepted.
 // Shapes are checked by the Python wrapper: bf16, 1 <= G <= 32,
-// Dh % 16 == 0 and Dh <= 128, every tensor 16-byte aligned. lse (in the
+// Dh % 16 == 0 and Dh <= 192, every tensor 16-byte aligned. lse (in the
 // log2 domain) and dvec are float32 [B, S, KvH, G] scratch: written by
 // the stats function, read by the other two.
 extern "C" {
@@ -728,10 +962,17 @@ int flash_attention_causal_bwd_stats_bf16_wgmma(
     float* lse, float* dvec, int B, int S, int kvh, int g, int dh,
     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return stats_np<1>(q, k, out, dout, lse, dvec, B, S, kvh, g, dh, scale,
-                       s);
-  return stats_np<2>(q, k, out, dout, lse, dvec, B, S, kvh, g, dh, scale, s);
+  switch (panels(dh)) {
+    case 1:
+      return stats_np<1>(q, k, out, dout, lse, dvec, B, S, kvh, g, dh, scale,
+                         s);
+    case 2:
+      return stats_np<2>(q, k, out, dout, lse, dvec, B, S, kvh, g, dh, scale,
+                         s);
+    default:
+      return stats_np<3>(q, k, out, dout, lse, dvec, B, S, kvh, g, dh, scale,
+                         s);
+  }
 }
 
 int flash_attention_causal_bwd_dkdv_bf16_wgmma(
@@ -739,11 +980,17 @@ int flash_attention_causal_bwd_dkdv_bf16_wgmma(
     const float* lse, const float* dvec, bf16* dk, bf16* dv, int B, int S,
     int kvh, int g, int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return dkdv_np<1>(q, k, v, dout, lse, dvec, dk, dv, B, S, kvh, g, dh,
-                      scale, s);
-  return dkdv_np<2>(q, k, v, dout, lse, dvec, dk, dv, B, S, kvh, g, dh,
-                    scale, s);
+  switch (panels(dh)) {
+    case 1:
+      return dkdv_np<1>(q, k, v, dout, lse, dvec, dk, dv, B, S, kvh, g, dh,
+                        scale, s);
+    case 2:
+      return dkdv_np<2>(q, k, v, dout, lse, dvec, dk, dv, B, S, kvh, g, dh,
+                        scale, s);
+    default:
+      return dkdv_np<3>(q, k, v, dout, lse, dvec, dk, dv, B, S, kvh, g, dh,
+                        scale, s);
+  }
 }
 
 int flash_attention_causal_bwd_dq_bf16_wgmma(
@@ -751,10 +998,17 @@ int flash_attention_causal_bwd_dq_bf16_wgmma(
     const float* lse, const float* dvec, bf16* dqo, int B, int S, int kvh,
     int g, int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return dq_np<1>(q, k, v, dout, lse, dvec, dqo, B, S, kvh, g, dh, scale,
-                    s);
-  return dq_np<2>(q, k, v, dout, lse, dvec, dqo, B, S, kvh, g, dh, scale, s);
+  switch (panels(dh)) {
+    case 1:
+      return dq_np<1>(q, k, v, dout, lse, dvec, dqo, B, S, kvh, g, dh, scale,
+                      s);
+    case 2:
+      return dq_np<2>(q, k, v, dout, lse, dvec, dqo, B, S, kvh, g, dh, scale,
+                      s);
+    default:
+      return dq_np<3>(q, k, v, dout, lse, dvec, dqo, B, S, kvh, g, dh, scale,
+                      s);
+  }
 }
 
 }  // extern "C"

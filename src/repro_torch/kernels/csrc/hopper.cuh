@@ -106,6 +106,25 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_barrier_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// Arrive at barrier `id` of `n` threads without waiting: the other side
+// of a hand-over whose readers bar.sync on it. This thread's prior
+// shared-memory writes are visible to them once the barrier completes.
+__device__ __forceinline__ void named_barrier_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Move this warpgroup's register budget to N a thread (a multiple of 8,
+// 24-256): down for a producer that needs few, up for consumers, so that
+// a block's warpgroups share the register file unevenly. Every thread of
+// the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // -- wgmma --------------------------------------------------------------------
 // Shared-memory matrix descriptor of a 128B-swizzled operand at `p`

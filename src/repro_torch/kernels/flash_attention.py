@@ -53,11 +53,13 @@ atomics, so the bits repeat) of one of two sources, which
 ``flash_bwd_route`` picks
 by dtype and shape before the launch:
 
-* ``"wgmma"`` — bf16 with Dh a multiple of 16 up to 128 and 16-byte
-  aligned tensors: ``csrc/flash_attention_bwd_wgmma.cu``, the tensor
-  cores (wgmma, TMA rings), P and dS rounded to bf16 for the products;
-* ``"cuda_cores"`` — float32 (TF32 would not hold its 2e-5 tolerance),
-  MLA's Dh = 192 and any other Dh: ``csrc/flash_attention_bwd.cu``'s
+* ``"wgmma"`` — bf16 with Dh a multiple of 16 up to 192 (MLA's) and
+  16-byte aligned tensors: ``csrc/flash_attention_bwd_wgmma.cu``, the
+  tensor cores (wgmma, TMA rings; above Dh = 128 the dk/dv kernel splits
+  over two consumer warpgroups), P and dS rounded to bf16 for the
+  products;
+* ``"cuda_cores"`` — float32 (TF32 would not hold its 2e-5 tolerance)
+  and bf16 with Dh not a multiple of 16: ``csrc/flash_attention_bwd.cu``'s
   float32 CUDA-core kernels.
 
 A call counts one ``LAUNCHES["flash_attention_causal_bwd"]``, one
@@ -84,9 +86,10 @@ from repro_torch.kernels.decode_attention import (_SUFFIX,
 #: the flash kernels' head-dim limit, above decode's 128: DeepSeek-V2's
 #: MLA prefill attends at 128 + 64 = 192 (csrc/flash_attention.cu)
 MAX_DH = 192
-#: the tensor-core backward's head-dim limit: one consumer warpgroup holds
-#: dK and dV (2 x 64 floats a thread at Dh = 128) beside S and dP
-BWD_WGMMA_MAX_DH = 128
+#: the tensor-core backward's head-dim limit, the forward's: up to 128 one
+#: consumer warpgroup holds dK and dV beside S^T and dP^T; above it (MLA's
+#: 192) two warpgroups hold one each (csrc/flash_attention_bwd_wgmma.cu)
+BWD_WGMMA_MAX_DH = MAX_DH
 
 
 def flash_attention_causal_plain(q: torch.Tensor, k: torch.Tensor,

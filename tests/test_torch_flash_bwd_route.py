@@ -9,7 +9,9 @@ backward does not make: ``design_bwd`` builds that arithmetic in PyTorch
 (bf16 operands, float32 sums) and it must stay within the card tests'
 bf16 tolerance, 1e-2 of each gradient's largest magnitude, of the plain
 backward and of ``jax.vjp`` of the reference's blockwise attention, at
-small odd shapes with G from 1 to 7 and Dh from 16 to 128.
+small odd shapes with G from 1 to 7 and Dh from 16 to 192 (MLA's, with V
+zero past its 128 columns as the model passes it, and Dh 144-176, whose
+third 64-column panel the kernels fill with zeros past Dh).
 """
 import jax
 import jax.numpy as jnp
@@ -32,14 +34,14 @@ def _tensors(shape, dtype=torch.bfloat16):
             (shape, (b, s, kvh, dh), (b, s, kvh, dh), shape, shape)]
 
 
-@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dh", [16, 64, 128, 144, 160, 176, 192])
 def test_bf16_multiples_of_16_take_wgmma(dh):
     assert dh <= BWD_WGMMA_MAX_DH
     assert flash_bwd_route(*_tensors((1, 8, 2, 3, dh))) == "wgmma"
 
 
 @pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
-                                      (torch.bfloat16, 192),
+                                      (torch.float32, 192),
                                       (torch.bfloat16, 40)])
 def test_float32_mla_and_odd_dh_take_cuda_cores(dtype, dh):
     assert flash_bwd_route(*_tensors((1, 8, 2, 3, dh), dtype)) == \
@@ -88,10 +90,14 @@ def _rel_errs(got, want):
             for a, w in zip(got, want)]
 
 
-# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 128
+# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 192
 DESIGN_SHAPES = [(1, 37, 2, 1, 16), (2, 65, 1, 3, 64), (1, 130, 2, 5, 32),
                  (1, 77, 1, 7, 128), (2, 50, 2, 2, 48), (1, 129, 1, 4, 80),
-                 (1, 300, 1, 3, 64)]
+                 (1, 300, 1, 3, 64), (1, 96, 2, 5, 192), (2, 130, 1, 1, 192),
+                 (1, 77, 2, 3, 160), (1, 65, 1, 2, 144)]
+# shapes whose V is zero from this column on, as MLA's attention pads its
+# 128-column V to Dh = 192
+V_ZERO_FROM = {(2, 130, 1, 1, 192): 128}
 
 
 @pytest.mark.parametrize("shape", DESIGN_SHAPES)
@@ -104,6 +110,7 @@ def test_design_rounding_within_tolerance(shape):
     q, k, v, dout = (torch.from_numpy(
         rng.standard_normal(x).astype(np.float32)).bfloat16()
         for x in (shape, (b, s, kvh, dh), (b, s, kvh, dh), shape))
+    v[..., V_ZERO_FROM.get(shape, dh):] = 0
     out = ops.flash_attention_causal_plain(q, k, v)
     got = design_bwd(q, k, v, out, dout)
     assert max(_rel_errs(got, ops.flash_attention_causal_bwd_plain(

@@ -840,11 +840,13 @@ def test_attention_kernels_repeat_bit_equal(attn_cuda, which, dtype):
 # ---------------------------------------------------------------------------
 # flash_attention_causal's backward and the training path
 # ---------------------------------------------------------------------------
-# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 192, and the
-# training shape (smollm-360m, S = 2,048) cut to B = 1
+# (b, s, kvh, g, dh): odd S, G from 1 to 7, Dh from 16 to 192 (144 and
+# 160: the third 64-column panel partly past Dh), and the training shape
+# (smollm-360m, S = 2,048) cut to B = 1
 BWD_SHAPES = [(1, 1, 1, 1, 16), (2, 77, 2, 1, 64), (1, 130, 2, 3, 64),
               (2, 65, 1, 4, 40), (1, 257, 2, 7, 128), (1, 96, 2, 5, 192),
-              (2, 200, 1, 6, 32), (1, 2048, 5, 3, 64)]
+              (2, 200, 1, 6, 32), (1, 2048, 5, 3, 64), (2, 65, 1, 1, 144),
+              (1, 77, 2, 3, 160)]
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
@@ -860,7 +862,7 @@ def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
     """The three backward kernels against the plain backward on the CPU
     (within BWD_TOL of each gradient's largest magnitude), the same bits
     on a second call, one launch of each kernel a call on the route that
-    dtype and Dh pick (wgmma: bf16, Dh % 16 == 0, Dh <= 128)."""
+    dtype and Dh pick (wgmma: bf16, Dh % 16 == 0, Dh <= 192)."""
     rng = np.random.default_rng(sum(shape))
     b, s, kvh, g, dh = shape
     q, k, v, dout = (_randn(rng, x, dtype) for x in (
@@ -927,16 +929,24 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
     calling thread. Launched as the
     first device work of a fresh thread (as autograd's device thread runs
     an operator's backward that is the first node of its graph), the
-    forward and the three backward kernels give this thread's bits."""
+    forward and the three backward kernels (at Dh = 64, and at MLA's
+    Dh = 192, NP = 3, with the two-warpgroup dk/dv kernel) give this
+    thread's bits."""
     import threading
     rng = np.random.default_rng(27)
     q, k, v = (x.cuda() for x in _flash_inputs(27, 1, 128, 1, 3, 64,
                                                 torch.bfloat16))
     dout = _randn(rng, tuple(q.shape), torch.bfloat16).cuda()
+    q3, k3, v3 = (x.cuda() for x in _flash_inputs(28, 1, 130, 2, 1, 192,
+                                                   torch.bfloat16))
+    dout3 = _randn(rng, tuple(q3.shape), torch.bfloat16).cuda()
     assert fmod.flash_route(q, k, v) == "wgmma"
     want = fmod.flash_attention_causal(q, k, v)
+    want3 = fmod.flash_attention_causal(q3, k3, v3)
     assert fmod.flash_bwd_route(q, k, v, want, dout) == "wgmma"
+    assert fmod.flash_bwd_route(q3, k3, v3, want3, dout3) == "wgmma"
     want_grads = fmod.flash_attention_causal_bwd(q, k, v, want, dout)
+    want_grads3 = fmod.flash_attention_causal_bwd(q3, k3, v3, want3, dout3)
     torch.cuda.synchronize()
     got = {}
 
@@ -944,21 +954,25 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
         try:
             if what == "forward":
                 got[what] = fmod.flash_attention_causal(q, k, v)
-            else:
+            elif what == "backward":
                 got[what] = fmod.flash_attention_causal_bwd(q, k, v, want,
                                                             dout)
+            else:
+                got[what] = fmod.flash_attention_causal_bwd(q3, k3, v3,
+                                                            want3, dout3)
         except Exception as e:                         # noqa: BLE001
             got[what] = e
 
-    for what in ("forward", "backward"):
+    for what in ("forward", "backward", "backward_np3"):
         t = threading.Thread(target=run, args=(what,))
         t.start()
         t.join()
     torch.cuda.synchronize()
     assert torch.equal(got["forward"], want), got["forward"]
-    assert not isinstance(got["backward"], Exception), got["backward"]
-    assert all(torch.equal(a, b) for a, b in zip(got["backward"],
-                                                 want_grads))
+    for what, grads in (("backward", want_grads),
+                        ("backward_np3", want_grads3)):
+        assert not isinstance(got[what], Exception), got[what]
+        assert all(torch.equal(a, b) for a, b in zip(got[what], grads))
 
 
 @pytest.fixture
