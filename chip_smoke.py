@@ -31,14 +31,23 @@ the JAX package. Phases, each of which must pass:
    agrees with its plain version in float32 (1e-5) and bfloat16 (2e-2
    decode, 3e-2 prefill) at the reference tests' shapes, the serving
    path's shapes, odd shapes and every shape phase 14 gives the kernels
-   (deepseek-v2-lite's MLA prefill at Dh = 192, G = 5 and 6, seamless's
-   4,096-frame cross-attention), gives the same bits on a second call,
+   (deepseek-v2-lite's MLA prefill at Dh = 192, also at its training
+   length S = 2,048, G = 5 and 6, seamless's 4,096-frame
+   cross-attention), gives the same bits on a second call,
    ignores a poisoned cache tail (decode), and is timed beside its plain
-   version, its bound and one
+   version, its bound (float32 operations at ``TF32X3_OPS_PER_S``, the
+   card's float32-accurate tensor rate) and one
    ``scaled_dot_product_attention(enable_gqa=True)`` call (the
    yardstick; the port never calls it); each case logs the kernel it
-   launched (flash: ``wgmma`` for bf16 with Dh % 16 == 0, else
-   ``cuda_cores``; decode: ``split_cluster``); and the backward of
+   launched, which must be the one its dtype and Dh pick (flash:
+   ``wgmma`` for bf16 with Dh % 16 == 0, ``tf32x3`` for float32 with Dh
+   % 8 == 0, else ``cuda_cores``; decode: ``split_cluster``); at each
+   float32 flash case on ``tf32x3`` the CUDA-core kernel (the float32
+   route before the tf32x3 one) is also held against the plain version
+   on the same inputs and timed, and every float32 flash output is
+   measured against a float64 softmax; float32 views 4 bytes off 16-byte
+   alignment take ``cuda_cores`` and agree with the plain version; and
+   the backward of
    ``flash_attention_causal`` (``flash_attention_causal_bwd``: three
    kernels, row statistics, dk/dv, dq; the ``wgmma`` route on the tensor
    cores for bf16 with Dh % 16 == 0 and Dh <= 192, else ``cuda_cores``)
@@ -95,16 +104,17 @@ the JAX package. Phases, each of which must pass:
    second wave, ``prefix_hits >= 1``, ``pages_recycled > 0``, and
    ``decode_attention``, ``flash_attention_causal``, ``mvcc_resolve``
    and ``mvcc_resolve_masked`` must all have launched (the last two in
-   their in-place forms only): flash through its
+   their in-place forms only): flash through its bf16
    tensor-core kernel once a layer for every prefill and never through
-   the CUDA-core one, decode once a layer for every decode step and
-   prefix hit. Prints prefill
+   the tf32x3 or CUDA-core ones, decode once a layer for every decode
+   step and prefix hit. Prints prefill
    ms per prompt, decode-step ms, generated tokens/s, the state-store
    batch's ms per step and peak memory;
 8. serving replay: the same engine at full width with depth cut to 4
    layers, float32 weights and KV, 4 requests of 64-128 tokens and 8 new
    tokens, on the card and on the CPU (plain versions); on the card
-   every prefill takes flash's CUDA-core (float32) kernel: equal tokens,
+   every prefill takes flash's 3xTF32 tensor-core kernel (``tf32x3``;
+   none ``wgmma`` or ``cuda_cores``): equal tokens,
    last logits within 1e-3 of their largest magnitude, byte-equal
    lookups and state-store arrays;
 9. service path: ``TxnService`` over ``build(YCSB_HIGH_10RMW,
@@ -222,7 +232,8 @@ the JAX package. Phases, each of which must pass:
    against its plain version on the same card tensors at phase 3's
    tolerances, and each bf16 shape must be one of phase 3's cases.
    Then a float32 replay (TF32
-   off) at 2 layers (grok 1; the encoder cut alike): the last logits of
+   off; every flash launch on the ``tf32x3`` route) at 2 layers (grok 1;
+   the encoder cut alike): the last logits of
    a decode over a 64-token prompt (256, one SSD chunk, with SSM heads;
    text only; MoE at a capacity that drops nothing, since a prefill
    drops tokens past an expert's capacity and a one-token step never
@@ -259,10 +270,11 @@ the JAX package. Phases, each of which must pass:
    versions. Then a float32 gradient replay (TF32 off)
    of smollm, hymba, seamless, llava and deepseek-v2-lite (MLA at Dh =
    192, MoE at a capacity that drops nothing) at full width and 2 layers,
-   B=1 and 32 tokens (hymba one SSD chunk, 256): the card's loss and
-   gradients equal a CPU run of the same weights within 1e-3 of each
-   leaf's largest magnitude, non-finite at the same places (hymba's SSD
-   chunk overflows in the reference too: ROADMAP.md, known limits).
+   B=1 and 32 tokens (hymba one SSD chunk, 256; every flash forward on
+   the ``tf32x3`` route): the card's loss and gradients equal a CPU run
+   of the same weights within 1e-3 of each leaf's largest magnitude,
+   non-finite at the same places (hymba's SSD chunk overflows in the
+   reference too: ROADMAP.md, known limits).
    Prints the median step ms, tokens/s, the share of the bf16 peak that
    6 N tokens / step time reaches, peak memory, launches and the held
    errors beside the card's name and power limit (for deepseek-v2-lite:
@@ -315,6 +327,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import importlib
@@ -1101,13 +1114,20 @@ FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
                ((1, 384, 5, 3, 64), "serving"),
                ((1, 512, 5, 3, 64), "serving"), ((1, 300, 5, 3, 64), "odd"),
                ((2, 77, 2, 4, 40), "odd"),
+               # float32 Dh % 8 != 0: the CUDA-core kernel in both dtypes
+               ((2, 77, 2, 4, 36), "odd"),
                ((2, 512, 5, 5, 64), "models"),           # hymba's globals
                ((2, 512, 16, 1, 64), "models"),          # seamless
                ((2, 2560, 8, 4, 128), "models"),         # llava
                # deepseek-v2-lite's MLA prefill: 16 heads of 128 + 64,
                # v padded to it (G = 1)
                ((2, 512, 16, 1, 192), "models"),
+               # its rows at deepseek's training length
+               ((1, 2048, 16, 1, 192), "models"),
                ((2, 512, 8, 6, 128), "models")]          # grok
+# a flash case whose float32 views phase 3 also passes 4 bytes off
+# 16-byte alignment (the CUDA-core kernel takes them)
+UNALIGNED_CASE = (1, 512, 5, 3, 64)
 # the kernels line carries each kernel at its busiest serving shape, bf16
 ROW_CASE = {"decode_attention": (8, 5, 3, 64, 1024),
             "flash_attention_causal": (1, 512, 5, 3, 64)}
@@ -1115,7 +1135,13 @@ ATT_TOL = {("decode_attention", torch.float32): 1e-5,
            ("decode_attention", torch.bfloat16): 2e-2,
            ("flash_attention_causal", torch.float32): 1e-5,
            ("flash_attention_causal", torch.bfloat16): 3e-2}
-PEAK = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
+# The attention rows' float32 operations rate: the card's float32-accurate
+# tensor rate, 3xTF32 (three tf32 products a float32 product, 495 / 3
+# TFLOP/s), not the CUDA cores' 67: float32 attention can run there (the
+# flash forward's tf32x3 route does), so the least time the card could
+# take for it is counted at that rate.
+TF32X3_OPS_PER_S = 495e12 / 3
+PEAK = {torch.float32: TF32X3_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
 
 
 def _sdpa(q, k, v, mask, causal):
@@ -1164,8 +1190,8 @@ def _attention_case(name, shape, label, dtype, device="cuda"):
 
 def _variant(name, before):
     """The kernel one call of ``name`` launched, from the launch counts
-    before it: flash's route (``wgmma`` / ``cuda_cores``), decode's one
-    kernel (``split_cluster``)."""
+    before it: flash's route (``wgmma`` / ``tf32x3`` / ``cuda_cores``),
+    decode's one kernel (``split_cluster``)."""
     moved = {k for k, n in ops.LAUNCHES.items() if n != before[k]}
     if name == "decode_attention":
         assert moved == {name}, moved
@@ -1173,6 +1199,78 @@ def _variant(name, before):
     routes = [k.split("/")[1] for k in moved if k.startswith(name + "/")]
     assert name in moved and len(routes) == 1, moved
     return routes[0]
+
+
+FLASH_ROUTES = ("wgmma", "tf32x3", "cuda_cores")
+
+
+def flash_route_wanted(dtype, dh):
+    """The flash kernel a call with 16-byte aligned tensors must take:
+    ``wgmma`` for bf16 with Dh % 16 == 0, ``tf32x3`` for float32 with Dh
+    % 8 == 0, else ``cuda_cores``."""
+    if dtype == torch.bfloat16 and dh % 16 == 0:
+        return "wgmma"
+    if dtype == torch.float32 and dh % 8 == 0:
+        return "tf32x3"
+    return "cuda_cores"
+
+
+def flash_cuda_cores_f32(q, k, v):
+    """One launch of flash's float32 CUDA-core kernel through its own C
+    function, whatever route the wrapper would pick: phase 3 holds and
+    times it beside the tf32x3 kernel on the same inputs. Counts no
+    launch (a comparison, not the path)."""
+    b, s, kvh, g, dh = q.shape
+    out = torch.empty_like(q)
+    _build.call("flash_attention", "flash_attention_causal_f32",
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_float],
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, kvh, g, dh, dh ** -0.5], q.device)
+    return out
+
+
+def attention_f64(q, k, v, block=256):
+    """Causal GQA attention in float64 (an exact softmax, q block by q
+    block): the yardstick of each float32 version's error."""
+    b, s, kvh, g, dh = q.shape
+    qd, kd, vd = q.double() * dh ** -0.5, k.double(), v.double()
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for q0 in range(0, s, block):
+        q1 = min(s, q0 + block)
+        sc = torch.einsum("bqhgd,bkhd->bqhgk", qd[:, q0:q1], kd[:, :q1])
+        mask = (torch.arange(q1, device=q.device)[None, :]
+                <= torch.arange(q0, q1, device=q.device)[:, None])
+        sc = torch.where(mask[None, :, None, None], sc, -torch.inf)
+        out[:, q0:q1] = torch.einsum("bqhgk,bkhd->bqhgd",
+                                     torch.softmax(sc, dim=-1), vd[:, :q1])
+    return out
+
+
+def off_alignment(x):
+    """``x``'s values in a view whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape).copy_(x)
+    assert view.data_ptr() % 16 == x.element_size()
+    return view
+
+
+def f32_flash_routes(what, moved, exactly=None):
+    """The flash routes a float32 run's launches ``moved`` took: every
+    ``flash_attention_causal`` launch on ``tf32x3`` (float32 with Dh % 8
+    == 0, aligned), ``exactly`` of them where given, else at least one;
+    raises otherwise."""
+    n = moved.get("flash_attention_causal", 0)
+    routes = {r: moved.get(f"flash_attention_causal/{r}", 0)
+              for r in FLASH_ROUTES}
+    count_ok = n >= 1 if exactly is None else n == exactly
+    if not count_ok or routes != {"wgmma": 0, "tf32x3": n,
+                                  "cuda_cores": 0}:
+        want = "at least 1" if exactly is None else exactly
+        raise AssertionError(f"{what}: float32 flash routes {routes} of {n} "
+                             f"launches: expected tf32x3 only ({want})")
+    return routes
 
 
 def attention_phase(device="cuda"):
@@ -1195,11 +1293,19 @@ def attention_phase(device="cuda"):
             if not torch.equal(kernel(*args), out):
                 raise AssertionError(f"{name} {shape} {dtype}: two calls on "
                                      "the same inputs differ")
+            want = ("split_cluster" if name == "decode_attention" else
+                    flash_route_wanted(dtype, shape[-1]))
+            if variant != want:
+                raise AssertionError(f"{name} {shape} {dtype}: launched "
+                                     f"{variant}, expected {want}")
             ref = plain(*args)
             err = (out.float() - ref.float()).abs().max().item()
             tol = ATT_TOL[(name, dtype)]
             torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                        atol=tol)
+            f32_note = ""
+            if name == "flash_attention_causal" and dtype == torch.float32:
+                f32_note = flash_f32_extra(args, out, ref, variant, tol)
             if name == "decode_attention":
                 q, k, v, kl = args
                 k2, v2 = k.clone(), v.clone()
@@ -1227,7 +1333,7 @@ def attention_phase(device="cuda"):
                 f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
                 f"({bound_by}: {nbytes} B, {flops} flop), "
                 f"{100 * bound_ms / ms:.1f} % of bound; host per kernel "
-                f"call {host_ms * 1e3:.1f} us")
+                f"call {host_ms * 1e3:.1f} us{f32_note}")
             if tuple(shape) == ROW_CASE[name] and dtype == torch.bfloat16:
                 rows[name] = {
                     "name": name, "route": "cuda",
@@ -1238,7 +1344,59 @@ def attention_phase(device="cuda"):
                     "shape": list(shape), "dtype": "bfloat16",
                     "variant": variant,
                     "bytes": nbytes, "flops": flops, "host_ms": host_ms}
+    flash_unaligned(device)
     return rows
+
+
+def flash_f32_extra(args, out, ref, variant, tol):
+    """Phase 3's extra float32 flash checks: on the tf32x3 route, the
+    CUDA-core kernel on the same inputs held against the plain version
+    (same bits on a second call) and timed; every float32 output, and
+    the plain version's, against a float64 softmax. Returns the log's
+    note."""
+    exact = attention_f64(*args)
+    e64 = {"kernel": (out - exact).abs().max().item(),
+           "plain": (ref - exact).abs().max().item()}
+    note = ""
+    if variant == "tf32x3":
+        cc = flash_cuda_cores_f32(*args)
+        torch.testing.assert_close(cc, ref, rtol=tol, atol=tol,
+                                   msg=lambda m: f"cuda_cores: {m}")
+        if not torch.equal(flash_cuda_cores_f32(*args), cc):
+            raise AssertionError("flash cuda_cores float32: two calls on "
+                                 "the same inputs differ")
+        e64["cuda_cores"] = (cc - exact).abs().max().item()
+        cc_ms = _device_ms(flash_cuda_cores_f32, args, rounds=11, reps=10)
+        note = (f"; cuda_cores kernel on the same inputs: max_abs_err "
+                f"{(cc - ref).abs().max().item():.3g}, repeat bit-equal, "
+                f"{cc_ms * 1e3:.2f} us")
+    return note + (f"; max_abs_err against a float64 softmax "
+                   f"{ {k: float(f'{x:.3g}') for k, x in e64.items()} }")
+
+
+def flash_unaligned(device="cuda"):
+    """Float32 q, k, v 4 bytes off 16-byte alignment: the wrapper sends
+    them to the CUDA-core kernel, which agrees with the plain version and
+    repeats its bits."""
+    args, _, _, _ = _attention_case("flash_attention_causal",
+                                    UNALIGNED_CASE, "odd", torch.float32,
+                                    device)
+    views = [off_alignment(x) for x in args]
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention_causal(*views)
+    variant = _variant("flash_attention_causal", before)
+    if variant != "cuda_cores":
+        raise AssertionError(f"unaligned float32 flash launched {variant}, "
+                             "expected cuda_cores")
+    if not torch.equal(ops.flash_attention_causal(*views), out):
+        raise AssertionError("unaligned float32 flash: two calls differ")
+    ref = ops.flash_attention_causal_plain(*views)
+    tol = ATT_TOL[("flash_attention_causal", torch.float32)]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    log(f"kernel flash_attention_causal unaligned {list(UNALIGNED_CASE)} "
+        f"float32 (q, k, v 4 bytes off 16) [{variant}]: max_abs_err "
+        f"{(out - ref).abs().max().item():.3g} (tol {tol}), repeat "
+        f"bit-equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1558,12 +1716,8 @@ def serving_replay(cfg, device="cuda"):
     params_cpu = unflatten({k: v.cpu() for k, v in flatten(params).items()})
     before = dict(ops.LAUNCHES)
     gpu = drive_replay(device, cfg, params)
-    routes = {r: ops.LAUNCHES[f"flash_attention_causal/{r}"]
-              - before[f"flash_attention_causal/{r}"]
-              for r in ("wgmma", "cuda_cores")}
-    if routes["wgmma"] or routes["cuda_cores"] <= 0:
-        raise AssertionError(f"float32 replay flash routes {routes}: "
-                             "expected the CUDA-core kernel only")
+    routes = f32_flash_routes("serving replay", {
+        k: ops.LAUNCHES[k] - before[k] for k in before})
     cpu = drive_replay("cpu", cfg, params_cpu)
     if gpu["tokens"] != cpu["tokens"]:
         raise AssertionError(f"replay tokens differ: {gpu['tokens']} vs "
@@ -2467,7 +2621,7 @@ def attention_layers(cfg):
     if cfg.family == "ssm":
         return 0, 0, 0
     if cfg.hybrid:
-        n_global = len(cfg.global_attn_layers)
+        n_global = sum(i < cfg.num_layers for i in cfg.global_attn_layers)
         return n_global, cfg.num_layers, cfg.num_layers - n_global
     if cfg.attention == "mla":
         return cfg.num_layers, 0, 0               # absorbed decode: einsums
@@ -2702,7 +2856,13 @@ def model_replay(name: str, device="cuda"):
         gpu = replay_run(params, cfg, device, True)
     moved = {k: ops.LAUNCHES[k] - before[k] for k in before
              if ops.LAUNCHES[k] != before[k]}
+    # one launch a causal layer in the loss, the prefill and (but
+    # enc-dec) the text-only prefill; decode launches no flash
+    forwards = 2 if cfg.enc_dec else 3
     res = {"depth": depth, "launches": moved,
+           "routes": f32_flash_routes(
+               f"{name} replay", moved,
+               exactly=attention_layers(cfg)[0] * forwards),
            "held": held.check(f"{name} float32")}
     if "text_decode" in gpu:
         res["decode_vs_prefill"] = _rel(gpu["text_decode"],
@@ -2758,7 +2918,8 @@ def models_phase(device="cuda"):
             f"decode over the prompt against prefill "
             f"{rep.get('decode_vs_prefill', 'n/a (enc-dec)')}; card "
             f"against cpu {rep.get('card_vs_cpu', 'n/a (card only)')} "
-            f"(limit {REPLAY_TOL} of the largest magnitude); launches "
+            f"(limit {REPLAY_TOL} of the largest magnitude); flash routes "
+            f"{rep['routes']}; launches "
             f"{rep['launches']}, each shape against its plain version "
             f"(max_abs_err) {rep['held']} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -2962,6 +3123,17 @@ def check_train_launches(cfg, per_step, on_card=True):
     return want
 
 
+def grad_flash_launches(cfg):
+    """Forward flash launches of one ``value_and_grad``: under remat
+    "full" (every GRAD_ARCHS config's) two a causal layer (the forward
+    and the recompute), one a dense prefix layer (outside remat, as
+    ``check_train_launches`` counts)."""
+    n = attention_layers(cfg)[0]
+    if cfg.remat == "none":
+        return n
+    return 2 * n - (cfg.moe.first_moe_layer if cfg.moe else 0)
+
+
 def grad_replay(name: str, device="cuda"):
     """``name`` at full width and 2 layers (the encoder cut alike), float32
     with TF32 off, MoE without drops: ``value_and_grad`` of ``loss_fn`` on
@@ -3043,6 +3215,9 @@ def grad_replay(name: str, device="cuda"):
         raise AssertionError(f"{name}: loss card {float(loss)} cpu "
                              f"{float(cpu_loss)}")
     return {"launches": moved, "worst": worst, "loss": float(loss),
+            "routes": (f32_flash_routes(f"{name} gradient replay", moved,
+                                        exactly=grad_flash_launches(cfg))
+                       if device != "cpu" else {}),
             "cpu_loss": float(cpu_loss), "tokens": n,
             "nonfinite": nonfinite, "leaves": n_leaves,
             "seconds": {"card": card_s, "copy": copy_s, "cpu": cpu_s,
@@ -3102,7 +3277,8 @@ def training_phase(device="cuda"):
             f"{g['worst'][0]:.3g} of its largest magnitude (limit "
             f"{GRAD_TOL}); leaves with NaN on both devices at the same "
             f"places {len(g['nonfinite'])} of {g['leaves']} "
-            f"{g['nonfinite']}; launches {g['launches']} "
+            f"{g['nonfinite']}; flash routes {g['routes']}; launches "
+            f"{g['launches']} "
             f"({time.perf_counter() - t1:.1f} s: "
             f"{ {k: round(v, 2) for k, v in g['seconds'].items()} })")
     log(f"training phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
@@ -3684,6 +3860,7 @@ def main() -> int:
     n_prefill, n_decode = len(sp["serve/prefill"]), len(sp["serve/decode"])
     n_hit = len(sp.get("serve/logits_at", []))
     want = {"flash_attention_causal/wgmma": layers * n_prefill,
+            "flash_attention_causal/tf32x3": 0,
             "flash_attention_causal/cuda_cores": 0,
             "decode_attention": layers * (n_decode + n_hit)}
     got = {k: launches[k] for k in want}

@@ -42,8 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "mvcc_resolve_masked/rows": 0, "mvcc_resolve_masked/windows": 0,
     "mvcc_resolve_paged/rows": 0, "mvcc_resolve_paged/windows": 0,
     "decode_attention": 0, "flash_attention_causal": 0,
-    # which of flash_attention_causal's two kernels each launch took
+    # which of flash_attention_causal's three kernels each launch took
     "flash_attention_causal/wgmma": 0,
+    "flash_attention_causal/tf32x3": 0,
     "flash_attention_causal/cuda_cores": 0,
     # flash_attention_causal's gradient: one a call, the call's route
     # (its three kernels on the tensor cores or the CUDA cores), and each

@@ -1,5 +1,6 @@
-// The CUDA-core body of flash_attention.cu's float32 kernel (also bf16
-// when Dh is not a multiple of 16): one thread block owns a set of query
+// The CUDA-core body of flash_attention.cu's flash_kernel (the shapes its
+// tensor-core kernels do not take: bf16 with Dh % 16 != 0, float32 with
+// Dh % 8 != 0, unaligned tensors): one thread block owns a set of query
 // rows of one (batch, kv-head) pair and streams that head's keys and
 // values through shared memory in tiles of kTileT positions, carrying a
 // float32 online softmax per row, exactly as the Pallas kernels do:
@@ -33,8 +34,8 @@
 //
 // What bounds it on an H100: operations (each K/V tile is reused by up to
 // 64 rows). It computes them on the CUDA cores in float32 with plain
-// coalesced loads, far from the card's rates; the float32 route's
-// redesign is later work (ROADMAP.md).
+// coalesced loads, far from the card's rates: the common shapes take the
+// tensor-core kernels instead (flash_attention.cu's header).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -16,19 +16,24 @@ skipped, the triangular mask on the diagonal, ``m_safe`` and the output
 asserts ``S % block == 0``, both versions take any S.
 
 The wrapper takes the plain version only for CPU tensors. For CUDA
-tensors it launches one of two hand-written kernels of
+tensors it launches one of three hand-written kernels of
 ``csrc/flash_attention.cu`` (built on first use by ``_build``) or raises;
 ``flash_route`` picks it:
 
 * ``"wgmma"`` — bf16 with Dh a multiple of 16 (up to 192) and 16-byte
   aligned tensors: the tensor cores (wgmma, TMA loads into a ring of tiles, the
   softmax in registers), P rounded to bf16 for the P.V product;
-* ``"cuda_cores"`` — float32 (TF32 would not hold its 1e-5 tolerance) and
-  bf16 with any other Dh: the float32 CUDA-core kernel of
-  ``csrc/attention.cuh``.
+* ``"tf32x3"`` — float32 with Dh a multiple of 8 (up to 192) and 16-byte
+  aligned tensors: the tensor cores in tf32 with float32 accuracy, each
+  product a.b taken as a_hi.b_hi + a_hi.b_lo + a_lo.b_hi (x_hi = x
+  rounded to tf32, x_lo = x - x_hi rounded to tf32; one tf32 product
+  alone would not hold float32's 1e-5 tolerance), summed in float32;
+* ``"cuda_cores"`` — the rest (bf16 with Dh not a multiple of 16,
+  float32 with Dh not a multiple of 8, unaligned tensors): the float32
+  CUDA-core kernel of ``csrc/attention.cuh``.
 
-Both replace the Pallas kernel; the choice is by dtype and shape, never a
-fallback after a failure. Each launch adds one to
+All three replace the Pallas kernel; the choice is by dtype, shape and
+alignment, never a fallback after a failure. Each launch adds one to
 ``LAUNCHES["flash_attention_causal"]`` and one to the route's own count,
 ``LAUNCHES["flash_attention_causal/<route>"]``. What bounds the kernels
 on the H100 (operations, at the serving shapes) and what each design
@@ -58,9 +63,10 @@ by dtype and shape before the launch:
   tensor cores (wgmma, TMA rings; above Dh = 128 the dk/dv kernel splits
   over two consumer warpgroups), P and dS rounded to bf16 for the
   products;
-* ``"cuda_cores"`` — float32 (TF32 would not hold its 2e-5 tolerance)
-  and bf16 with Dh not a multiple of 16: ``csrc/flash_attention_bwd.cu``'s
-  float32 CUDA-core kernels.
+* ``"cuda_cores"`` — float32 (one TF32 product would not hold its 2e-5
+  tolerance; the forward's 3xTF32 split is not ported to the backward
+  yet) and bf16 with Dh not a multiple of 16:
+  ``csrc/flash_attention_bwd.cu``'s float32 CUDA-core kernels.
 
 A call counts one ``LAUNCHES["flash_attention_causal_bwd"]``, one
 ``LAUNCHES["flash_attention_causal_bwd/<route>"]`` and one
@@ -121,13 +127,17 @@ def flash_attention_causal_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor | None = None) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with
-    ``Dh % 16 == 0`` and 16-byte aligned tensors (TMA and the 16-byte Q
-    loads need it), else ``"cuda_cores"``."""
+    """The kernel a CUDA call takes, with 16-byte aligned tensors (TMA and
+    the 16-byte Q loads need it): ``"wgmma"`` for bf16 with
+    ``Dh % 16 == 0``, ``"tf32x3"`` for float32 with ``Dh % 8 == 0``;
+    else ``"cuda_cores"``."""
     tensors = (q, k, v) if out is None else (q, k, v, out)
-    aligned = all(x.data_ptr() % 16 == 0 for x in tensors)
-    if q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0 and aligned:
-        return "wgmma"
+    if all(x.data_ptr() % 16 == 0 for x in tensors):
+        dh = q.shape[-1]
+        if q.dtype == torch.bfloat16 and dh % 16 == 0:
+            return "wgmma"
+        if q.dtype == torch.float32 and dh % 8 == 0:
+            return "tf32x3"
     return "cuda_cores"
 
 
@@ -157,8 +167,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return out
     route = flash_route(q, k, v, out)
     fn_name = f"flash_attention_causal_{_SUFFIX[q.dtype]}"
-    if route == "wgmma":
-        fn_name += "_wgmma"
+    if route != "cuda_cores":
+        fn_name += f"_{route}"
     _build.call("flash_attention", fn_name,
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_float],

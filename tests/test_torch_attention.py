@@ -188,11 +188,13 @@ def _flash_args(dtype, dh, s=8, g=3):
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 40, "cuda_cores"), (torch.bfloat16, 8, "cuda_cores"),
-    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 192, "tf32x3"), (torch.float32, 36, "cuda_cores"),
 ])
 def test_flash_route_by_dtype_and_dh(dtype, dh, route):
-    """bf16 with Dh % 16 == 0 goes to the tensor cores; float32 (whose
-    1e-5 tolerance TF32 would break) and other Dh to the CUDA cores."""
+    """bf16 with Dh % 16 == 0 goes to the tensor cores in bf16, float32
+    with Dh % 8 == 0 to them in 3xTF32 (three tf32 products hold its 1e-5
+    tolerance, one would not); other Dh to the CUDA cores."""
     assert fmod.flash_route(*_flash_args(dtype, dh)) == route
 
 
@@ -207,6 +209,20 @@ def test_flash_route_needs_16_byte_alignment():
     assert fmod.flash_route(q, k, v, out=flat[1:].view(q.shape)) \
         == "cuda_cores"
     assert fmod.flash_route(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_flash_float32_route_needs_16_byte_alignment(which):
+    """The tf32x3 route's TMA maps and 16-byte Q loads need aligned
+    tensors too: a float32 q, k, v or out 4 bytes into its storage takes
+    the CUDA-core kernel."""
+    args = list(_flash_args(torch.float32, 64))
+    args.append(torch.zeros_like(args[0]))
+    assert fmod.flash_route(*args) == "tf32x3"
+    flat = torch.zeros(args[which].numel() + 1)
+    args[which] = flat[1:].view(args[which].shape)
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16 != 0
+    assert fmod.flash_route(*args) == "cuda_cores"
 
 
 @pytest.mark.parametrize("name", ["decode_attention",
@@ -224,7 +240,7 @@ def test_cpu_calls_launch_no_kernel(name):
     out = getattr(ops, name)(*args)
     assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
     assert ops.LAUNCHES == before
-    assert {"flash_attention_causal/wgmma",
+    assert {"flash_attention_causal/wgmma", "flash_attention_causal/tf32x3",
             "flash_attention_causal/cuda_cores"} <= set(ops.LAUNCHES)
 
 

@@ -539,12 +539,14 @@ DECODE_SHAPES = [(1, 1, 1, 64, 64), (3, 2, 4, 64, 257), (2, 5, 3, 128, 1024),
                  (4, 8, 1, 128, 96), (8, 5, 3, 64, 1024), (1, 5, 3, 64, 1024),
                  (5, 3, 7, 40, 1000), (2, 2, 32, 128, 33)]
 # (b, s, kvh, g, dh): tests/test_kernels.py's sweep, the serving prefill
-# shapes, ragged lengths, and Dh up to 192: deepseek-v2-lite's MLA prefill
-# (KvH = 16 heads, G = 1, Dh = 128 + 64), a padded third panel (160) and
-# a bf16 width off the tensor-core route (184)
+# shapes, ragged lengths, a width off both tensor-core routes (36), and
+# Dh up to 192: deepseek-v2-lite's MLA prefill (KvH = 16 heads, G = 1, Dh
+# = 128 + 64), a padded third panel (160) and a bf16 width off the
+# tensor-core route (184)
 FLASH_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 2, 3, 64), (1, 512, 4, 2, 128),
                 (2, 128, 2, 1, 64), (1, 128, 5, 3, 64), (1, 384, 5, 3, 64),
                 (1, 512, 5, 3, 64), (1, 300, 5, 3, 64), (2, 77, 2, 4, 32),
+                (2, 77, 2, 4, 36),
                 (1, 1, 3, 32, 128), (2, 512, 16, 1, 192), (1, 77, 2, 2, 192),
                 (1, 130, 2, 3, 160), (1, 100, 2, 2, 184)]
 ATT_DTYPES = [torch.float32, torch.bfloat16]
@@ -693,10 +695,74 @@ def test_flash_wgmma_route_matches_plain(attn_cuda, dh, g, s):
     assert mod.LAUNCHES["flash_attention_causal/wgmma"] == before + 1
 
 
+@pytest.mark.parametrize("s", [1, 77, 300])
+@pytest.mark.parametrize("g", [1, 2, 3, 32])
+@pytest.mark.parametrize("dh", [32, 64, 128, 192])
+def test_flash_tf32x3_route_matches_plain(attn_cuda, dh, g, s):
+    """float32 with Dh % 8 == 0 takes the 3xTF32 tensor-core kernel: every
+    panel count (Dh 32 in one 32-column panel, 64 in two, 128 in four,
+    MLA's 192 in six), G from 1 to 32 rows a position, ragged S; within
+    float32's 1e-5 of the plain version, one launch on the route, and the
+    same bits on a second call."""
+    args = _flash_inputs(dh + g + s, 1, s, 2, g, dh, torch.float32)
+    assert fmod.flash_route(*args) == "tf32x3"
+    expect = attn_cuda["flash"](*args)
+    gpu = [x.cuda() for x in args]
+    before = mod.LAUNCHES["flash_attention_causal/tf32x3"]
+    out = _attn_check("flash_attention_causal", fmod.flash_attention_causal,
+                      expect, gpu, 1e-5)
+    assert mod.LAUNCHES["flash_attention_causal/tf32x3"] == before + 1
+    assert torch.equal(fmod.flash_attention_causal(*gpu), out)
+
+
+def test_flash_tf32x3_long_mla_rows_match_plain(attn_cuda):
+    """deepseek-v2-lite's MLA prefill rows at its training length (S =
+    2,048, 16 heads, G = 1, Dh = 192 with v zero past column 128, as MLA
+    passes it): each row sums 2,048 keys' P.V, and stays within float32's
+    1e-5 of the plain version, with the same bits on a second call."""
+    args = _flash_inputs(2048, 1, 2048, 16, 1, 192, torch.float32)
+    args[2][..., 128:] = 0.0
+    assert fmod.flash_route(*args) == "tf32x3"
+    expect = attn_cuda["flash"](*args)
+    gpu = [x.cuda() for x in args]
+    before = mod.LAUNCHES["flash_attention_causal/tf32x3"]
+    out = _attn_check("flash_attention_causal", fmod.flash_attention_causal,
+                      expect, gpu, 1e-5)
+    assert mod.LAUNCHES["flash_attention_causal/tf32x3"] == before + 1
+    assert torch.equal(fmod.flash_attention_causal(*gpu), out)
+
+
+def _off_alignment(x):
+    """``x``'s values in a view whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape).copy_(x)
+    assert view.data_ptr() % 16 == x.element_size()
+    return view
+
+
+@pytest.mark.parametrize("dh", [64, 192])
+def test_flash_float32_unaligned_takes_cuda_cores(attn_cuda, dh):
+    """float32 q, k and v 4 bytes off 16-byte alignment, which the tf32x3
+    kernel cannot load, take the CUDA-core kernel: within 1e-5 of the
+    plain version, one launch on the route, the same bits on a second
+    call."""
+    args = _flash_inputs(dh + 7, 2, 77, 2, 4, dh, torch.float32)
+    expect = attn_cuda["flash"](*args)
+    gpu = [_off_alignment(x.cuda()) for x in args]
+    assert fmod.flash_route(*gpu) == "cuda_cores"
+    before = mod.LAUNCHES["flash_attention_causal/cuda_cores"]
+    out = _attn_check("flash_attention_causal", fmod.flash_attention_causal,
+                      expect, gpu, 1e-5)
+    assert mod.LAUNCHES["flash_attention_causal/cuda_cores"] == before + 1
+    assert torch.equal(fmod.flash_attention_causal(*gpu), out)
+
+
 @pytest.mark.parametrize("dtype,dh,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 40, "cuda_cores"),
-    (torch.float32, 64, "cuda_cores"), (torch.float32, 192, "cuda_cores")])
+    (torch.float32, 64, "tf32x3"), (torch.float32, 192, "tf32x3"),
+    (torch.float32, 36, "cuda_cores")])
 def test_flash_variant_counters(attn_cuda, dtype, dh, route):
     """Each launch counts once in total and once for the route it took."""
     args = [x.cuda() for x in _flash_inputs(1, 1, 130, 2, 3, dh, dtype)]
@@ -924,14 +990,14 @@ def test_attention_operators_launch_once_each(attn_cuda, dtype):
 
 
 def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
-    """The wgmma routes encode their TMA maps with
+    """The wgmma and tf32x3 routes encode their TMA maps with
     ``cuTensorMapEncodeTiled``, which needs a context current on the
     calling thread. Launched as the
     first device work of a fresh thread (as autograd's device thread runs
     an operator's backward that is the first node of its graph), the
-    forward and the three backward kernels (at Dh = 64, and at MLA's
-    Dh = 192, NP = 3, with the two-warpgroup dk/dv kernel) give this
-    thread's bits."""
+    forward (bf16, and float32 with its float32 maps, at Dh = 64) and the
+    three backward kernels (at Dh = 64, and at MLA's Dh = 192, NP = 3,
+    with the two-warpgroup dk/dv kernel) give this thread's bits."""
     import threading
     rng = np.random.default_rng(27)
     q, k, v = (x.cuda() for x in _flash_inputs(27, 1, 128, 1, 3, 64,
@@ -940,8 +1006,12 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
     q3, k3, v3 = (x.cuda() for x in _flash_inputs(28, 1, 130, 2, 1, 192,
                                                    torch.bfloat16))
     dout3 = _randn(rng, tuple(q3.shape), torch.bfloat16).cuda()
+    qf, kf, vf = (x.cuda() for x in _flash_inputs(29, 1, 128, 1, 3, 64,
+                                                   torch.float32))
     assert fmod.flash_route(q, k, v) == "wgmma"
+    assert fmod.flash_route(qf, kf, vf) == "tf32x3"
     want = fmod.flash_attention_causal(q, k, v)
+    want_f32 = fmod.flash_attention_causal(qf, kf, vf)
     want3 = fmod.flash_attention_causal(q3, k3, v3)
     assert fmod.flash_bwd_route(q, k, v, want, dout) == "wgmma"
     assert fmod.flash_bwd_route(q3, k3, v3, want3, dout3) == "wgmma"
@@ -954,6 +1024,8 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
         try:
             if what == "forward":
                 got[what] = fmod.flash_attention_causal(q, k, v)
+            elif what == "forward_f32":
+                got[what] = fmod.flash_attention_causal(qf, kf, vf)
             elif what == "backward":
                 got[what] = fmod.flash_attention_causal_bwd(q, k, v, want,
                                                             dout)
@@ -963,12 +1035,13 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
         except Exception as e:                         # noqa: BLE001
             got[what] = e
 
-    for what in ("forward", "backward", "backward_np3"):
+    for what in ("forward", "forward_f32", "backward", "backward_np3"):
         t = threading.Thread(target=run, args=(what,))
         t.start()
         t.join()
     torch.cuda.synchronize()
     assert torch.equal(got["forward"], want), got["forward"]
+    assert torch.equal(got["forward_f32"], want_f32), got["forward_f32"]
     for what, grads in (("backward", want_grads),
                         ("backward_np3", want_grads3)):
         assert not isinstance(got[what], Exception), got[what]
