@@ -49,17 +49,25 @@ the JAX package. Phases, each of which must pass:
    alignment take ``cuda_cores`` and agree with the plain version; and
    the backward of
    ``flash_attention_causal`` (``flash_attention_causal_bwd``: three
-   kernels, row statistics, dk/dv, dq; the ``wgmma`` route on the tensor
-   cores for bf16 with Dh % 16 == 0 and Dh <= 192, else ``cuda_cores``)
+   kernels, row statistics, dk/dv, dq; with 16-byte aligned tensors and
+   Dh <= 192 the ``wgmma`` route on the tensor cores for bf16 with Dh %
+   16 == 0, the ``tf32x3`` route (3xTF32 on the tensor cores) for
+   float32 with Dh % 8 == 0, else ``cuda_cores``)
    against its plain version in
    float32 and bf16 at the reference tests' shapes, odd S, G = 1 and 3-7,
-   Dh = 32-192 and the training shapes (8, 2,048, 5, 3, 64) and MLA's
-   (2, 2,048, 16, 1, 192): within 2e-5
+   Dh = 32-192 (36: the CUDA cores in float32 too), the training shapes
+   (8, 2,048, 5, 3, 64) and MLA's (2, 2,048, 16, 1, 192) and a case whose
+   tensors sit 4 bytes (bf16: 2) off 16-byte alignment (the CUDA cores):
+   within 2e-5
    (float32) and 1e-2 (bf16) of the plain gradient's largest magnitude,
    the same bits on a second call, one launch of each kernel and of the
    expected route, timed
    beside the plain version, its bound (q, k, v, out, dout, dq, dk, dv
-   bytes; 10 Dh flops a visible pair) and one SDPA backward;
+   bytes; 10 Dh flops a visible pair) and one SDPA backward; at each
+   float32 case on ``tf32x3`` the CUDA-core kernels
+   (``flash_attention_bwd.cu``, the float32 route before it) are also
+   held against the plain backward on the same inputs, through their own
+   C functions, and timed;
 4. main path: ``build(YCSB_HIGH_10RMW, device="cuda")`` — 1,000,000
    records, 8-word payloads, batches of 1024 zipfian (theta=0.9) 10-RMW
    transactions, spill tier on. Batch 1 must equal the serial oracle;
@@ -271,7 +279,9 @@ the JAX package. Phases, each of which must pass:
    of smollm, hymba, seamless, llava and deepseek-v2-lite (MLA at Dh =
    192, MoE at a capacity that drops nothing) at full width and 2 layers,
    B=1 and 32 tokens (hymba one SSD chunk, 256; every flash forward on
-   the ``tf32x3`` route): the card's loss and gradients equal a CPU run
+   the ``tf32x3`` route, and exactly one ``flash_attention_causal_bwd``
+   call a causal layer, all on its ``tf32x3`` route, none on the CUDA
+   cores): the card's loss and gradients equal a CPU run
    of the same weights within 1e-3 of each leaf's largest magnitude,
    non-finite at the same places (hymba's SSD chunk overflows in the
    reference too: ROADMAP.md, known limits).
@@ -388,7 +398,8 @@ from repro_torch.service import TxnService  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/mvcc_resolve.cu"
 SOURCES = ("mvcc_resolve", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "flash_attention_bwd_wgmma")
+           "flash_attention_bwd", "flash_attention_bwd_wgmma",
+           "flash_attention_bwd_tf32x3")
 # the backward is row 5's gradient: the reference has no Pallas backward
 # (it differentiates its blockwise jnp attention, models/layers.py:114)
 REPLACES = {"mvcc_resolve": "src/repro/kernels/mvcc_resolve.py:81",
@@ -398,13 +409,17 @@ REPLACES = {"mvcc_resolve": "src/repro/kernels/mvcc_resolve.py:81",
             "flash_attention_causal":
                 "src/repro/kernels/flash_attention.py:77",
             "flash_attention_causal_bwd":
+                "src/repro/kernels/flash_attention.py:77",
+            "flash_attention_causal_bwd/tf32x3":
                 "src/repro/kernels/flash_attention.py:77"}
 ATT_SOURCE = {"decode_attention":
               "src/repro_torch/kernels/csrc/decode_attention.cu",
               "flash_attention_causal":
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "flash_attention_causal_bwd":
-              "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu"}
+              "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+              "flash_attention_causal_bwd/tf32x3":
+              "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu"}
 N_BATCHES, PIN_AFTER, N_SCANS, OPS = 9, 3, 1024, 10
 PHASES = ("plan_phase", "exec_phase", "commit_phase")
 # the paged path: YCSB_HIGH_10RMW's data scale with benchmarks/paged.py's
@@ -1409,6 +1424,10 @@ BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
              ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
              ((1, 300, 5, 3, 64), "odd"), ((2, 77, 2, 4, 40), "odd"),
              ((1, 257, 2, 7, 64), "odd"),
+             # float32 Dh % 8 != 0: the CUDA-core kernels in both dtypes
+             ((2, 77, 2, 4, 36), "odd"),
+             # every tensor off 16-byte alignment: the CUDA-core kernels
+             ((1, 300, 5, 3, 64), "unaligned"),
              ((2, 512, 5, 5, 64), "models"),           # hymba's globals
              ((2, 512, 8, 6, 128), "models"),          # grok, G = 6
              ((2, 512, 8, 4, 128), "models"),          # llava's heads
@@ -1421,6 +1440,47 @@ TRAIN_SHAPE = (8, 2048, 5, 3, 64)
 # dq, dk, dv (measured <= 2.8e-3 on the CUDA cores) and, on the wgmma
 # route, P and dS rounded to bf16 for the products (measured <= 6.9e-3)
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def bwd_route_wanted(dtype, dh, aligned=True):
+    """The backward route a call must take: with 16-byte aligned tensors
+    and Dh <= 192, ``wgmma`` for bf16 with Dh % 16 == 0 and ``tf32x3``
+    for float32 with Dh % 8 == 0; else ``cuda_cores``."""
+    if aligned and dh <= flash_mod.BWD_WGMMA_MAX_DH:
+        if dtype == torch.bfloat16 and dh % 16 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and dh % 8 == 0:
+            return "tf32x3"
+    return "cuda_cores"
+
+
+def bwd_cuda_cores_f32(q, k, v, out, dout):
+    """One float32 backward on the three CUDA-core kernels through
+    their own C functions, whatever route the wrapper would pick: phase 3
+    holds and times them beside the tf32x3 kernels on the same inputs.
+    Counts no launch (a comparison, not the path)."""
+    b, s, kvh, g, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    dvec = torch.empty_like(lse)
+    for kernel, args in (("stats", [q, k, out, dout, lse, dvec]),
+                         ("dkdv", [q, k, v, dout, lse, dvec, dk, dv]),
+                         ("dq", [q, k, v, dout, lse, dvec, dq])):
+        _build.call("flash_attention_bwd",
+                    f"flash_attention_causal_bwd_{kernel}_f32",
+                    [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5
+                    + [ctypes.c_float],
+                    [x.data_ptr() for x in args]
+                    + [b, s, kvh, g, dh, dh ** -0.5], q.device)
+    return dq, dk, dv
+
+
+def bwd_rel_errs(got, ref):
+    """Each gradient's largest error relative to the plain gradient's
+    largest magnitude (clamped at 1e-30: an exact 0 must be met exactly)."""
+    return {name: float((a.float() - r.float()).abs().max()
+                        / r.float().abs().max().clamp(min=1e-30))
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref)}
 
 
 def bwd_need(shape, dtype):
@@ -1470,18 +1530,21 @@ def bwd_attention_phase(device="cuda"):
     """The backward kernel against the plain backward on the same card
     inputs at every BWD_CASES shape in float32 and bf16: within BWD_TOL of
     the plain result's largest magnitude, the same bits on a second call,
-    one launch of each of its three kernels a call on the route that dtype
-    and Dh pick (logged), timed beside the plain
-    version, its bound and one SDPA backward. Returns the kernels line's
-    row (the training shape, bf16)."""
-    row = None
+    one launch of each of its three kernels a call on the route that dtype,
+    Dh and alignment pick (logged), timed beside the plain
+    version, its bound and one SDPA backward; on the tf32x3 route the
+    CUDA-core kernels held and timed on the same inputs too. Returns the
+    kernels line's rows (the training shape: bf16, and float32 on
+    tf32x3)."""
+    rows = {}
     for shape, label in BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _bwd_inputs(shape, dtype, device)
+            if label == "unaligned":
+                args = [off_alignment(x) for x in args]
             route = flash_mod.flash_bwd_route(*args)
-            dh = shape[-1]
-            expect = ("wgmma" if dtype == torch.bfloat16 and dh % 16 == 0
-                      and dh <= flash_mod.BWD_WGMMA_MAX_DH else "cuda_cores")
+            expect = bwd_route_wanted(dtype, shape[-1],
+                                      aligned=label != "unaligned")
             if route != expect:
                 raise AssertionError(f"backward {shape} {dtype}: route "
                                      f"{route}, expected {expect}")
@@ -1500,11 +1563,7 @@ def bwd_attention_phase(device="cuda"):
                 raise AssertionError(f"backward {shape} {dtype}: two calls "
                                      "on the same inputs differ")
             ref = ops.flash_attention_causal_bwd_plain(*args)
-            errs = {}
-            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
-                scale = r.float().abs().max().clamp(min=1e-30)
-                errs[name] = float((a.float() - r.float()).abs().max()
-                                   / scale)
+            errs = bwd_rel_errs(got, ref)
             tol = BWD_TOL[dtype]
             if max(errs.values()) > tol:
                 raise AssertionError(f"backward {shape} {dtype}: relative "
@@ -1524,6 +1583,9 @@ def bwd_attention_phase(device="cuda"):
             t_ops = flops / PEAK[dtype]
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            cc_note = ""
+            if route == "tf32x3":
+                cc_note = bwd_f32_cuda_cores(args, ref, tol, timing)
             log(f"kernel flash_attention_causal_bwd {label} {list(shape)} "
                 f"{str(dtype)[6:]} ({route}): relative errors "
                 f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
@@ -1531,20 +1593,41 @@ def bwd_attention_phase(device="cuda"):
                 f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
                 f"sdpa backward {lib_ms * 1e3:.2f} us, bound "
                 f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} B, {flops} "
-                f"flop), {100 * bound_ms / ms:.2f} % of bound")
-            if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
-                row = {"name": "flash_attention_causal_bwd", "route": "cuda",
-                       "source": ATT_SOURCE["flash_attention_causal_bwd"],
-                       "replaces": REPLACES["flash_attention_causal_bwd"],
-                       "launches": 0, "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": lib_ms,
-                       "shape": list(shape), "dtype": "bfloat16",
-                       "kernel_route": route, "relative_err": errs,
-                       "bytes": nbytes, "flops": flops}
+                f"flop), {100 * bound_ms / ms:.2f} % of bound{cc_note}")
+            if shape == TRAIN_SHAPE:
+                name = ("flash_attention_causal_bwd" if dtype == torch.bfloat16
+                        else "flash_attention_causal_bwd/tf32x3")
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": ATT_SOURCE[name], "replaces": REPLACES[name],
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "shape": list(shape), "dtype": str(dtype)[6:],
+                    "kernel_route": route, "relative_err": errs,
+                    "bytes": nbytes, "flops": flops}
             del args, got, again, ref, sdpa
     torch.cuda.empty_cache()
-    return row
+    return rows
+
+
+def bwd_f32_cuda_cores(args, ref, tol, timing):
+    """Phase 3's extra check at a float32 backward case on tf32x3: the
+    CUDA-core kernels on the same inputs held against the plain backward
+    (same bits on a second call) and timed. Returns the log's note."""
+    cc = bwd_cuda_cores_f32(*args)
+    errs = bwd_rel_errs(cc, ref)
+    if max(errs.values()) > tol:
+        raise AssertionError(f"backward cuda_cores float32: relative errors "
+                             f"{errs} above {tol}")
+    if not all(torch.equal(a, b) for a, b in
+               zip(bwd_cuda_cores_f32(*args), cc)):
+        raise AssertionError("backward cuda_cores float32: two calls on the "
+                             "same inputs differ")
+    cc_ms = _device_ms(bwd_cuda_cores_f32, args, **timing)
+    return (f"; cuda_cores kernels on the same inputs: relative errors "
+            f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }, repeat "
+            f"bit-equal, {cc_ms * 1e3:.2f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -3123,6 +3206,20 @@ def check_train_launches(cfg, per_step, on_card=True):
     return want
 
 
+def f32_flash_bwd_routes(what, moved, exactly):
+    """The backward routes a float32 run's launches ``moved`` took:
+    exactly ``exactly`` ``flash_attention_causal_bwd`` calls (one a
+    causal layer), every one on ``tf32x3`` (float32 with Dh % 8 == 0,
+    aligned), none on the CUDA cores; raises otherwise."""
+    n = moved.get("flash_attention_causal_bwd", 0)
+    routes = {r: moved.get(f"flash_attention_causal_bwd/{r}", 0)
+              for r in FLASH_ROUTES}
+    if n != exactly or routes != {"wgmma": 0, "tf32x3": n, "cuda_cores": 0}:
+        raise AssertionError(f"{what}: float32 backward routes {routes} of "
+                             f"{n} calls: expected tf32x3 only ({exactly})")
+    return routes
+
+
 def grad_flash_launches(cfg):
     """Forward flash launches of one ``value_and_grad``: under remat
     "full" (every GRAD_ARCHS config's) two a causal layer (the forward
@@ -3214,10 +3311,14 @@ def grad_replay(name: str, device="cuda"):
     if abs(float(loss) - float(cpu_loss)) > GRAD_TOL * abs(float(cpu_loss)):
         raise AssertionError(f"{name}: loss card {float(loss)} cpu "
                              f"{float(cpu_loss)}")
+    routes = {}
+    if device != "cpu":
+        routes = f32_flash_routes(f"{name} gradient replay", moved,
+                                  exactly=grad_flash_launches(cfg))
+        routes["backward"] = f32_flash_bwd_routes(
+            f"{name} gradient replay", moved, attention_layers(cfg)[0])
     return {"launches": moved, "worst": worst, "loss": float(loss),
-            "routes": (f32_flash_routes(f"{name} gradient replay", moved,
-                                        exactly=grad_flash_launches(cfg))
-                       if device != "cpu" else {}),
+            "routes": routes,
             "cpu_loss": float(cpu_loss), "tokens": n,
             "nonfinite": nonfinite, "leaves": n_leaves,
             "seconds": {"card": card_s, "copy": copy_s, "cpu": cpu_s,
@@ -3226,7 +3327,8 @@ def grad_replay(name: str, device="cuda"):
 
 def training_phase(device="cuda"):
     """Phase 15 (see the module doc). Returns the launches of the bf16
-    run's steps."""
+    run's steps, its median step ms, the deepseek run's launches and the
+    float32 gradient replays' backward calls (all on tf32x3)."""
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -3268,9 +3370,11 @@ def training_phase(device="cuda"):
     del r
     torch.cuda.empty_cache()
     mla = mla_training(device)
+    f32_bwd = 0
     for name in GRAD_ARCHS:
         t1 = time.perf_counter()
         g = grad_replay(name, device)
+        f32_bwd += g["launches"].get("flash_attention_causal_bwd/tf32x3", 0)
         log(f"training replay {name}: float32, 2 layers, B=1, "
             f"{g['tokens']} tokens: loss card {g['loss']:.6f} cpu "
             f"{g['cpu_loss']:.6f}; worst gradient leaf {g['worst'][1]} at "
@@ -3282,7 +3386,7 @@ def training_phase(device="cuda"):
             f"({time.perf_counter() - t1:.1f} s: "
             f"{ {k: round(v, 2) for k, v in g['seconds'].items()} })")
     log(f"training phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
-    return dict(total), med, mla
+    return dict(total), med, mla, f32_bwd
 
 
 def mla_training(device="cuda"):
@@ -3756,7 +3860,7 @@ def main() -> int:
     rows.update(attention_phase())
     log(f"attention kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows["flash_attention_causal_bwd"] = bwd_attention_phase()
+    rows.update(bwd_attention_phase())
     log(f"attention backward kernel: {time.perf_counter() - t0:.1f} s")
 
     kmod.reset_launches()                  # counts start at 0 for the path
@@ -3980,7 +4084,8 @@ def main() -> int:
         f"{model_launches}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     # -- the training path, counted from zero per step ----------------------
-    train_launches, step_ms, mla_launches = training_phase()
+    train_launches, step_ms, mla_launches, f32_bwd = training_phase()
+    rows["flash_attention_causal_bwd/tf32x3"]["launches"] = f32_bwd
     rows["flash_attention_causal_bwd"]["launches"] = \
         train_launches["flash_attention_causal_bwd"]
     rows["flash_attention_causal_bwd"]["mla_training_launches"] = \

@@ -47,10 +47,11 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_causal/tf32x3": 0,
     "flash_attention_causal/cuda_cores": 0,
     # flash_attention_causal's gradient: one a call, the call's route
-    # (its three kernels on the tensor cores or the CUDA cores), and each
-    # of the call's three kernels
+    # (its three kernels on the tensor cores in bf16 or 3xTF32, or on the
+    # CUDA cores), and each of the call's three kernels
     "flash_attention_causal_bwd": 0,
     "flash_attention_causal_bwd/wgmma": 0,
+    "flash_attention_causal_bwd/tf32x3": 0,
     "flash_attention_causal_bwd/cuda_cores": 0,
     "flash_attention_causal_bwd/stats": 0,
     "flash_attention_causal_bwd/dkdv": 0,

@@ -432,15 +432,6 @@ static_assert(tf32_smem_bytes<6>() == 222224, "the header's table");
 static_assert(tf32_smem_bytes<6>() <= 232448,
               "NP = 6 must fit an H100 block's shared memory");
 
-// Four float32 values as their tf32 hi and lo parts.
-__device__ __forceinline__ void split4(const float (&x)[4], uint4& hi,
-                                       uint4& lo) {
-  hopper::split_tf32(x[0], hi.x, lo.x);
-  hopper::split_tf32(x[1], hi.y, lo.y);
-  hopper::split_tf32(x[2], hi.z, lo.z);
-  hopper::split_tf32(x[3], hi.w, lo.w);
-}
-
 template <int NP>   // Dh padded to 32 * NP columns
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tmap_k,
@@ -525,7 +516,7 @@ flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tmap_k,
       x[3] = val.w * scale_log2;
     }
     uint4 hi, lo;
-    split4(x, hi, lo);
+    hopper::split4_tf32(x, hi, lo);
     const uint32_t off = kQPanel32 * (c4 >> 3) + hopper::swizzle128(r, c4 & 7);
     *reinterpret_cast<uint4*>(qhi + off) = hi;
     *reinterpret_cast<uint4*>(qlo + off) = lo;
@@ -566,7 +557,7 @@ flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const float4 v4 = *reinterpret_cast<const float4*>(kt + 16 * i);
       const float x[4] = {v4.x, v4.y, v4.z, v4.w};
       uint4 hi, lo;
-      split4(x, hi, lo);
+      hopper::split4_tf32(x, hi, lo);
       *reinterpret_cast<uint4*>(kt + 16 * i) = hi;
       *reinterpret_cast<uint4*>(klo + 16 * i) = lo;
     }
@@ -588,7 +579,7 @@ flash_tf32x3_kernel(const __grid_constant__ CUtensorMap tmap_k,
         x[w] = *reinterpret_cast<const float*>(
             src + hopper::swizzle128(8 * sl + par + 2 * w, c));
       uint4 hi, lo;
-      split4(x, hi, lo);
+      hopper::split4_tf32(x, hi, lo);
       const uint32_t off =
           kVtPanel * (sl >> 2) + hopper::swizzle128(d, 2 * (sl & 3) + par);
       *reinterpret_cast<uint4*>(vthi + off) = hi;

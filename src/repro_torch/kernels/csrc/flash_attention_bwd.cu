@@ -53,10 +53,13 @@
 // the CUDA cores in float32 from shared memory (each thread a 2 x 4
 // block of (row, key) scores, then a key's (or row's) slice of columns),
 // bound by shared-memory loads, and recomputes S and dP once more for
-// dq. It serves float32 (TF32 would not hold its tolerance) and bf16
-// with Dh not a multiple of 16; bf16 with Dh % 16 == 0 (up to 192) takes
-// the tensor-core kernels of flash_attention_bwd_wgmma.cu (the wrapper
-// picks by dtype and shape).
+// dq. It serves what the tensor-core kernels do not take: float32 with
+// Dh not a multiple of 8, bf16 with Dh not a multiple of 16, and any
+// tensor not 16-byte aligned (TMA needs it). bf16 with Dh % 16 == 0 (up
+// to 192) takes flash_attention_bwd_wgmma.cu, float32 with Dh % 8 == 0
+// (up to 192) flash_attention_bwd_tf32x3.cu (3xTF32 on the tensor cores:
+// one TF32 product would not hold the tolerance); the wrapper picks by
+// dtype, shape and alignment before the launch.
 #include "attention.cuh"
 
 namespace {

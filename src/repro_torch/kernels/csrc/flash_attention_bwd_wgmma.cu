@@ -82,9 +82,15 @@
 // shared memory (TMA's zero fill, and a once-written zero tail) and carry
 // lse = +inf, so their P and dS are exactly 0 without a test.
 #include "attention.cuh"
+#include "flash_bwd.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using flash_bwd::KeyBlock;
+using flash_bwd::RowBlock;
+using flash_bwd::row_of;
+using hopper::align1024;
 
 using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;          // keys a K/V tile; at most 64 rows a Q tile
@@ -93,10 +99,6 @@ constexpr int kConsumers = 128;    // one warpgroup
 constexpr int kThreads = kConsumers + 32;          // + the producer warp
 constexpr uint32_t kPanel = 64 * hopper::kRowBytes;  // [64 rows][64 cols]
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
 
 // d (=) A . B^T over Dh (4 NP k16 slices): A and B 64-row K-major tiles of
 // NP 64-column panels. Issues the wgmmas; the caller fences and commits.
@@ -156,28 +158,6 @@ __device__ __forceinline__ void zero_tail(uint8_t* tiles, int n, int from,
   }
 }
 
-// Global row index of row r = (position p0 + r / g, head r % g).
-__device__ __forceinline__ long long row_of(int b, int S, int kvh, int h,
-                                            int g, int p0, int r) {
-  return ((static_cast<long long>(b) * S + p0 + r / g) * kvh + h) * g + r % g;
-}
-
-// Blocks of 64 rows (positions s0 .. s0 + bq - 1, their G heads each)
-// of every (b, kvh) pair, heaviest (the last positions) first.
-struct RowBlock {
-  int b, h, s0, n_rows;
-  __device__ RowBlock(int B, int S, int kvh, int g, int bq) {
-    const int n_qb = (S + bq - 1) / bq;
-    const int bhs = B * kvh;
-    const int qb = n_qb - 1 - static_cast<int>(blockIdx.x) / bhs;
-    const int bh = static_cast<int>(blockIdx.x) % bhs;
-    b = bh / kvh;
-    h = bh - b * kvh;
-    s0 = qb * bq;
-    n_rows = min(bq, S - s0) * g;
-  }
-};
-
 // -- lse (log2 domain) and D of every row ------------------------------------
 template <int NP>
 constexpr size_t stats_smem() {
@@ -200,7 +180,7 @@ stats_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
   uint64_t* full = reinterpret_cast<uint64_t*>(k_s + kPanel * NP * kStages);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
-  const RowBlock blk(B, S, kvh, g, bq);
+  const RowBlock blk(static_cast<int>(blockIdx.x), B, S, kvh, g, bq);
   const int b = blk.b, h = blk.h, s0 = blk.s0, n_rows = blk.n_rows;
   const int n_tiles = (s0 + n_rows / g + kTile - 1) / kTile;
   const int tid = threadIdx.x;
@@ -376,21 +356,6 @@ struct DkdvSmem {
   }
 };
 
-// The 64-key tile a dk/dv block owns: blocks heaviest (the first keys)
-// first over every (b, kvh) pair.
-struct KeyBlock {
-  int b, h, j0, n_qt;
-  __device__ KeyBlock(int B, int S, int kvh, int bq) {
-    const int bhs = B * kvh;
-    const int kt = static_cast<int>(blockIdx.x) / bhs;
-    const int bh = static_cast<int>(blockIdx.x) % bhs;
-    b = bh / kvh;
-    h = bh - b * kvh;
-    j0 = kt * kTile;
-    n_qt = (S - j0 + bq - 1) / bq;   // tiles of positions >= j0
-  }
-};
-
 // The dk/dv producer warp (`lane` 0-31): K and V once, then for each tile
 // of bq positions its lse and D (written by the lanes) and its Q and dO
 // boxes by TMA into ring stage t % kStages, once every consumer freed it.
@@ -520,7 +485,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
                   int dh, int bq, float scale_log2, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const DkdvSmem<NP> sm(smem_raw, 0);
-  const KeyBlock blk(B, S, kvh, bq);
+  const KeyBlock blk(static_cast<int>(blockIdx.x), B, S, kvh, bq);
   const int j0 = blk.j0;
   const int tid = threadIdx.x;
 
@@ -620,7 +585,7 @@ dkdv_split_kernel(const __grid_constant__ CUtensorMap tmap_q,
   constexpr int NP = 3;
   extern __shared__ uint8_t smem_raw[];
   const DkdvSmem<NP> sm(smem_raw, kPtBuffers);
-  const KeyBlock blk(B, S, kvh, bq);
+  const KeyBlock blk(static_cast<int>(blockIdx.x), B, S, kvh, bq);
   const int j0 = blk.j0, n_qt = blk.n_qt;
   const int tid = threadIdx.x;
 
@@ -742,7 +707,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
   uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kPanel * NP * kStages);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
-  const RowBlock blk(B, S, kvh, g, bq);
+  const RowBlock blk(static_cast<int>(blockIdx.x), B, S, kvh, g, bq);
   const int b = blk.b, h = blk.h, s0 = blk.s0, n_rows = blk.n_rows;
   const int n_tiles = (s0 + n_rows / g + kTile - 1) / kTile;
   const int tid = threadIdx.x;
@@ -937,6 +902,8 @@ int dq_np(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+static_assert(kTile == flash_bwd::kKeyBlock,
+              "a dk/dv block is one K/V tile");
 static_assert(dkdv_smem<2>() <= 232448 && dq_smem<2>() <= 232448,
               "NP = 2 must fit an H100 block's shared memory");
 static_assert(dkdv_smem<3, kPtBuffers>() <= 232448 && dq_smem<3>() <= 232448 &&

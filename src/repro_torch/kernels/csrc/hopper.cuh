@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // wgmma instructions the flash kernels (forward and backward) issue, in
-// bf16 and in tf32, and the host-side encoders of TMA tensor maps.
+// bf16 and in tf32, cluster ranks with distributed shared memory and
+// remote mbarrier arrivals, and the host-side encoders of TMA tensor
+// maps.
 //
 // Shared-memory tiles use the 128-byte swizzle throughout: a tile is a
 // stack of 128-byte rows (64 bf16 values), and the 16-byte chunk c of row
@@ -29,6 +31,12 @@ constexpr uint32_t kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte aligned address at or after p (a swizzled tile's
+// base; a kernel's dynamic shared memory carries 1024 bytes of slack).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // Byte offset of 16-byte chunk c (0-7) of row r in a 128B-swizzled tile.
@@ -261,6 +269,15 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// Four float32 values as their tf32 hi and lo parts (split_tf32).
+__device__ __forceinline__ void split4_tf32(const float (&x)[4], uint4& hi,
+                                            uint4& lo) {
+  split_tf32(x[0], hi.x, lo.x);
+  split_tf32(x[1], hi.y, lo.y);
+  split_tf32(x[2], hi.z, lo.z);
+  split_tf32(x[3], hi.w, lo.w);
+}
+
 // D[64 x 32] (+)= A . B in tf32 (float32 sums), A and B from shared
 // memory, K-major both (tf32 operands cannot be transposed).
 __device__ __forceinline__ void wgmma_m64n32k8_ss_tf32(float (&d)[16],
@@ -331,6 +348,27 @@ __device__ __forceinline__ void wgmma_m64n64k8_rs_tf32(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 96] (+)= A . B in tf32 (float32 sums), A from registers (four
+// tf32 values a thread: rows g, g + 8 at columns c, c + 4 of the k8
+// slice), B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n96k8_rs_tf32(float (&d)[48],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 192] (+)= A . B in tf32 (float32 sums), A from registers (four
 // tf32 values a thread: rows g, g + 8 at columns c, c + 4 of the k8
 // slice), B from shared memory, K-major.
@@ -356,6 +394,62 @@ __device__ __forceinline__ void wgmma_m64n192k8_rs_tf32(float (&d)[96],
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// -- clusters: distributed shared memory and remote mbarriers ----------------
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster arrives and waits (after
+// mbarrier initialisation, before a block arrives on another's barriers).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of shared address `addr` in block `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// Arrive once on the mbarrier at shared::cluster address `bar` (another
+// block's), releasing this thread's prior writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+// mbar_wait with acquire at cluster scope: what the threads of other
+// blocks wrote before arriving is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Store four floats at shared::cluster address `addr` (another block's).
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float x, float y,
+                                              float z, float w) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
 }
 
 
@@ -474,6 +568,32 @@ inline int encode_bshgd(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode_with_context(
       fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5u, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
+// A float32 [B, S, H, G, D] tensor read in boxes of (32 columns, all G
+// heads, 1 kv head, bq positions, 1 batch): bq * G rows of 128 bytes
+// ordered (position, head), swizzled as above; columns D..31 of a box and
+// positions past S are zero-filled. D * 4 bytes must be a multiple of 16,
+// `base` 16-byte aligned, G and bq at most 256.
+inline int encode_bshgd_f32(CUtensorMap* map, const void* base, int B, int S,
+                            int H, int G, int D, int bq) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return kEncodeError;
+  const cuuint64_t dims[5] = {
+      static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(G),
+      static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+      static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 4;
+  const cuuint64_t strides[4] = {row, row * G, row * G * H, row * G * H * S};
+  const cuuint32_t box[5] = {32, static_cast<cuuint32_t>(G), 1,
+                             static_cast<cuuint32_t>(bq), 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode_with_context(
+      fn, map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5u, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

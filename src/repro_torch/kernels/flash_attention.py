@@ -54,18 +54,23 @@ over the forward operator whose backward is ``flash_attention_causal_bwd``
 — dq, dk and dv from q, k, v, the forward's output and its gradient,
 with a float32 softmax recomputed from the saved inputs. On CUDA tensors
 it launches three kernels (row statistics, then dk/dv, then dq; no float
-atomics, so the bits repeat) of one of two sources, which
+atomics, so the bits repeat) of one of three sources, which
 ``flash_bwd_route`` picks
-by dtype and shape before the launch:
+by dtype, shape and alignment before the launch:
 
 * ``"wgmma"`` — bf16 with Dh a multiple of 16 up to 192 (MLA's) and
   16-byte aligned tensors: ``csrc/flash_attention_bwd_wgmma.cu``, the
   tensor cores (wgmma, TMA rings; above Dh = 128 the dk/dv kernel splits
   over two consumer warpgroups), P and dS rounded to bf16 for the
   products;
-* ``"cuda_cores"`` — float32 (one TF32 product would not hold its 2e-5
-  tolerance; the forward's 3xTF32 split is not ported to the backward
-  yet) and bf16 with Dh not a multiple of 16:
+* ``"tf32x3"`` — float32 with Dh a multiple of 8 up to 192 and 16-byte
+  aligned tensors: ``csrc/flash_attention_bwd_tf32x3.cu``, the tensor
+  cores in tf32 with float32 accuracy (each product a.b as a_hi.b_hi +
+  a_hi.b_lo + a_lo.b_hi, as the forward's ``tf32x3`` route; one tf32
+  product would not hold the 2e-5 tolerance), TMA-streamed tiles, and
+  above Dh = 64 the Dh columns split over a cluster of two blocks;
+* ``"cuda_cores"`` — the rest (float32 with Dh not a multiple of 8,
+  unaligned tensors, bf16 with Dh not a multiple of 16):
   ``csrc/flash_attention_bwd.cu``'s float32 CUDA-core kernels.
 
 A call counts one ``LAUNCHES["flash_attention_causal_bwd"]``, one
@@ -92,9 +97,11 @@ from repro_torch.kernels.decode_attention import (_SUFFIX,
 #: the flash kernels' head-dim limit, above decode's 128: DeepSeek-V2's
 #: MLA prefill attends at 128 + 64 = 192 (csrc/flash_attention.cu)
 MAX_DH = 192
-#: the tensor-core backward's head-dim limit, the forward's: up to 128 one
-#: consumer warpgroup holds dK and dV beside S^T and dP^T; above it (MLA's
-#: 192) two warpgroups hold one each (csrc/flash_attention_bwd_wgmma.cu)
+#: the tensor-core backward's head-dim limit (both routes), the forward's:
+#: bf16 up to 128 holds dK and dV in one consumer warpgroup, above it
+#: (MLA's 192) in two (csrc/flash_attention_bwd_wgmma.cu); float32 above
+#: 64 splits Dh over a cluster of two blocks
+#: (csrc/flash_attention_bwd_tf32x3.cu)
 BWD_WGMMA_MAX_DH = MAX_DH
 
 
@@ -143,14 +150,17 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, dout: torch.Tensor) -> str:
-    """The kernels a CUDA backward call takes: ``"wgmma"`` for bf16 with
-    ``Dh % 16 == 0``, ``Dh <= BWD_WGMMA_MAX_DH`` and 16-byte aligned
-    tensors (TMA needs them), else ``"cuda_cores"``."""
+    """The kernels a CUDA backward call takes, with all five tensors
+    16-byte aligned (TMA needs them) and ``Dh <= BWD_WGMMA_MAX_DH``:
+    ``"wgmma"`` for bf16 with ``Dh % 16 == 0``, ``"tf32x3"`` for float32
+    with ``Dh % 8 == 0``; else ``"cuda_cores"``."""
     dh = q.shape[-1]
-    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v, out, dout))
-    if (q.dtype == torch.bfloat16 and dh % 16 == 0
-            and dh <= BWD_WGMMA_MAX_DH and aligned):
-        return "wgmma"
+    if (dh <= BWD_WGMMA_MAX_DH
+            and all(x.data_ptr() % 16 == 0 for x in (q, k, v, out, dout))):
+        if q.dtype == torch.bfloat16 and dh % 16 == 0:
+            return "wgmma"
+        if q.dtype == torch.float32 and dh % 8 == 0:
+            return "tf32x3"
     return "cuda_cores"
 
 
@@ -274,6 +284,7 @@ def flash_attention_causal_bwd_plain(q, k, v, out, dout, block_q: int = 256):
 BWD_KERNELS = ("stats", "dkdv", "dq")
 #: each route's source under csrc/ and its functions' suffix after the dtype
 _BWD_ROUTES = {"wgmma": ("flash_attention_bwd_wgmma", "_wgmma"),
+               "tf32x3": ("flash_attention_bwd_tf32x3", "_tf32x3"),
                "cuda_cores": ("flash_attention_bwd", "")}
 
 

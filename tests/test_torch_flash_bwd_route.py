@@ -3,9 +3,11 @@ route's rounding, on the CPU.
 
 ``flash_bwd_route`` picks the kernels a CUDA call takes from dtype, Dh
 and alignment alone (CPU tensors have the same pointers and shapes, so
-it is tested here). The wgmma route rounds P and dS to bf16 before its
-three products (dV = P^T dO, dK = dS^T Q, dQ = dS K), roundings the plain
-backward does not make: ``design_bwd`` builds that arithmetic in PyTorch
+it is tested here): ``wgmma`` for bf16 with Dh % 16 == 0, ``tf32x3`` for
+float32 with Dh % 8 == 0 (its arithmetic is emulated in
+``test_torch_flash_bwd_f32_route.py``), else ``cuda_cores``. The wgmma
+route rounds P and dS to bf16 before its three products (dV = P^T dO,
+dK = dS^T Q, dQ = dS K), roundings the plain backward does not make: ``design_bwd`` builds that arithmetic in PyTorch
 (bf16 operands, float32 sums) and it must stay within the card tests'
 bf16 tolerance, 1e-2 of each gradient's largest magnitude, of the plain
 backward and of ``jax.vjp`` of the reference's blockwise attention, at
@@ -40,25 +42,44 @@ def test_bf16_multiples_of_16_take_wgmma(dh):
     assert flash_bwd_route(*_tensors((1, 8, 2, 3, dh))) == "wgmma"
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
-                                      (torch.float32, 192),
-                                      (torch.bfloat16, 40)])
+# float32 with Dh % 8 == 0 (smollm's 64, MLA's 192) takes the 3xTF32
+# tensor-core kernels; float32 Dh 36 and bf16 Dh 40 the CUDA cores
+ROUTE_OF = {(torch.float32, 64): "tf32x3", (torch.float32, 192): "tf32x3",
+            (torch.bfloat16, 40): "cuda_cores",
+            (torch.float32, 36): "cuda_cores"}
+
+
+@pytest.mark.parametrize("dtype,dh", list(ROUTE_OF))
 def test_float32_mla_and_odd_dh_take_cuda_cores(dtype, dh):
     assert flash_bwd_route(*_tensors((1, 8, 2, 3, dh), dtype)) == \
-        "cuda_cores"
+        ROUTE_OF[(dtype, dh)]
+
+
+def _unaligned(which, dtype=torch.bfloat16):
+    """Aligned backward inputs but one (q, k, v, out or dout) a view one
+    element into its storage."""
+    args = _tensors((1, 8, 2, 3, 64), dtype)
+    x = args[which]
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    args[which] = buf[1:].view(x.shape)
+    assert args[which].is_contiguous()
+    assert args[which].data_ptr() % 16 != 0
+    return args
 
 
 @pytest.mark.parametrize("which", range(5))
 def test_an_unaligned_tensor_takes_cuda_cores(which):
     """A view 2 bytes into its storage (q, k, v, out or dout) cannot be a
     TMA source."""
-    args = _tensors((1, 8, 2, 3, 64))
-    x = args[which]
-    buf = torch.zeros(x.numel() + 1, dtype=x.dtype)
-    args[which] = buf[1:].view(x.shape)
-    assert args[which].is_contiguous()
-    assert args[which].data_ptr() % 16 != 0
-    assert flash_bwd_route(*args) == "cuda_cores"
+    assert flash_bwd_route(*_unaligned(which)) == "cuda_cores"
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_an_unaligned_float32_tensor_takes_cuda_cores(which):
+    """Nor a float32 view 4 bytes into its storage: the tf32x3 route's
+    TMA maps need 16-byte aligned tensors too."""
+    assert flash_bwd_route(*_unaligned(which, torch.float32)) == \
+        "cuda_cores"
 
 
 def design_bwd(q, k, v, out, dout):

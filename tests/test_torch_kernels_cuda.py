@@ -912,8 +912,22 @@ def test_attention_kernels_repeat_bit_equal(attn_cuda, which, dtype):
 BWD_SHAPES = [(1, 1, 1, 1, 16), (2, 77, 2, 1, 64), (1, 130, 2, 3, 64),
               (2, 65, 1, 4, 40), (1, 257, 2, 7, 128), (1, 96, 2, 5, 192),
               (2, 200, 1, 6, 32), (1, 2048, 5, 3, 64), (2, 65, 1, 1, 144),
-              (1, 77, 2, 3, 160)]
+              (1, 77, 2, 3, 160),
+              # Dh % 8 != 0: the CUDA-core route in float32 too
+              (2, 77, 2, 4, 36)]
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _bwd_route_wanted(dtype, dh):
+    """The backward route aligned tensors take: wgmma for bf16 with Dh %
+    16 == 0, tf32x3 for float32 with Dh % 8 == 0 (both Dh <= 192), else
+    cuda_cores."""
+    if dh <= fmod.BWD_WGMMA_MAX_DH:
+        if dtype == torch.bfloat16 and dh % 16 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and dh % 8 == 0:
+            return "tf32x3"
+    return "cuda_cores"
 
 
 def _rel_errs(got, want):
@@ -928,7 +942,9 @@ def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
     """The three backward kernels against the plain backward on the CPU
     (within BWD_TOL of each gradient's largest magnitude), the same bits
     on a second call, one launch of each kernel a call on the route that
-    dtype and Dh pick (wgmma: bf16, Dh % 16 == 0, Dh <= 192)."""
+    dtype and Dh pick (wgmma: bf16, Dh % 16 == 0; tf32x3: float32, Dh % 8
+    == 0; both Dh <= 192). At S = 1 the plain dq and dk are exactly 0,
+    so the kernels' must be too."""
     rng = np.random.default_rng(sum(shape))
     b, s, kvh, g, dh = shape
     q, k, v, dout = (_randn(rng, x, dtype) for x in (
@@ -937,8 +953,7 @@ def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
     want = fmod.flash_attention_causal_bwd_plain(q, k, v, out, dout)
     args = [x.cuda() for x in (q, k, v, out, dout)]
     route = fmod.flash_bwd_route(*args)
-    assert route == ("wgmma" if dtype == torch.bfloat16 and dh % 16 == 0
-                     and dh <= fmod.BWD_WGMMA_MAX_DH else "cuda_cores")
+    assert route == _bwd_route_wanted(dtype, dh)
     before = dict(mod.LAUNCHES)
     got = fmod.flash_attention_causal_bwd(*args)
     torch.cuda.synchronize()
@@ -951,6 +966,34 @@ def test_flash_backward_kernel_matches_plain(attn_cuda, shape, dtype):
     for a, w in zip(got, want):
         assert a.is_cuda and a.dtype == dtype and a.shape == w.shape
     assert max(_rel_errs(got, want)) <= BWD_TOL[dtype]
+    again = fmod.flash_attention_causal_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dh", [64, 192])
+def test_flash_backward_float32_unaligned_takes_cuda_cores(attn_cuda, dh):
+    """float32 backward inputs 4 bytes off 16-byte alignment, which the
+    tf32x3 kernels cannot load by TMA, take the CUDA-core kernels:
+    within BWD_TOL of the plain backward, one launch of each kernel on
+    that route, the same bits on a second call."""
+    rng = np.random.default_rng(dh + 29)
+    shape = (2, 77, 2, 3, dh)
+    q, k, v, dout = (_randn(rng, x, torch.float32) for x in (
+        shape, shape[:3] + (dh,), shape[:3] + (dh,), shape))
+    out = attn_cuda["flash"](q, k, v)
+    want = fmod.flash_attention_causal_bwd_plain(q, k, v, out, dout)
+    args = [_off_alignment(x.cuda()) for x in (q, k, v, out, dout)]
+    assert fmod.flash_bwd_route(*args) == "cuda_cores"
+    before = dict(mod.LAUNCHES)
+    got = fmod.flash_attention_causal_bwd(*args)
+    torch.cuda.synchronize()
+    moved = {n: mod.LAUNCHES[n] - before[n] for n in before
+             if mod.LAUNCHES[n] != before[n]}
+    assert moved == {"flash_attention_causal_bwd": 1,
+                     "flash_attention_causal_bwd/cuda_cores": 1,
+                     **{f"flash_attention_causal_bwd/{n}": 1
+                        for n in fmod.BWD_KERNELS}}
+    assert max(_rel_errs(got, want)) <= BWD_TOL[torch.float32]
     again = fmod.flash_attention_causal_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
@@ -997,7 +1040,9 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
     an operator's backward that is the first node of its graph), the
     forward (bf16, and float32 with its float32 maps, at Dh = 64) and the
     three backward kernels (at Dh = 64, and at MLA's Dh = 192, NP = 3,
-    with the two-warpgroup dk/dv kernel) give this thread's bits."""
+    with the two-warpgroup dk/dv kernel; and float32 on the tf32x3 route
+    at Dh = 64 and at Dh = 192, launched as clusters of two blocks) give
+    this thread's bits."""
     import threading
     rng = np.random.default_rng(27)
     q, k, v = (x.cuda() for x in _flash_inputs(27, 1, 128, 1, 3, 64,
@@ -1017,6 +1062,14 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
     assert fmod.flash_bwd_route(q3, k3, v3, want3, dout3) == "wgmma"
     want_grads = fmod.flash_attention_causal_bwd(q, k, v, want, dout)
     want_grads3 = fmod.flash_attention_causal_bwd(q3, k3, v3, want3, dout3)
+    f32 = {}
+    for dh in (64, 192):
+        args = [x.float() for x in (q, k, v)] if dh == 64 else \
+            [x.float() for x in (q3, k3, v3)]
+        args += [fmod.flash_attention_causal(*args),
+                 (dout if dh == 64 else dout3).float()]
+        assert fmod.flash_bwd_route(*args) == "tf32x3"
+        f32[dh] = (args, fmod.flash_attention_causal_bwd(*args))
     torch.cuda.synchronize()
     got = {}
 
@@ -1029,13 +1082,17 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
             elif what == "backward":
                 got[what] = fmod.flash_attention_causal_bwd(q, k, v, want,
                                                             dout)
+            elif what.startswith("backward_f32_"):
+                args = f32[int(what.rsplit("_", 1)[1])][0]
+                got[what] = fmod.flash_attention_causal_bwd(*args)
             else:
                 got[what] = fmod.flash_attention_causal_bwd(q3, k3, v3,
                                                             want3, dout3)
         except Exception as e:                         # noqa: BLE001
             got[what] = e
 
-    for what in ("forward", "forward_f32", "backward", "backward_np3"):
+    for what in ("forward", "forward_f32", "backward", "backward_np3",
+                 "backward_f32_64", "backward_f32_192"):
         t = threading.Thread(target=run, args=(what,))
         t.start()
         t.join()
@@ -1043,7 +1100,9 @@ def test_tma_kernels_launch_first_on_a_fresh_thread(attn_cuda):
     assert torch.equal(got["forward"], want), got["forward"]
     assert torch.equal(got["forward_f32"], want_f32), got["forward_f32"]
     for what, grads in (("backward", want_grads),
-                        ("backward_np3", want_grads3)):
+                        ("backward_np3", want_grads3),
+                        ("backward_f32_64", f32[64][1]),
+                        ("backward_f32_192", f32[192][1])):
         assert not isinstance(got[what], Exception), got[what]
         assert all(torch.equal(a, b) for a, b in zip(got[what], grads))
 
