@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import pickle
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from pathlib import Path
 from typing import Callable, Dict, List
@@ -129,39 +131,52 @@ def visible_cards(device=None) -> int:
 
 
 def _rank_main(fn, rank: int, n: int, tmp: str, device_type: str,
-               timeout: float) -> None:
+               timeout: float, mesh) -> None:
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import cc_mesh
+    from repro_torch.launch.mesh import cc_mesh, device_mesh
     if device_type == "cuda":
         torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             init_method=f"file://{tmp}/rendezvous",
                             rank=rank, world_size=n,
                             timeout=timedelta(seconds=timeout))
     try:
-        out = fn(cc_mesh(device_type))
+        out = fn(cc_mesh(device_type) if mesh is None
+                 else device_mesh(*mesh, device_type))
         (Path(tmp) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, n: int, device=None, timeout: float = 600.0):
-    """Run ``fn(mesh)`` on an n-rank ``cc`` mesh: n spawned processes, one
-    a card over NCCL (over gloo for a CPU rehearsal), meeting through a
-    file in a temporary directory, with a group timeout of ``timeout``
-    seconds. Returns the ranks' results in rank order; raises if a rank
-    fails or hangs. ``fn`` must be picklable (a module-level function or
-    a partial of one)."""
+def spawn_ranks(fn, n: int, device=None, timeout: float = 600.0,
+                mesh=None):
+    """Run ``fn(mesh)`` on n spawned processes, one a card over NCCL (over
+    gloo for a CPU rehearsal, a rank taking its share of the cores),
+    meeting through a file in a temporary directory, with a group timeout
+    of ``timeout`` seconds. The mesh is the one-dim ``cc`` mesh over the
+    n ranks, or ``launch.mesh.device_mesh(*mesh)`` for ``mesh = (shape,
+    axis names)``. Returns the ranks' results in rank order; raises if
+    the cards are fewer than the ranks, or if a rank fails or hangs.
+    ``fn`` must be picklable (a module-level function or a partial of
+    one)."""
     import torch.multiprocessing as mp
     device_type = torch.device("cuda" if device is None else device).type
+    if device_type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"{n} ranks want a card each; "
+                         f"{torch.cuda.device_count()} visible")
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, n, tmp, device_type, timeout))
+                             args=(fn, r, n, tmp, device_type, timeout,
+                                   mesh))
                  for r in range(n)]
-        for p in procs:
-            p.start()
+        # started together: a start blocks until its child has booted and
+        # read its arguments (a pipe's worth and more)
+        with ThreadPoolExecutor(n) as pool:
+            list(pool.map(lambda p: p.start(), procs))
         deadline = time.monotonic() + 2 * timeout
         for p in procs:
             p.join(max(1.0, deadline - time.monotonic()))

@@ -327,6 +327,46 @@ the JAX package. Phases, each of which must pass:
    byte. Prints the mesh and logical batch medians and the phase's
    seconds beside the card's name and power limit.
 
+18. the elastic restart: a first world of 4 ranks on a (2, 2) ("data",
+   "model") ``DeviceMesh`` (``launch.mesh.device_mesh``) takes 3 AdamW
+   steps with parameters, AdamW state and batch as DTensors placed by
+   ``param_shardings``, ``opt_state_shardings`` and ``batch_sharding``
+   (the step under ``activation_mesh`` and ``implicit_replication``) and
+   saves through ``CheckpointManager`` (every rank gathers, rank 0
+   writes); then a new world of ``plan_remesh(2, model_parallel=2)``'s 2
+   ranks on (1, 2) restores with ``shardings=`` (each rank reading its
+   own shards of the files), holds the restored state, gathered, to the
+   files bit for bit, and takes 2 steps. Three configurations in each
+   world: smollm-360m whole (32 layers, d_model 960, 15 / 5 heads, Dh
+   64, vocab 49,152) in bf16, remat "full", B=8 x S=2,048 (its 5 KV heads
+   do not divide ``model``, so rows 5 and 5b run on batch shards, on
+   the ``wgmma`` routes); the same at 2 layers in float32, B=4 x S=512;
+   reduced smollm-360m in float32, B=4 x S=256, whose 2 KV heads shard
+   over ``model`` (rows 5 and 5b on head shards, on the ``tf32x3``
+   routes). The two float32 runs must match the same 5 steps run
+   unsharded on one card: each loss, and the gradient at each world's
+   start (the same parameters and batch), within 1e-3 (phase 15's
+   float32 limit, worst leaf); the saved parameters after each world
+   within 1e-3 of each leaf's largest magnitude but for isolated AdamW
+   sign flips (at most 1e-5 of a leaf's elements, each within 0.62 lr
+   a step, twice the reach measured on the H100: AdamW's first update
+   of an element is ~lr x the sign of its gradient, which float32
+   cannot resolve where a gradient sits at the runs' difference); the
+   elements whose gradient at their first nonzero update lies below the
+   sharded-unsharded start-gradient gap are counted and printed beside.
+   Every rank must launch rows 5
+   and 5b exactly as its layers and steps need, all on the tensor-core
+   route of the dtype (none on the CUDA cores), on local shards of the
+   expected shape, with the last launch of each held against the plain
+   versions. With 4 or more cards the ranks are processes, one a card,
+   over NCCL; on one card they are threads of this process over the
+   threaded process group (``thread_ranks``; each runs its backward on
+   its own thread), as processes sharing a card over gloo crash in
+   DTensor's collectives on torch 2.11 (a segfault in the functional
+   collectives' wait). Prints the substrates, each world's step ms,
+   peak GiB and launches per rank, kernel and route beside the card's
+   name and power limit.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -348,6 +388,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -3026,38 +3067,61 @@ GRAD_ARCHS = ("smollm-360m", "hymba-1.5b", "seamless-m4t-large-v2",
 GRAD_TOKENS, GRAD_TOL = 32, 1e-3
 
 
+#: the HeldTraining instance open on this thread (thread ranks each hold
+#: their own launches)
+_HELD = threading.local()
+_HELD_LOCK = threading.Lock()
+
+
+def _held_fwd(fwd, q, k, v):
+    out = fwd(q, k, v)
+    held = getattr(_HELD, "held", None)
+    if held is not None and q.is_cuda:
+        held.shapes[tuple(q.shape)] += 1
+        if held.armed:
+            held.fwd = ([x.detach().clone() for x in (q, k, v)],
+                        out.detach().clone())
+    return out
+
+
+def _held_bwd(bwd, *args):
+    grads = bwd(*args)
+    held = getattr(_HELD, "held", None)
+    if held is not None and held.armed and args[0].is_cuda:
+        held.bwd = ([x.detach().clone() for x in args],
+                    [x.detach().clone() for x in grads])
+    return grads
+
+
 class HeldTraining:
     """While open, keeps (detached copies of) the inputs and output of the
     latest flash forward and backward launch of ``kernels.
-    flash_attention`` while ``armed``; ``check`` holds them against the
-    plain versions on the same card tensors. Adds no launch."""
+    flash_attention`` while ``armed`` (its operators' implementations,
+    so a DTensor's local shards as the kernels see them), and counts the
+    q shapes of every forward launch; ``check`` holds the kept launches
+    against the plain versions on the same card tensors. Adds no launch.
+    Records the launches of the thread that opened it, so the backward
+    must run on that thread (``torch.autograd.
+    set_multithreading_enabled(False)``). The first instance wraps the
+    operators' implementations for good; the wrappers do nothing on a
+    thread with no instance open."""
 
     def __enter__(self):
         self.armed, self.fwd, self.bwd = False, None, None
-        self._saved = (flash_mod._forward, flash_mod.flash_attention_causal_bwd)
-        fwd, bwd = self._saved
-
-        def keep_fwd(q, k, v):
-            out = fwd(q, k, v)
-            if self.armed and q.is_cuda:
-                self.fwd = ([x.detach().clone() for x in (q, k, v)],
-                            out.detach().clone())
-            return out
-
-        def keep_bwd(*args):
-            grads = bwd(*args)
-            if self.armed and args[0].is_cuda:
-                self.bwd = ([x.detach().clone() for x in args],
-                            [x.detach().clone() for x in grads])
-            return grads
-
-        flash_mod._forward = keep_fwd
-        flash_mod.flash_attention_causal_bwd = keep_bwd
+        #: the q shapes of the forward launches (a sharded step's are the
+        #: rank's local shards)
+        self.shapes = collections.Counter()
+        with _HELD_LOCK:
+            if getattr(flash_mod._forward, "func", None) is not _held_fwd:
+                flash_mod._forward = functools.partial(_held_fwd,
+                                                       flash_mod._forward)
+                flash_mod._backward = functools.partial(_held_bwd,
+                                                        flash_mod._backward)
+        _HELD.held = self
         return self
 
     def __exit__(self, *exc):
-        flash_mod._forward, flash_mod.flash_attention_causal_bwd = \
-            self._saved
+        _HELD.held = None
         return False
 
     def check(self, what: str):
@@ -3124,7 +3188,9 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
         model_layers.reset_blockwise()
 
     losses, restore_s = [], 0.0
-    with tempfile.TemporaryDirectory() as root, HeldTraining() as held:
+    # the backward on this thread: HeldTraining holds this thread's launches
+    with torch.autograd.set_multithreading_enabled(False), \
+            tempfile.TemporaryDirectory() as root, HeldTraining() as held:
         tcfg = TrainConfig(steps=steps, log_every=1,
                            checkpoint_dir=None if save_at is None else root,
                            checkpoint_every=save_at or steps)
@@ -3698,22 +3764,27 @@ def mesh_stream(mesh, n: int, device="cuda", seed=0, R=None):
 
 
 def thread_ranks(fn, n: int, timeout: float = MESH_TIMEOUT,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """``fn(mesh)`` on n ranks that are threads of this process, over
     torch's threaded process group on the card (as
     ``torch.testing._internal.common_distributed`` opens it); the ranks'
-    results in rank order. A rank that raises stops the others'
-    collectives and the call raises; so does a rank still running after
-    ``timeout`` seconds. The port's CPU mesh tests run their ranks here
-    too (``device="cpu"``)."""
-    import threading
+    results in rank order. The mesh is the one-dim ``cc`` mesh, or
+    ``launch.mesh.device_mesh(*mesh)`` for ``mesh = (shape, axis
+    names)`` (``spawn_ranks``' arguments). Each rank runs its autograd
+    backward on its own thread (``set_multithreading_enabled(False)``:
+    one device thread shared by every rank could block in one rank's
+    collective while holding the others' nodes), so a rank's launches,
+    backward included, are its thread's. A rank that raises stops the
+    others' collectives and the call raises; so does a rank still
+    running after ``timeout`` seconds. The port's CPU mesh tests run
+    their ranks here too (``device="cpu"``)."""
     from datetime import timedelta
 
     import torch.distributed as dist
     from torch.testing._internal.distributed.multi_threaded_pg import (
         ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
 
-    from repro_torch.launch.mesh import cc_mesh
+    from repro_torch.launch.mesh import cc_mesh, device_mesh
     torch._C._distributed_c10d._set_thread_isolation_mode(True)
     _install_threaded_pg()
     ProcessLocalGroup.reset()
@@ -3725,7 +3796,9 @@ def thread_ranks(fn, n: int, timeout: float = MESH_TIMEOUT,
             dist.init_process_group("threaded", rank=r, world_size=n,
                                     store=store,
                                     timeout=timedelta(seconds=timeout))
-            results[r] = fn(cc_mesh(device))
+            with torch.autograd.set_multithreading_enabled(False):
+                results[r] = fn(cc_mesh(device) if mesh is None
+                                else device_mesh(*mesh, device))
             _sync(device)
         except BaseException as exc:  # noqa: BLE001 — raised below
             errors[r] = exc
@@ -3818,6 +3891,595 @@ def mesh_phase(device="cuda"):
         f"{mesh_s:.1f} s, logical {logical_s:.1f} s, phase "
         f"{time.perf_counter() - t_phase:.1f} s; {nvidia_smi()}")
     return path
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the elastic restart
+# ---------------------------------------------------------------------------
+#: the first world's mesh; the restart's is ``plan_remesh``'s for 2 ranks
+ELASTIC_MESH = ((2, 2), ("data", "model"))
+ELASTIC_RANKS, ELASTIC_SURVIVORS = 4, 2
+ELASTIC_STEPS = (3, 2)          # the first world's steps, then the restart's
+ELASTIC_TIMEOUT = 600
+#: sharded against unsharded: phase 15's float32 limit (worst leaf)
+ELASTIC_TOL = GRAD_TOL
+#: parameters past ELASTIC_TOL after AdamW steps: at most this share of a
+#: leaf's elements, each within ADAM_REACH x lr x steps (twice the 0.31
+#: measured on the H100; AdamW's own cap is 2 x 1.17 = 2.34: |m^| /
+#: sqrt(v^) <= 1.17 at b1 0.9, b2 0.95, and two runs may step opposite
+#: ways)
+ADAM_FLIPS, ADAM_REACH = 1e-5, 0.62
+
+
+def elastic_cases(reduced=None):
+    """Phase 18's configurations (see the module doc): smollm-360m whole
+    in bf16 (B=8, S=2,048; its 15 / 5 heads do not divide ``model`` = 2,
+    so the flash kernels run on batch shards), the same at 2 layers in
+    float32 (B=4, S=512) and reduced smollm-360m in float32 (B=4,
+    S=256; 4 / 2 heads, so they run on head shards too). ``reduced``
+    replaces the configurations (a CPU rehearsal). Each: name, config,
+    batch, sequence, seed of the weights and of the data, whether it is
+    held against an unsharded run (float32) and whether the restart
+    saves its last step."""
+    from repro_torch.configs import reduced_config
+    full = get_config(TRAIN_ARCH)
+    cases = reduced or [
+        ("bf16", dataclasses.replace(full, dtype="bfloat16", remat="full"),
+         8, 2048),
+        ("f32_2layers", dataclasses.replace(full, num_layers=2,
+                                            dtype="float32"), 4, 512),
+        ("f32_reduced", dataclasses.replace(reduced_config(TRAIN_ARCH),
+                                            dtype="float32"), 4, 256)]
+    return [dict(name=n, cfg=c, batch=b, seq=s, seed=18, data_seed=3,
+                 held=c.dtype == "float32", params=None)
+            for n, c, b, s in cases]
+
+
+def _elastic_data(case, skip: int):
+    """The case's batches after the first ``skip`` (every rank draws the
+    same global batches)."""
+    from repro_torch.data.pipeline import (PackedBatchIterator,
+                                           SyntheticTokenSource)
+    data = PackedBatchIterator(
+        SyntheticTokenSource(case["cfg"].vocab_size, seed=case["data_seed"]),
+        batch=case["batch"], seq_len=case["seq"])
+    for _ in range(skip):
+        next(data)
+    return data
+
+
+def _elastic_params(case, device):
+    """The case's starting parameters: the given numpy tree through
+    ``params_from_reference``, else seeded on ``device``."""
+    if case["params"] is not None:
+        return models_tf.params_from_reference(case["params"], case["cfg"],
+                                               device)
+    return init_params(case["cfg"], torch.Generator(
+        device=device).manual_seed(case["seed"]), device)
+
+
+def elastic_shardings(cfg, mesh):
+    """The ``restore(shardings=)`` tree of a training state on ``mesh``:
+    ``param_shardings`` and ``opt_state_shardings`` paired with it."""
+    from repro_torch.parallel import sharding as shd
+    psh = shd.param_shardings(cfg, mesh)
+    return shd.named_shardings(mesh, {
+        "params": psh,
+        "opt": shd.opt_state_shardings(psh, {"step": None}, mesh)})
+
+
+def restored_equals_files(state, shardings, vdir: Path) -> int:
+    """Every restored leaf is a DTensor placed as its sharding says, and
+    gathered (every rank takes part) equals its file bit for bit (checked
+    on global rank 0). Returns the leaves checked; raises otherwise."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.manager import _to_host
+    meta = json.loads((vdir / "MANIFEST.json").read_text())
+    flat, flat_sh = flatten(state), flatten(shardings)
+    if sorted(flat) != meta["leaves"]:
+        raise AssertionError("restored leaves differ from the manifest")
+    for name, x in flat.items():
+        if not isinstance(x, DTensor) or \
+                tuple(x.placements) != flat_sh[name].placements:
+            raise AssertionError(f"restored {name}: {type(x).__name__} "
+                                 f"{getattr(x, 'placements', None)}")
+        arr, dtype = _to_host(x)            # gathered, as a save gathers
+        if dist.get_rank() == 0:
+            want = np.load(vdir / (name.replace("/", "__") + ".npy"))
+            if dtype != meta["dtypes"][name] or want.dtype != arr.dtype \
+                    or not np.array_equal(want, arr):
+                raise AssertionError(f"restored {name} differs from its "
+                                     f"file")
+    return len(flat)
+
+
+def _elastic_case(mesh, case, root: str, first: bool, device):
+    """One case of one world on this rank (see ``elastic_world``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.constraints import activation_mesh
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 make_train_step,
+                                                 value_and_grad)
+    cfg, on_card = case["cfg"], torch.device(device).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = CheckpointManager(str(Path(root) / case["name"]))
+    rec = {"rank": dist.get_rank(), "restore_s": 0.0, "restored": 0}
+    t0 = time.perf_counter()
+    if first:
+        specs = flatten(shd.param_shardings(cfg, mesh))
+        params = unflatten({
+            k: distribute_tensor(v, mesh, shd.placements(specs[k], mesh),
+                                 src_data_rank=None)
+            for k, v in flatten(_elastic_params(case, device)).items()})
+        opt = init_opt_state(params)
+        start = 0
+    else:
+        sh = elastic_shardings(cfg, mesh)
+        start, state, _ = ckpt.restore(shardings=sh)
+        _sync(device)
+        rec["restore_s"] = time.perf_counter() - t0
+        rec["restored"] = restored_equals_files(
+            state, sh, ckpt.dir / f"step_{start:012d}")
+        params, opt = state["params"], state["opt"]
+        del state
+    rec["start"], rec["setup_s"] = start, time.perf_counter() - t0
+    n = ELASTIC_STEPS[0 if first else 1]
+    data = _elastic_data(case, start)
+    batches = [{k: distribute_tensor(
+        torch.as_tensor(v).to(device), mesh, shd.placements(
+            shd.batch_sharding(mesh, v.shape), mesh), src_data_rank=None)
+        for k, v in next(data).items()} for _ in range(n)]
+    data.close()
+    step_fn = make_train_step(cfg, TrainConfig())
+    losses, norms, ms = [], [], []
+    # the backward on this rank's thread: its launches are this thread's
+    with activation_mesh(mesh), implicit_replication(), \
+            torch.autograd.set_multithreading_enabled(False):
+        if case["held"]:        # the gradient at the world's start, saved
+            _, grads = value_and_grad(params, batches[0], cfg)
+            CheckpointManager(str(Path(root) / f"{case['name']}_grads"),
+                              async_save=False).save(start, grads)
+            del grads
+        before = dict(_build.thread_launches())
+        with HeldTraining() as held:
+            for i, batch in enumerate(batches):
+                held.armed = on_card and i == n - 1
+                _sync(device)
+                t1 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, batch)
+                losses.append(float(m["loss"].full_tensor()))
+                ms.append((time.perf_counter() - t1) * 1e3)
+                norms.append(float(m["grad_norm"].full_tensor()))
+            rec["held"] = held.check(f"{case['name']} rank "
+                                     f"{rec['rank']}") if on_card else {}
+            rec["shapes"] = dict(held.shapes)
+    rec["launches"] = {k: v - before.get(k, 0)
+                       for k, v in _build.thread_launches().items()
+                       if v != before.get(k, 0)}
+    rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if on_card else 0.0)
+    rec.update(losses=losses, grad_norms=norms, step_ms=ms)
+    t1 = time.perf_counter()
+    if first or case["held"]:
+        ckpt.save(start + n, {"params": params, "opt": opt})
+        ckpt.wait()
+    rec["save_s"] = time.perf_counter() - t1
+    return rec
+
+
+def elastic_world(mesh, cases, root: str, first: bool, device="cuda"):
+    """One world of phase 18 on each rank of ``mesh``, case by case. The
+    first world places each case's weights by ``param_shardings`` (every
+    rank makes the same; none is sent), takes ELASTIC_STEPS[0] AdamW
+    steps under ``activation_mesh`` and ``implicit_replication`` and
+    saves through ``CheckpointManager`` (every rank gathers, rank 0
+    writes); the restart restores with ``shardings=`` onto its mesh,
+    holds the restored state (gathered) to the files bit for bit, and
+    takes ELASTIC_STEPS[1] steps (saving them where the case is held
+    against an unsharded run). The last step's flash forward and
+    backward launches are held against the plain versions on the card.
+    Returns this rank's record per case."""
+    out = {}
+    for case in cases:
+        out[case["name"]] = _elastic_case(mesh, case, root, first, device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def unsharded_steps(case, device):
+    """The case's ``sum(ELASTIC_STEPS)`` steps on plain tensors on one
+    device: the losses, and for a held case the parameters after each
+    world's last step and each element's gradient at the first step that
+    gave it a nonzero one (``value_and_grad`` at that step's parameters
+    and batch; 0 where none did), numpy by leaf name."""
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 make_train_step,
+                                                 value_and_grad)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = case["cfg"]
+    params = _elastic_params(case, device)
+    opt = init_opt_state(params)
+    step_fn = make_train_step(cfg, TrainConfig())
+    data = _elastic_data(case, 0)
+    losses, after, first = [], {}, None
+    for i in range(sum(ELASTIC_STEPS)):
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in next(data).items()}
+        if case["held"]:
+            grads = flatten(value_and_grad(params, batch, cfg)[1])
+            if first is None:
+                first = {k: torch.zeros_like(g) for k, g in grads.items()}
+            for k, g in grads.items():
+                first[k] = torch.where(first[k] == 0, g, first[k])
+            del grads
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        if case["held"] and i + 1 in (ELASTIC_STEPS[0], sum(ELASTIC_STEPS)):
+            after[i + 1] = {k: v.float().cpu().numpy()
+                            for k, v in flatten(params).items()}
+    data.close()
+    return {"losses": losses, "params": after,
+            "first_grads": {k: v.float().cpu().numpy()
+                            for k, v in (first or {}).items()}}
+
+
+def worst_leaf(got: dict, want: dict):
+    """(largest |got - want| / max |want| over the leaves, its leaf)."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        rel = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        worst = max(worst, (rel, k))
+    return worst
+
+
+def param_agreement(got: dict, want: dict, steps: int, first_grads: dict,
+                    gap: dict, tol: float = None) -> dict:
+    """Parameters of a sharded run against the unsharded run's after
+    ``steps`` AdamW steps. AdamW's first update of an element is ~lr x
+    sign(gradient) whatever the gradient's size, so where a gradient
+    sits at the two runs' difference the runs step opposite ways.
+    Returns the worst leaf (largest |got - want| over the leaf's largest
+    magnitude), per leaf the elements past ``tol`` (with the leaf's
+    size) and the largest difference of them in units of lr x steps; and
+    a second reading: the elements whose unsharded gradient at their
+    first nonzero update (``first_grads``) lies below the leaf's gap
+    between sharded and unsharded gradients at equal parameters
+    (``gap``, absolute), per leaf how many and how many of them are past
+    ``tol``, and the worst leaf over every other element."""
+    from repro_torch.training.optimizer import AdamWConfig
+    tol = ELASTIC_TOL if tol is None else tol
+    unit = AdamWConfig().lr * steps
+    worst, held, beyond, noisy, reach = (0.0, ""), (0.0, ""), {}, {}, 0.0
+    for k, w in want.items():
+        d = np.abs(np.asarray(got[k], np.float64) - w)
+        top = max(float(np.abs(w).max()), 1e-30)
+        worst = max(worst, (float(d.max()) / top, k))
+        past = d > tol * top
+        if past.any():
+            beyond[k] = (int(past.sum()), w.size)
+            reach = max(reach, float(d.max()) / unit)
+        g = np.abs(first_grads[k])
+        noise = (g > 0) & (g <= gap[k])
+        held = max(held, (float(d[~noise].max(initial=0.0)) / top, k))
+        if noise.any():
+            noisy[k] = (int(noise.sum()), int((past & noise).sum()))
+    return {"worst": worst, "beyond": beyond, "reach": reach,
+            "below_gap": noisy, "worst_above_gap": held}
+
+
+def start_gradients(case, root: str, device):
+    """Each world's gradient at its start (saved by the world from its
+    DTensors, gathered) against ``value_and_grad`` on plain tensors at the
+    same parameters (the seeded ones; the first world's checkpoint) and
+    batch: [(start step, worst leaf)], and per leaf the largest
+    |sharded - unsharded| over both starts."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.training.train_loop import value_and_grad
+    out, gap = [], {}
+    for start in (0, ELASTIC_STEPS[0]):
+        if start == 0:
+            params = _elastic_params(case, device)
+        else:
+            params = CheckpointManager(str(Path(root) / case["name"])
+                                       ).restore(start, device=device)[1][
+                                           "params"]
+        data = _elastic_data(case, start)
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in next(data).items()}
+        data.close()
+        _, grads = value_and_grad(params, batch, case["cfg"])
+        want = {k: v.float().cpu().numpy() for k, v in flatten(grads).items()}
+        del params, grads
+        got = {k: v.float().numpy() for k, v in flatten(
+            CheckpointManager(str(Path(root) / f"{case['name']}_grads")
+                              ).restore(start, device="cpu")[1]).items()}
+        out.append((start, worst_leaf(got, want)))
+        for k, w in want.items():
+            gap[k] = max(gap.get(k, 0.0), float(np.abs(
+                got[k].astype(np.float64) - w).max()))
+    return out, gap
+
+
+def saved_params(root: str, name: str, step: int) -> dict:
+    """A case's saved parameters at ``step`` (numpy float32, by leaf)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    _, state, _ = CheckpointManager(str(Path(root) / name)).restore(
+        step, device="cpu")
+    return {k: v.float().numpy() for k, v in flatten(state["params"]).items()}
+
+
+def elastic_launcher(n: int, device="cuda"):
+    """(launch, substrate) for a world of n ranks: one process a card over
+    NCCL where the cards suffice (``spawn_ranks``), else n thread ranks
+    sharing card 0 (``thread_ranks``); on the CPU, processes over gloo.
+    Both take ``(fn, n, device, timeout=, mesh=)``."""
+    from benchmarks_torch.common import spawn_ranks
+    on_card = torch.device(device).type == "cuda"
+    if not on_card:
+        return spawn_ranks, f"{n} processes over gloo"
+    if torch.cuda.device_count() >= n:
+        return spawn_ranks, f"{n} processes over nccl, one a card"
+
+    def threads(fn, n, device, timeout, mesh):
+        return thread_ranks(fn, n, timeout, device, mesh=mesh)
+    return threads, (f"{n} thread ranks over the threaded process group "
+                     f"on one card")
+
+
+def elastic_restart(cases, device="cuda", timeout=None):
+    """Both worlds of phase 18 (the first on ELASTIC_MESH, the restart on
+    ``plan_remesh``'s mesh for ELASTIC_SURVIVORS ranks), each launched by
+    ``elastic_launcher``; each case's unsharded run on this process's
+    device first (a bf16 run's losses printed beside, not held: bf16
+    rounds each order differently). Returns the plan, each world's
+    substrate, ranks' records and peak GiB (the launching process's,
+    where the ranks are its threads), the unsharded runs, each held
+    case's comparison and the seconds each part took."""
+    from repro_torch.ft.monitor import plan_remesh
+    timeout = timeout or ELASTIC_TIMEOUT
+    on_card = torch.device(device).type == "cuda"
+    plan = plan_remesh(ELASTIC_SURVIVORS, model_parallel=2)
+    worlds = (("first", ELASTIC_RANKS, ELASTIC_MESH),
+              ("second", plan.devices,
+               ((plan.data, plan.model), ELASTIC_MESH[1])))
+    secs, want, out = {}, {}, {"plan": plan}
+    t0 = time.perf_counter()
+    for case in cases:
+        want[case["name"]] = unsharded_steps(case, device)
+        if on_card:
+            torch.cuda.empty_cache()
+    secs["unsharded"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        for name, n, mesh in worlds:
+            launch, out[f"{name}_substrate"] = elastic_launcher(n, device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[name] = launch(functools.partial(
+                elastic_world, cases=cases, root=root,
+                first=name == "first", device=device), n, device,
+                timeout=timeout, mesh=mesh)
+            secs[name] = time.perf_counter() - t0
+            out[f"{name}_mesh"] = mesh[0]
+            out[f"{name}_process_peak_gib"] = (
+                torch.cuda.max_memory_allocated() / 2 ** 30
+                if on_card else 0.0)
+        held = {}
+        for case in cases:
+            name, w = case["name"], want[case["name"]]
+            if not case["held"]:
+                continue
+            losses = out["first"][0][name]["losses"] + \
+                out["second"][0][name]["losses"]
+            grads, gap = start_gradients(case, root, device)
+            held[name] = {
+                "losses": losses,
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                                zip(losses, w["losses"])),
+                "grads": grads,
+                "params": [param_agreement(saved_params(root, name, s),
+                                           w["params"][s], s,
+                                           w["first_grads"], gap)
+                           for s in sorted(w["params"])]}
+    out.update(want=want, held=held, seconds=secs)
+    return out
+
+
+def elastic_checks(cases, r, on_card=True):
+    """Phase 18's checks on ``elastic_restart``'s result: every rank of
+    each world took its steps with one loss list per world, launched
+    rows 5 and 5b exactly as many times as its layers and steps need,
+    all on the tensor-core route of the case's dtype (never the CUDA
+    cores), on local shards of the expected shape (KV heads split where
+    they divide ``model``); the restart restored every leaf bit-equal;
+    the held cases' losses and saved parameters within ELASTIC_TOL of
+    the unsharded run. Returns the launches summed over every rank of
+    both worlds."""
+    total = collections.Counter()
+    for world, mesh in (("first", r["first_mesh"]),
+                        ("second", r["second_mesh"])):
+        steps = ELASTIC_STEPS[0 if world == "first" else 1]
+        for case in cases:
+            cfg, name = case["cfg"], case["name"]
+            recs = [rank[name] for rank in r[world]]
+            if len({tuple(x["losses"]) for x in recs}) != 1 or \
+                    not all(np.isfinite(recs[0]["losses"])):
+                raise AssertionError(f"{name} {world}: losses "
+                                     f"{[x['losses'] for x in recs]}")
+            if world == "second" and any(
+                    x["restored"] != recs[0]["restored"] or not x[
+                        "restored"] for x in recs):
+                raise AssertionError(f"{name}: restored leaves "
+                                     f"{[x['restored'] for x in recs]}")
+            route = "wgmma" if cfg.dtype == "bfloat16" else "tf32x3"
+            layers = attention_layers(cfg)[0]
+            want = {"flash_attention_causal": steps * grad_flash_launches(
+                        cfg),
+                    "flash_attention_causal_bwd": steps * layers}
+            for op in list(want):
+                want[f"{op}/{route}"] = want[op]
+            want.update({f"flash_attention_causal_bwd/{k}": steps * layers
+                         for k in flash_mod.BWD_KERNELS})
+            kvh = cfg.num_kv_heads
+            tp = mesh[1] if kvh % mesh[1] == 0 else 1
+            local = (case["batch"] // mesh[0], case["seq"], kvh // tp,
+                     cfg.num_heads // kvh, cfg.head_dim)
+            for x in recs:
+                if on_card and x["launches"] != want:
+                    raise AssertionError(f"{name} {world} rank {x['rank']}"
+                                         f": launches {x['launches']}, "
+                                         f"expected {want}")
+                if on_card and set(x["shapes"]) != {local}:
+                    raise AssertionError(f"{name} {world} rank {x['rank']}"
+                                         f": local q shapes {x['shapes']}"
+                                         f", expected {local}")
+                total.update(x["launches"])
+    for name, h in r["held"].items():
+        grads = max(w for _, w in h["grads"])
+        if h["loss_rel"] > ELASTIC_TOL or grads[0] > ELASTIC_TOL:
+            raise AssertionError(f"{name}: sharded against unsharded loss "
+                                 f"{h['loss_rel']:.3g}, gradients at each "
+                                 f"world's start {h['grads']}; limit "
+                                 f"{ELASTIC_TOL}")
+        for p in h["params"]:
+            flips = all(n <= ADAM_FLIPS * size
+                        for n, size in p["beyond"].values())
+            if not flips or p["reach"] > ADAM_REACH:
+                raise AssertionError(f"{name}: parameters {p}: past "
+                                     f"{ELASTIC_TOL} beyond isolated AdamW "
+                                     f"sign flips")
+    return dict(total)
+
+
+def elastic_phase(device="cuda"):
+    """Phase 18 (see the module doc). Returns rows 5 and 5b's launches,
+    summed over every rank of both worlds."""
+    t0 = time.perf_counter()
+    cases = elastic_cases()
+    r = elastic_restart(cases, device)
+    total = elastic_checks(cases, r,
+                           on_card=torch.device(device).type == "cuda")
+    smi = nvidia_smi()
+    plan = r["plan"]
+    log(f"elastic restart: first world {r['first_substrate']} on a "
+        f"{r['first_mesh']} (data, model) mesh, {ELASTIC_STEPS[0]} steps, "
+        f"a save; plan_remesh({ELASTIC_SURVIVORS}, model_parallel=2) = "
+        f"(data {plan.data}, model {plan.model}): restart "
+        f"{r['second_substrate']} on {r['second_mesh']}, restore with "
+        f"shardings=, {ELASTIC_STEPS[1]} steps; {smi}")
+    for case in cases:
+        name, cfg = case["name"], case["cfg"]
+        for world in ("first", "second"):
+            recs = [rank[name] for rank in r[world]]
+            x = recs[0]
+            ms = [[round(t, 1) for t in y["step_ms"]] for y in recs]
+            if world == "first" and not case["held"]:
+                log(f"elastic {name}: the same {sum(ELASTIC_STEPS)} steps "
+                    f"unsharded on one card: losses "
+                    f"{[round(v, 6) for v in r['want'][name]['losses']]} "
+                    f"(not held: bf16 rounds each order differently)")
+            log(f"elastic {name} ({cfg.num_layers} layers, d_model "
+                f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} "
+                f"heads, Dh {cfg.head_dim}, {cfg.dtype}, remat "
+                f"{cfg.remat}, B={case['batch']} S={case['seq']}) {world} "
+                f"world on {r[world + '_mesh']}: losses "
+                f"{[round(v, 6) for v in x['losses']]}, grad norms "
+                f"{[round(v, 4) for v in x['grad_norms']]}; step ms per "
+                f"rank {ms}; peak GiB per rank "
+                f"{[round(y['peak_gib'], 3) for y in recs]} (the launching "
+                f"process {r[world + '_process_peak_gib']:.3f}); launches "
+                f"per rank {x['launches']}; local q shapes {x['shapes']}; "
+                f"held launches (rank 0) {x['held']}; setup "
+                f"{x['setup_s']:.2f} s (restore {x['restore_s']:.2f} s, "
+                f"{x['restored']} leaves bit-equal to the files), save "
+                f"{x['save_s']:.2f} s; {smi}")
+    for name, h in r["held"].items():
+        got = [round(v, 6) for v in h["losses"]]
+        want = [round(v, 6) for v in r["want"][name]["losses"]]
+        log(f"elastic {name}: sharded losses {got} against unsharded on "
+            f"one card {want}: worst {h['loss_rel']:.3g}; gradient at "
+            f"each world's start (step, worst leaf) {h['grads']} (limit "
+            f"{ELASTIC_TOL}); saved parameters after steps "
+            f"{ELASTIC_STEPS[0]} and {sum(ELASTIC_STEPS)}: "
+            f"{h['params']} (worst leaf; per leaf the elements past "
+            f"{ELASTIC_TOL} of its largest magnitude and its size; the "
+            f"largest of them in lr x steps; per leaf the elements whose "
+            f"gradient at their first nonzero update lies below the "
+            f"leaf's start-gradient gap and those of them past "
+            f"{ELASTIC_TOL}; the worst leaf over the other elements)")
+    log(f"elastic restart: launches over both worlds' ranks {total}; "
+        f"seconds { {k: round(v, 1) for k, v in r['seconds'].items()} }; "
+        f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return total
+
+
+#: the flash operators on a DTensor's local shards: q's shape
+SHARD_FLASH = {torch.float32: (4, 128, 2, 3, 16),
+               torch.bfloat16: (4, 256, 2, 3, 64)}
+
+
+def flash_on_shards(mesh, device="cuda", dtype=torch.float32):
+    """The flash operators' forward and backward on DTensors of ``mesh``
+    sharded on the batch (over its first mesh dim of size > 1), on the KV
+    heads (over its last) and, on two such dims, on both; each rank runs
+    the kernels (the plain versions on the CPU) on its local shards. The
+    gathered output and gradients are held against the plain versions on
+    the whole tensors. Returns {case: {"forward": max abs err, "dq" /
+    "dk" / "dv": max abs err over the largest magnitude, "local": the
+    local q shape}} and this rank's launches (its thread's: the backward
+    runs there)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    big = [i for i, n in enumerate(tuple(mesh.shape)) if n > 1]
+    cases = {"batch": {big[0]: Shard(0)}, "heads": {big[-1]: Shard(2)}}
+    if len(big) > 1:
+        cases["batch+heads"] = {big[0]: Shard(0), big[-1]: Shard(2)}
+    b, s, kvh, g, dh = SHARD_FLASH[dtype]
+    rng = np.random.default_rng(11)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    q, dout = draw(b, s, kvh, g, dh), draw(b, s, kvh, g, dh)
+    k, v = draw(b, s, kvh, dh), draw(b, s, kvh, dh)
+    ref = ops.flash_attention_causal_plain(q, k, v)
+    ref_grads = ops.flash_attention_causal_bwd_plain(q, k, v, ref, dout)
+    before = dict(_build.thread_launches())
+    out_errs = {}
+    for name, dims in cases.items():
+        pl = [dims.get(i, Replicate()) for i in range(mesh.ndim)]
+        leaves = [distribute_tensor(x, mesh, pl, src_data_rank=None
+                                    ).requires_grad_(True)
+                  for x in (q, k, v)]
+        out = ops.flash_attention_causal(*leaves)
+        if tuple(out.placements) != tuple(pl):
+            raise AssertionError(f"flash on {name} shards: output placed "
+                                 f"{out.placements}, inputs {pl}")
+        with torch.autograd.set_multithreading_enabled(False):
+            out.backward(distribute_tensor(dout, mesh, pl,
+                                           src_data_rank=None))
+        errs = {"forward": float((out.detach().full_tensor().float()
+                                  - ref.float()).abs().max()),
+                "local": tuple(leaves[0].to_local().shape)}
+        for gname, x, r in zip(("dq", "dk", "dv"), leaves, ref_grads):
+            errs[gname] = float((x.grad.full_tensor().float() - r.float())
+                                .abs().max() / r.float().abs().max())
+        out_errs[name] = errs
+    launches = {k: n - before.get(k, 0)
+                for k, n in _build.thread_launches().items()
+                if n != before.get(k, 0)}
+    return out_errs, launches
 
 
 def ptxas_summary(nvcc_out: str):
@@ -4102,6 +4764,12 @@ def main() -> int:
     mesh_launches = mesh_phase()
     for name in ("mvcc_resolve", "mvcc_resolve_masked"):
         rows[name]["mesh_launches"] = mesh_launches[name]
+
+    # -- the elastic restart, counted from zero per rank --------------------
+    el = elastic_phase()
+    for name in ("flash_attention_causal", "flash_attention_causal_bwd",
+                 "flash_attention_causal_bwd/tf32x3"):
+        rows[name]["elastic_launches"] = el.get(name, 0)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -339,8 +339,14 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _backward_impl(q, k, v, out, dout):
+    """The backward operator's implementation: ``_backward``, looked up at
+    each call (so a caller may wrap it, as the forward's)."""
+    return _backward(q, k, v, out, dout)
+
+
 for _key in ("CPU", "CUDA"):
-    _LIB.impl("flash_attention_causal_bwd", _backward, _key)
+    _LIB.impl("flash_attention_causal_bwd", _backward_impl, _key)
 
 
 @torch.library.register_fake("repro_torch::flash_attention_causal_bwd",

@@ -5,8 +5,10 @@ on (the port of ``repro.launch.mesh``).
 module constants), so importing this module touches no distributed
 state. Each returns a ``torch.distributed.device_mesh.DeviceMesh`` with
 the reference's shape and axis names, on the card unless the caller
-names the CPU. The mesh takes ranks 0..n-1 of the default process group;
-when none is open, a mesh opens torch's fake process group of
+names the CPU. The mesh takes ranks 0..n-1 of the default process group:
+over an open real group (gloo on the CPU, NCCL across cards) its
+collectives move data, and on the card rank r takes card r % count.
+When none is open, a mesh opens torch's fake process group of
 ``FAKE_WORLD`` ranks (this process is rank 0; collectives move nothing),
 which is what the dry run lowers a 256- or 512-card mesh over. A mesh
 needs a world at least its size: a caller with a real process group of
@@ -148,6 +150,8 @@ def device_mesh(shape, axes, device: DeviceLike = None):
     if dist.get_world_size() < n:
         raise RuntimeError(f"a {shape} mesh needs {n} ranks; the process "
                            f"group has {dist.get_world_size()}")
+    if dev.type == "cuda" and dist.get_backend() != "fake":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
 

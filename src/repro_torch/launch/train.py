@@ -6,11 +6,13 @@
 
 Runs on the card (``--device cuda``, the default; it raises without one)
 or, when asked, on the CPU (``--device cpu``). One process, one device:
-the data pipeline takes host 0 of 1 (the multi-host mesh waits for the
-port of ``repro.parallel``). Each logged step prints its loss, gradient
-norm, step time, tokens/s and, on the card, the share of the H100's bf16
-peak that ``6 N tokens / step time`` reaches (N the parameter count,
-``launch.mesh.PEAK_FLOPS_BF16``).
+the data pipeline takes host 0 of 1 and the parameters stay whole, as
+the reference's launcher runs them (it builds no mesh; a sharded step
+over a ``DeviceMesh`` is ``training.train_loop``'s step called on
+DTensors, as ``chip_smoke.py`` phase 18 drives it). Each logged step
+prints its loss, gradient norm, step time, tokens/s and, on the card,
+the share of the H100's bf16 peak that ``6 N tokens / step time``
+reaches (N the parameter count, ``launch.mesh.PEAK_FLOPS_BF16``).
 """
 from __future__ import annotations
 

@@ -178,14 +178,20 @@ def one_axis_batch(x: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]``; with sharded DTensor indices as ``index_select``
-    (whose gradient is an ``index_add``), because torch's DTensor fails
-    to place the sharded gradient of ``index``'s backward
-    (``index_put``). The same rows either way; plain or replicated
-    indices are indexed as they are (so a one-card mesh keeps the plain
-    path's gradient bits: ``index_add`` sums in another order on the
-    card)."""
-    if not any(p.is_shard() for p in getattr(idx, "placements", ())):
+    """``table[idx]``; with DTensor indices that are sharded, or whose
+    table takes a gradient on a mesh of more than one rank, as
+    ``index_select`` (whose gradient is an ``index_add``), because
+    torch's DTensor fails to place the gradient of ``index``'s backward
+    (``index_put``): with sharded indices, and (torch 2.11) with
+    replicated ones when the gradient arrives sharded on the batch, as
+    on a (1, 2) mesh. The same rows either way; plain indices, indices
+    without a gradient to place, and a one-rank mesh are indexed as they
+    are (so a one-card mesh keeps the plain path's gradient bits:
+    ``index_add`` sums in another order on the card)."""
+    placements = tuple(getattr(idx, "placements", ()))
+    if not any(p.is_shard() for p in placements) and not (
+            placements and table.requires_grad and torch.is_grad_enabled()
+            and idx.device_mesh.size() > 1):
         return table[idx]
     return torch.index_select(table, 0, idx.reshape(-1)).reshape(
         *idx.shape, table.shape[-1])

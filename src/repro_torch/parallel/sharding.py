@@ -22,9 +22,11 @@ entry per leading dim — ``None``, a mesh axis name, or a tuple of names,
 a one-name tuple held as the bare name, as ``P(*entries)`` holds it —
 and, where the reference pops trailing ``None`` entries, without them.
 Where the reference returns a ``NamedSharding`` the port returns the
-bare spec; ``placements(spec, mesh)`` (``parallel.spec``) turns one into DTensor placements
-over a ``DeviceMesh`` (anything with ``mesh_dim_names`` and ``shape``
-works for the rules: a ``DeviceMesh`` or a ``{name: size}`` mapping).
+bare spec; ``placements(spec, mesh)`` (``parallel.spec``) turns one into
+DTensor placements over a ``DeviceMesh`` (anything with
+``mesh_dim_names`` and ``shape`` works for the rules: a ``DeviceMesh`` or
+a ``{name: size}`` mapping), and ``named_shardings(mesh, specs)`` pairs
+a spec tree with its mesh, as a checkpoint restore takes it.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import unflatten
 from repro_torch.models.transformer import param_defs
 from repro_torch.parallel.spec import (  # noqa: F401
-    Spec, as_spec, mesh_shape, placements)
+    NamedSharding, Spec, as_spec, mesh_shape, named_shardings, placements)
 
 FSDP_AXES = ("pod", "data")
 

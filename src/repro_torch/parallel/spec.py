@@ -7,9 +7,16 @@ entry per leading dim — ``None``, a mesh axis name, or a tuple of names,
 a one-name tuple held as the bare name, as ``P(*entries)`` holds it.
 ``placements(spec, mesh)`` turns one into DTensor placements over a
 ``DeviceMesh``; ``mesh_shape`` reads a mesh's ``{axis name: size}``.
+
+``NamedSharding(mesh, spec)`` pairs a spec with its mesh, as the
+reference's ``jax.sharding.NamedSharding(mesh, P(...))`` does: it is
+what ``CheckpointManager.restore(shardings=)`` takes for a leaf, and
+``named_shardings(mesh, specs)`` pairs a whole spec tree (what
+``parallel.sharding`` returns) with one mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 Spec = Tuple[Any, ...]
@@ -50,3 +57,23 @@ def placements(spec: Spec, mesh) -> Tuple[Any, ...]:
             if sizes[i] > 1:
                 out[i] = Shard(dim)
     return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec over one ``DeviceMesh``; ``placements`` are its DTensor
+    placements there."""
+    mesh: Any
+    spec: Spec = ()
+
+    @property
+    def placements(self) -> Tuple[Any, ...]:
+        return placements(self.spec, self.mesh)
+
+
+def named_shardings(mesh, specs):
+    """``specs`` (a nested dict whose leaves are specs) with every leaf
+    paired with ``mesh`` as a ``NamedSharding``."""
+    if isinstance(specs, dict):
+        return {k: named_shardings(mesh, v) for k, v in specs.items()}
+    return NamedSharding(mesh, as_spec(specs))

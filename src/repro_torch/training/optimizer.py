@@ -7,6 +7,12 @@ inputs as they are. It runs under ``torch.no_grad``. Arithmetic follows
 the reference's op for op in float32 (the bias corrections as float32
 powers of the step), so the same inputs give the same bits up to the
 backend's rounding of ``sqrt`` and ``pow``.
+
+The leaves may be ``DTensor``s (a sharded step, under
+``implicit_replication``): each moment then takes its parameter's
+placements, the step is replicated on their mesh, and ``global_norm``
+sums each leaf's squares over its shards (a partial sum, reduced once
+over the mesh) before the square root.
 """
 from __future__ import annotations
 
@@ -41,13 +47,20 @@ def _leaves(tree):
 
 
 def init_opt_state(params) -> Dict[str, Any]:
-    """Zero float32 moments beside each parameter and a 0-d int32 step, on
-    the parameters' device."""
+    """Zero float32 moments beside each parameter (placed as it is, for
+    ``DTensor`` parameters) and a 0-d int32 step, on the parameters'
+    device (replicated on their mesh)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    step_device = next(_leaves(params)).device
+        return torch.zeros_like(p, dtype=torch.float32)
+    first = next(_leaves(params))
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    mesh = getattr(first, "device_mesh", None)
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
     return {"m": _map(zeros, params), "v": _map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=step_device)}
+            "step": step}
 
 
 def abstract_opt_state(params) -> Dict[str, Any]:

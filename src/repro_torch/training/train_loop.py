@@ -11,6 +11,13 @@ adds checkpoint/restart (bitwise resumable given the same data order),
 heartbeat and straggler monitoring and a history. It runs on the card
 unless the caller passes ``device="cpu"``; a step's time brackets a
 synchronisation of its loss, as the reference's ``block_until_ready``.
+
+The step takes ``DTensor``s as well: parameters, AdamW state and batch
+placed by ``parallel.sharding``'s ``param_shardings``,
+``opt_state_shardings`` and ``batch_sharding``, called under
+``parallel.constraints.activation_mesh(mesh)`` and DTensor's
+``implicit_replication()`` (together the reference's ``with mesh:``).
+Every rank of the mesh calls it with the same global batch.
 """
 from __future__ import annotations
 
@@ -64,8 +71,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             assert b % mb == 0
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
-            grads = {k: torch.zeros(v.shape, dtype=torch.float32,
-                                    device=v.device)
+            grads = {k: torch.zeros_like(v, dtype=torch.float32)
                      for k, v in layers.flatten(params).items()}
             for i in range(mb):
                 part = {k: v[i * (b // mb):(i + 1) * (b // mb)]

@@ -1159,6 +1159,42 @@ def test_flash_on_one_rank_dtensors_bit_equal(attn_cuda, one_rank_mesh,
 
 
 @pytest.mark.parametrize("dtype", ATT_DTYPES)
+def test_flash_on_real_rank_shards_takes_tensor_cores(dtype):
+    """The flash operators' forward and backward on the local shards of
+    DTensors over a (1, 2) mesh of two real ranks (threads over the
+    threaded process group, sharing this card; each runs its backward on
+    its own thread), sharded on the batch and on the KV heads
+    (``chip_smoke.flash_on_shards``): every launch of each rank takes
+    the tensor-core route of its dtype (``wgmma`` for bf16, ``tf32x3``
+    for float32), none the CUDA cores, and the gathered output and
+    gradients equal the plain versions on the whole tensors within the
+    kernels' tolerances."""
+    import functools
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    import chip_smoke
+    ranks = chip_smoke.thread_ranks(
+        functools.partial(chip_smoke.flash_on_shards, device="cuda",
+                          dtype=dtype), 2, 120, "cuda",
+        mesh=((1, 2), ("data", "model")))
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    tol = chip_smoke.ATT_TOL[("flash_attention_causal", dtype)]
+    for errs, launches in ranks:
+        n = len(errs)
+        assert n == 2
+        for op in ("flash_attention_causal", "flash_attention_causal_bwd"):
+            assert launches.get(op) == n, launches
+            assert launches.get(f"{op}/{route}") == n, launches
+            assert not launches.get(f"{op}/cuda_cores"), launches
+        for case, e in errs.items():
+            assert e["forward"] <= tol, (case, e)
+            assert max(e["dq"], e["dk"], e["dv"]) <= \
+                chip_smoke.BWD_TOL[dtype], (case, e)
+
+
+@pytest.mark.parametrize("dtype", ATT_DTYPES)
 def test_model_flash_route_gradient(attn_cuda, dtype):
     """``layers.flash_attention`` under autograd on the card: the forward
     and backward kernels launch once each, and the gradients equal the
