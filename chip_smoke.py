@@ -219,10 +219,12 @@ the JAX package. Phases, each of which must pass:
    temporary directory).
 
 14. models path: each of mamba2-370m, hymba-1.5b,
-   seamless-m4t-large-v2, llava-next-mistral-7b, deepseek-v2-lite-16b
-   (whole) and grok-1-314b (2 of 64 layers: the whole model needs 8
-   cards) at full width through ``repro_torch.models``, one at a time,
-   freed before the next. In bf16 from a seeded ``torch.Generator``:
+   seamless-m4t-large-v2, llava-next-mistral-7b, deepseek-v2-lite-16b,
+   mistral-nemo-12b, nemotron-4-15b (squared ReLU), qwen3-32b (qk-norm,
+   G = 8; ~32.8 G parameters, ~61 GiB in bf16) (whole) and grok-1-314b
+   (2 of 64 layers: the whole model needs 8 cards) at full width
+   through ``repro_torch.models``, one at a time, freed before the
+   next. In bf16 from a seeded ``torch.Generator``:
    ``loss_fn`` and 3 timed ``prefill`` runs at B=2, S=512 (llava: 2,304
    patches + 256 tokens; seamless: 512 frames + 512 tokens), then
    ``init_cache(B=2, max_len=1024)`` and 32 timed ``decode_step``s, all
@@ -238,7 +240,8 @@ the JAX package. Phases, each of which must pass:
    warm step (over 33 keys; seamless's 4,096-frame encoder cache drawn
    from a seed, here and in the replay) and in the replay is held
    against its plain version on the same card tensors at phase 3's
-   tolerances, and each bf16 shape must be one of phase 3's cases.
+   tolerances, the bf16 shapes must be exactly those the config gives
+   (``kernel_shapes``) and each one of phase 3's cases.
    Then a float32 replay (TF32
    off; every flash launch on the ``tf32x3`` route) at 2 layers (grok 1;
    the encoder cut alike): the last logits of
@@ -315,17 +318,29 @@ the JAX package. Phases, each of which must pass:
    ``YCSB_HIGH_10RMW``: 1,000,000 records, 8 words, batches of 1,024
    zipfian (theta = 0.9) 10-RMW transactions, spill tier on; 5 batches,
    a pin after batch 2, a pinned ``snapshot_read`` of 1,024 zipfian
-   records and one ``gc_sweep``. With one card the 4 ranks are threads
-   over torch's threaded process group on it; with two or more, one
-   process a card over NCCL (n = min(4, cards)). The phase prints its
-   substrate. Each rank plans its records, holds and commits its
-   quarter of the version store and resolves through rows 1-2 in their
-   in-place forms (each rank's own launches count), and holds them
-   against their plain versions on its own shard; the reads, found
-   flags, pinned values and every store array (gathered) must equal the
-   logical engine's of the same 4 shards on the same stream, byte for
-   byte. Prints the mesh and logical batch medians and the phase's
-   seconds beside the card's name and power limit.
+   records and one ``gc_sweep`` — on three storage substrates
+   (``mesh_substrates``): the dense defaults; the paged path's own
+   settings (``PAGED``: adaptive K to 16, 2M pages of 2 slots a shard);
+   and the adaptive-K settings of ``tests/test_torch_mesh_engine.py``
+   scaled to 1M records (K 4 to 8, 4 pages and one 16-slot spill bucket
+   a record of a shard). With adaptive K the pin is then released and 3
+   batches each end in a sweep (the policy's hysteresis). With one card
+   the 4 ranks are threads over torch's threaded process group on it;
+   with two or more, one process a card over NCCL (n = min(4, cards)).
+   The phase prints its substrate. Each rank plans its records, holds
+   and commits its quarter of the version store and resolves through
+   the primary's row (1 dense, 3 paged: the rank's own page table read
+   in place) and row 2 in their in-place forms (each rank's own
+   launches count; no windows form, not the other primary's row), and
+   holds both bit for bit against their plain versions on its own
+   shard; with adaptive K the policy must have granted slots to every
+   rank's records. The reads, found flags, pinned values, every sweep's
+   count, ``k_by_record``, storage and spill stats, the engine's scalar
+   counters and every store array (gathered; the page table included)
+   must equal the logical engine's of the same 4 shards on the same
+   stream, byte for byte. Prints each substrate's batch ms per rank
+   beside the logical engine's and the phase's seconds beside the
+   card's name and power limit.
 
 18. the elastic restart: a first world of 4 ranks on a (2, 2) ("data",
    "model") ``DeviceMesh`` (``launch.mesh.device_mesh``) takes 3 AdamW
@@ -354,6 +369,16 @@ the JAX package. Phases, each of which must pass:
    cannot resolve where a gradient sits at the runs' difference); the
    elements whose gradient at their first nonzero update lies below the
    sharded-unsharded start-gradient gap are counted and printed beside.
+   The two float32 cases run again as the control replay
+   (``f64_embed_grad``): the ``embed`` lookup's gradient summed in
+   float64 over the whole batch in the sharded and the unsharded run
+   alike, held as the default replay is. Step 1's gradient of the four
+   runs (sharded or not, default or control) is then held against a
+   float64 recomputation on the CPU (``embed_arbiter``, the model in
+   float64 under ``float64_math``): each run's worst leaf within 1e-5
+   and at most 1e-5 of ``embed``'s nonzero elements of another sign
+   (``check_arbiter``), so that a wrong sharded gradient fails however
+   close the unsharded one is.
    Every rank must launch rows 5
    and 5b exactly as its layers and steps need, all on the tensor-core
    route of the dtype (none on the CUDA cores), on local shards of the
@@ -1162,8 +1187,11 @@ DECODE_CASES = [((1, 1, 1, 64, 64), "tests"), ((3, 2, 4, 64, 257), "tests"),
                 # over 4,096 frames
                 ((2, 16, 1, 64, 1024), "models"),
                 ((2, 16, 1, 64, 4096), "models"),
-                ((2, 8, 4, 128, 1024), "models"),        # llava
-                ((2, 8, 6, 128, 1024), "models")]        # grok
+                # llava and mistral-nemo
+                ((2, 8, 4, 128, 1024), "models"),
+                ((2, 8, 6, 128, 1024), "models"),        # grok, nemotron
+                # qwen3-32b, G = 8: the two-pass merge (G > 4)
+                ((2, 8, 8, 128, 1024), "models")]
 FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
                ((1, 512, 4, 2, 128), "tests"), ((2, 128, 2, 1, 64), "tests"),
                ((1, 128, 5, 3, 64), "serving"),
@@ -1180,7 +1208,9 @@ FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
                ((2, 512, 16, 1, 192), "models"),
                # its rows at deepseek's training length
                ((1, 2048, 16, 1, 192), "models"),
-               ((2, 512, 8, 6, 128), "models")]          # grok
+               ((2, 512, 8, 6, 128), "models"),          # grok, nemotron
+               ((2, 512, 8, 4, 128), "models"),          # mistral-nemo
+               ((2, 512, 8, 8, 128), "models")]          # qwen3, G = 8
 # a flash case whose float32 views phase 3 also passes 4 bytes off
 # 16-byte alignment (the CUDA-core kernel takes them)
 UNALIGNED_CASE = (1, 512, 5, 3, 64)
@@ -1471,7 +1501,9 @@ BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
              ((1, 300, 5, 3, 64), "unaligned"),
              ((2, 512, 5, 5, 64), "models"),           # hymba's globals
              ((2, 512, 8, 6, 128), "models"),          # grok, G = 6
-             ((2, 512, 8, 4, 128), "models"),          # llava's heads
+             # llava's and mistral-nemo's heads
+             ((2, 512, 8, 4, 128), "models"),
+             ((2, 512, 8, 8, 128), "models"),          # qwen3, G = 8
              ((2, 512, 16, 1, 192), "models"),         # MLA, Dh = 192
              ((8, 2048, 5, 3, 64), "training"),
              ((2, 2048, 16, 1, 192), "training")]      # MLA's step
@@ -2675,11 +2707,14 @@ def suites_phase(device="cuda"):
 # the models path: every family's loss, prefill and decode step (phase 14)
 # ---------------------------------------------------------------------------
 # (architecture, depth cut or None): each at full width, whole but grok,
-# whose 64 layers (~628 GB in bf16) need 8 cards
+# whose 64 layers (~628 GB in bf16) need 8 cards; qwen3-32b's ~32.8 G
+# parameters take ~61 GiB in bf16, so it runs last of the whole ones
 MODEL_ARCHS = (("mamba2-370m", None), ("hymba-1.5b", None),
                ("seamless-m4t-large-v2", None),
                ("llava-next-mistral-7b", None),
-               ("deepseek-v2-lite-16b", None), ("grok-1-314b", 2))
+               ("deepseek-v2-lite-16b", None),
+               ("mistral-nemo-12b", None), ("nemotron-4-15b", None),
+               ("qwen3-32b", None), ("grok-1-314b", 2))
 MODEL_B, MODEL_S, MODEL_MAX_LEN, MODEL_STEPS, MODEL_PREFILLS = \
     2, 512, 1024, 32, 3
 # the float32 replay: 2 layers (grok 1: one float32 layer of its experts
@@ -2808,6 +2843,36 @@ class HeldCalls:
         return errs
 
 
+def kernel_shapes(cfg):
+    """The (name, shape) pairs of rows 4 and 5 that ``model_bf16`` gives
+    the kernels, from ``cfg`` alone: flash q [B, S, KvH, G, Dh] of every
+    causal unwindowed self-attention (llava's S is its patches and half
+    the text; MLA's heads are 16 of G = 1 at Dh = nope + rope), and
+    decode [B, KvH, G, Dh, T] over the MODEL_MAX_LEN self cache (hymba's
+    windowed rings hold min(window, MODEL_MAX_LEN)) and, for enc-dec,
+    the ENC_LEN_AT_DECODE cross cache."""
+    n_flash, n_decode, _ = attention_layers(cfg)
+    if cfg.attention == "mla":
+        kvh, g = cfg.num_heads, 1
+        dh = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    else:
+        kvh = cfg.num_kv_heads
+        g, dh = cfg.num_heads // max(kvh, 1), cfg.head_dim
+    s = MODEL_S // 2 + cfg.num_patches if cfg.frontend == "patches" \
+        else MODEL_S
+    out = set()
+    if n_flash:
+        out.add(("flash_attention_causal", (MODEL_B, s, kvh, g, dh)))
+    if n_decode:
+        ts = {MODEL_MAX_LEN}
+        if cfg.window:
+            ts.add(min(cfg.window, MODEL_MAX_LEN))
+        if cfg.enc_dec:
+            ts.add(models_tf.ENC_LEN_AT_DECODE)
+        out |= {("decode_attention", (MODEL_B, kvh, g, dh, t)) for t in ts}
+    return out
+
+
 def phase3_shapes():
     """The (name, shape) pairs phase 3 holds in both dtypes."""
     return {("decode_attention", c) for c, _ in DECODE_CASES} | \
@@ -2895,6 +2960,10 @@ def model_bf16(name: str, depth, device="cuda"):
     if missing:
         raise AssertionError(f"{name}: kernel shapes phase 3 does not "
                              f"hold: {sorted(missing)}")
+    if on_card and held.shapes != kernel_shapes(cfg):
+        raise AssertionError(f"{name}: kernel shapes {sorted(held.shapes)}"
+                             f", from the config "
+                             f"{sorted(kernel_shapes(cfg))}")
     held_errs = held.check(f"{name} bf16")
     if joins.hot_syncs:
         raise AssertionError(f"{name}: {joins.hot_syncs} synchronising "
@@ -3143,6 +3212,68 @@ class HeldTraining:
                                      f"by {rel:.3g} of its largest magnitude")
             errs[name] = rel
         return errs
+
+
+#: phase 18's control replay on this thread: the ``embed`` lookup's
+#: gradient summed in float64 (``f64_embed_grad``)
+_F64_EMBED = threading.local()
+
+
+class _F64Rows(torch.autograd.Function):
+    """``row_gather(table, idx)`` whose table gradient is the float64 sum
+    of the upstream gradient over the whole batch, cast once to the
+    table's dtype: on DTensors the upstream gradient and the indices are
+    gathered whole (their partial sums reduced) and every rank sums all
+    of them, so a sharded run and an unsharded one sum the same terms in
+    float64 (``index_put_`` with ``accumulate``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, gather):
+        ctx.save_for_backward(idx)
+        ctx.table = (tuple(table.shape), table.dtype,
+                     getattr(table, "device_mesh", None),
+                     tuple(getattr(table, "placements", ())))
+        return gather(table, idx)       # grad off here: the same rows
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import distribute_tensor
+        idx, = ctx.saved_tensors
+        shape, dtype, mesh, placements = ctx.table
+        if mesh is not None:
+            grad, idx = grad.full_tensor(), idx.full_tensor()
+        rows, dx = idx.reshape(-1).long(), grad.reshape(-1, shape[-1])
+        g = torch.zeros(shape, dtype=torch.float64, device=dx.device)
+        g = g.index_put_((rows,), dx.double(), accumulate=True).to(dtype)
+        if mesh is not None:
+            g = distribute_tensor(g, mesh, placements, src_data_rank=None)
+        return g, None, None
+
+
+def _f64_rows(gather, table, idx):
+    if getattr(_F64_EMBED, "on", False) and table.requires_grad and \
+            torch.is_grad_enabled():
+        return _F64Rows.apply(table, idx, gather)
+    return gather(table, idx)
+
+
+@contextlib.contextmanager
+def f64_embed_grad(on: bool = True):
+    """While open on this thread (and ``on``), the models' ``embed``
+    lookup (``transformer.row_gather``) takes ``_F64Rows``: its table
+    gradient is summed in float64 over the whole batch. The first use
+    wraps the lookup for good; the wrapper is the lookup itself on a
+    thread with none open."""
+    with _HELD_LOCK:
+        if getattr(models_tf.row_gather, "func", None) is not _f64_rows:
+            models_tf.row_gather = functools.partial(_f64_rows,
+                                                     models_tf.row_gather)
+    saved = getattr(_F64_EMBED, "on", False)
+    _F64_EMBED.on = on
+    try:
+        yield
+    finally:
+        _F64_EMBED.on = saved
 
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -3694,43 +3825,92 @@ def roofline_phase(step_ms: float, device="cuda"):
 # ---------------------------------------------------------------------------
 MESH_RANKS, MESH_BATCHES, MESH_PIN_AFTER, MESH_READS = 4, 5, 2, 1024
 MESH_TIMEOUT = 300
+#: adaptive K: batches after the pin's release, each followed by a
+#: ``gc_sweep`` (the policy's hysteresis donates a record only once it
+#: was idle at two sweeps), as ``tests/test_torch_mesh_engine.py`` runs
+MESH_POLICY_BATCHES = 3
+MESH_NAMES = ("mvcc_resolve/rows", "mvcc_resolve/windows",
+              "mvcc_resolve_masked/rows", "mvcc_resolve_masked/windows",
+              "mvcc_resolve_paged/rows", "mvcc_resolve_paged/windows")
 
 
-def mesh_stream(mesh, n: int, device="cuda", seed=0, R=None):
-    """Phase 17's stream on ``BohmEngine(mesh=mesh)`` (``None``: the
-    logical engine of ``n`` shards): 5 batches, a pin after batch 2, a
-    pinned ``snapshot_read`` of 1,024 zipfian records, one ``gc_sweep``.
-    On a mesh every rank runs it; rows 1-2 are then held against their
-    plain versions on the rank's own shard, and every rank's launches
-    (its own thread's) gather to all. Returns host copies (the store
-    only on rank 0 of a mesh)."""
+def mesh_substrates(n: int, R: int = YCSB_HIGH_10RMW.num_records) -> dict:
+    """Phase 17's storage settings over ``n`` shards: the engine's dense
+    defaults; the paged path's own (``PAGED``, phase 6's, with its 2M
+    pages a shard: 160 MB of slab a shard, memory that does not force a
+    change); and the adaptive-K settings of
+    ``tests/test_torch_mesh_engine.py`` (``ADAPTIVE``: 64 records over 4
+    shards, 4 pages and one 16-slot spill bucket a record of a shard)
+    scaled to ``R`` records (the paged slab too, below 1M records: a
+    CPU rehearsal)."""
+    per_shard = -(-R // n)
+    full = YCSB_HIGH_10RMW.num_records
+    return {"dense": {},
+            "paged": dict(PAGED, pages_per_shard=PAGED["pages_per_shard"]
+                          * R // full),
+            "adaptive": dict(ring_slots=4, adaptive_k=True, k_max=8,
+                             paged=True, page_slots=2,
+                             pages_per_shard=4 * per_shard,
+                             spill_buckets=per_shard, spill_slots=16)}
+
+
+def mesh_stream(mesh, n: int, device="cuda", seed=0, R=None, kw=None,
+                T=None):
+    """Phase 17's stream on ``BohmEngine(mesh=mesh, **kw)`` (``None``:
+    the logical engine of ``n`` shards): 5 batches, a pin after batch 2,
+    a pinned ``snapshot_read`` of 1,024 zipfian records, one
+    ``gc_sweep``; with adaptive K the pin is then released and
+    MESH_POLICY_BATCHES batches each end in a sweep. On a mesh every
+    rank runs it; the primary's row (1, or 3 on a page slab) and row 2
+    are then held against their plain versions on the rank's own shard
+    and page table, and every rank's launches (its own thread's), the
+    slots the policy granted its records and its batch ms gather to
+    all. ``R`` records and ``T`` transactions a batch default to
+    YCSB_HIGH_10RMW's. Returns host copies (the store only on rank 0 of
+    a mesh)."""
     from repro_torch.store.sharded import all_gather, full_store, local_store
     cfg = YCSB_HIGH_10RMW
-    R = R or cfg.num_records
+    R, T = R or cfg.num_records, T or cfg.batch_size
     rng = np.random.default_rng(seed)
     eng = BohmEngine(R, make_ycsb(cfg.payload_words), mesh=mesh,
-                     n_shards=n, device=device)
+                     n_shards=n, device=device, **(kw or {}))
     start = dict(_build.thread_launches())
-    out = {"reads": [], "batch_ms": []}
-    for i in range(MESH_BATCHES):
-        batch = gen_ycsb_batch(rng, cfg.batch_size, R, theta=cfg.theta,
-                               mix=cfg.mix, device=device)
+    out = {"reads": [], "batch_ms": [], "gc": []}
+
+    def batch():
+        b = gen_ycsb_batch(rng, T, R, theta=cfg.theta,
+                           mix=cfg.mix, device=device)
         _sync(device)
         t0 = time.perf_counter()
-        reads, _ = eng.run_batch(batch)
+        reads, _ = eng.run_batch(b)
         _sync(device)
         out["batch_ms"].append((time.perf_counter() - t0) * 1e3)
         out["reads"].append(reads.cpu().numpy())
+
+    for i in range(MESH_BATCHES):
+        batch()
         if i + 1 == MESH_PIN_AFTER:
             pin = eng.begin_snapshot()
     records = gen_ycsb_batch(np.random.default_rng(seed + 1), MESH_READS,
                              R, theta=cfg.theta, ops=1,
                              device=device).read_set[:, 0].contiguous()
     vals, found = eng.snapshot_read(records, pin)
+    out.update(vals=vals.cpu().numpy(), found=found.cpu().numpy())
+    out["gc"].append(eng.gc_sweep())
+    if eng.adaptive_k:
+        eng.release_snapshot(pin)
+        for _ in range(MESH_POLICY_BATCHES):
+            batch()
+            out["gc"].append(eng.gc_sweep())
     launches = {k: v - start.get(k, 0)
                 for k, v in _build.thread_launches().items()}
-    out.update(vals=vals.cpu().numpy(), found=found.cpu().numpy(),
-               launches=launches, gc=eng.gc_sweep())
+    out["launches"] = launches
+    out["stats"] = {"storage": eng.storage_stats(),
+                    "spill": eng.spill_stats(),
+                    "counters": {k: v for k, v in eng.metrics.snapshot(
+                        include_gauges=False).items()
+                        if k.startswith("engine/") and np.ndim(v) == 0}}
+    out["k_by_record"] = eng.k_by_record().cpu().numpy()
     rank0 = mesh is None or mesh.get_local_rank() == 0
     versions = full_store(eng.store.versions)
     if rank0:
@@ -3738,15 +3918,23 @@ def mesh_stream(mesh, n: int, device="cuda", seed=0, R=None):
             eng.store, versions=versions))
     if mesh is None:
         return out
-    # rows 1-2 on this rank's own shard, beside their plain versions
+    # the primary's row and row 2 on this rank's own shard, beside their
+    # plain versions
     s, loc = mesh.get_local_rank(), local_store(eng.store.versions)
-    ring, pool = loc.rings, loc.spill
     local = torch.div(records, n, rounding_mode="floor")
     rows = local.clamp(0, loc.records_per_shard - 1).contiguous()
     ts = torch.full_like(rows, pin.ts)
-    args = (ring.begin[0], ring.end[0], ring.payload[0], ts)
-    k = ops.mvcc_resolve(*args, rows=rows)
-    p = ops.mvcc_resolve_plain(*args, rows)
+    if loc.pages is not None:
+        pg = loc.pages
+        args = (pg.page_table[0], pg.begin[0], pg.end[0], pg.payload[0], ts)
+        k = ops.mvcc_resolve_paged(*args, rows=rows)
+        p = ops.mvcc_resolve_paged_plain(*args, rows)
+    else:
+        ring = loc.rings
+        args = (ring.begin[0], ring.end[0], ring.payload[0], ts)
+        k = ops.mvcc_resolve(*args, rows=rows)
+        p = ops.mvcc_resolve_plain(*args, rows)
+    pool = loc.spill
     pool_args = (pool.begin[0], pool.end[0], pool.rec[0], local,
                  pool.payload[0], ts)
     km = ops.mvcc_resolve_masked(*pool_args, in_place=True, prior=k)
@@ -3754,12 +3942,14 @@ def mesh_stream(mesh, n: int, device="cuda", seed=0, R=None):
     err = max(int((a.long() - b.long()).abs().max()) for a, b in
               ((k[0], p[0]), (km[0], pm[0])))
     same = all(torch.equal(a, b) for a, b in zip(k + km, p + pm))
-    names = ("mvcc_resolve/rows", "mvcc_resolve/windows",
-             "mvcc_resolve_masked/rows", "mvcc_resolve_masked/windows")
-    mine = torch.tensor([launches.get(x, 0) for x in names] + [err,
-                        int(same), s], device=vals.device)
+    granted = int((loc.k_eff[0].long() - eng.ring_slots).clamp(min=0).sum())
+    held = 3 if loc.pages is not None else 1          # the primary's row
+    mine = torch.tensor([launches.get(x, 0) for x in MESH_NAMES] + [
+        err, int(same), s, granted, held], device=vals.device)
     out["ranks"] = all_gather(mine, mesh).tolist()
-    out["rank_names"] = names
+    out["rank_batch_ms"] = all_gather(torch.tensor(
+        out["batch_ms"], dtype=torch.float64, device=vals.device),
+        mesh).tolist()
     return out if rank0 else None
 
 
@@ -3827,70 +4017,121 @@ def thread_ranks(fn, n: int, timeout: float = MESH_TIMEOUT,
     return results
 
 
-def mesh_phase(device="cuda"):
-    """Phase 17: the mesh engine against the logical engine of the same
-    shards, byte for byte; returns the launches of the mesh run's path,
-    summed over its ranks (the held comparisons' launches left out)."""
-    t_phase = time.perf_counter()
-    cards = torch.cuda.device_count()
-    n = min(MESH_RANKS, cards) if cards >= 2 else MESH_RANKS
-    fn = functools.partial(mesh_stream, n=n, device=device)
-    ops.reset_launches()            # each rank also counts its own from 0
-    t0 = time.perf_counter()
-    if cards >= 2:
-        from benchmarks_torch.common import spawn_ranks
-        substrate = f"{n} processes, one a card, over NCCL"
-        got = spawn_ranks(fn, n, device, timeout=MESH_TIMEOUT)[0]
-    else:
-        substrate = f"{n} thread ranks over the threaded process group " \
-            f"on one card"
-        got = thread_ranks(fn, n)[0]
-    mesh_s = time.perf_counter() - t0
-    names = got["rank_names"]
-    for r, row in enumerate(got["ranks"]):
-        per = dict(zip(names, row[:4]))
-        if per["mvcc_resolve/rows"] <= 0 or \
-                per["mvcc_resolve_masked/rows"] <= 0 or \
-                per["mvcc_resolve/windows"] or \
-                per["mvcc_resolve_masked/windows"]:
-            raise AssertionError(f"mesh rank {r} launches {per}")
-        if row[4] != 0 or row[5] != 1:
-            raise AssertionError(f"mesh rank {r}: rows 1-2 differ from "
-                                 f"their plain versions (max abs err "
-                                 f"{row[4]})")
-    t0 = time.perf_counter()
-    want = mesh_stream(None, n, device)
-    logical_s = time.perf_counter() - t0
+def _same_mesh_run(want: dict, got: dict, what: str) -> None:
+    """A mesh run against the logical engine's, byte for byte."""
     for i, (a, b) in enumerate(zip(want["reads"], got["reads"])):
-        np.testing.assert_array_equal(a, b, err_msg=f"mesh batch {i} reads")
-    for key in ("vals", "found"):
-        np.testing.assert_array_equal(want[key], got[key], err_msg=key)
-    assert want["gc"] == got["gc"], (want["gc"], got["gc"])
+        np.testing.assert_array_equal(a, b, err_msg=f"{what} batch {i} "
+                                                    f"reads")
+    for key in ("vals", "found", "k_by_record"):
+        np.testing.assert_array_equal(want[key], got[key],
+                                      err_msg=f"{what} {key}")
+    for key in ("gc", "stats"):
+        if want[key] != got[key]:
+            raise AssertionError(f"{what} {key}: {got[key]}, logical "
+                                 f"{want[key]}")
+    if sorted(want["store"]) != sorted(got["store"]):
+        raise AssertionError(f"{what} store arrays {sorted(got['store'])}")
     for name in want["store"]:
         np.testing.assert_array_equal(want["store"][name],
                                       got["store"][name],
-                                      err_msg=f"mesh store {name}")
-    found = float(got["found"].mean())
-    log(f"mesh path: substrate {substrate}; {YCSB_HIGH_10RMW.num_records:,}"
-        f" records, {MESH_BATCHES} batches of "
-        f"{YCSB_HIGH_10RMW.batch_size}, a pinned read of {MESH_READS} "
-        f"(found {found:.4f}), gc_sweep reclaimed {got['gc']}: reads, "
-        f"found, pinned values and all {len(want['store'])} store arrays "
-        f"byte-equal to the logical {n}-shard engine")
-    log(f"mesh path: per-rank launches (resolve rows, windows, masked "
-        f"rows, windows) {[row[:4] for row in got['ranks']]}; rows 1-2 "
-        f"held against their plain versions on every rank's shard, max "
-        f"abs err {max(row[4] for row in got['ranks'])}")
-    path = {k: sum(dict(zip(names, row[:4]))[f"{k}/rows"]
-                   for row in got["ranks"])
-            for k in ("mvcc_resolve", "mvcc_resolve_masked")}
-    log(f"mesh path: batch ms mesh {[round(x, 3) for x in got['batch_ms']]}"
-        f", logical {[round(x, 3) for x in want['batch_ms']]}; median "
-        f"batch mesh {statistics.median(got['batch_ms']):.3f} ms vs "
-        f"logical {statistics.median(want['batch_ms']):.3f} ms; mesh run "
-        f"{mesh_s:.1f} s, logical {logical_s:.1f} s, phase "
-        f"{time.perf_counter() - t_phase:.1f} s; {nvidia_smi()}")
-    return path
+                                      err_msg=f"{what} store {name}")
+
+
+def mesh_checks(got: dict, kw: dict, what: str, on_card=True) -> list:
+    """Every rank of a mesh run held the primary's row (row 3 on a page
+    slab, else row 1) and row 2 bit for bit against their plain versions
+    on its own shard, had slots granted to its records where K is
+    adaptive, and on the card launched both rows in place only (none of
+    the other primary's, no windows form). Returns the per-rank rows by
+    name."""
+    paged = bool(kw.get("paged"))
+    primary = "mvcc_resolve_paged" if paged else "mvcc_resolve"
+    other = "mvcc_resolve" if paged else "mvcc_resolve_paged"
+    per = []
+    for r, row in enumerate(got["ranks"]):
+        x = dict(zip(MESH_NAMES, row[:len(MESH_NAMES)]))
+        x.update(zip(("err", "same", "rank", "granted", "held"),
+                     row[len(MESH_NAMES):]))
+        if on_card and (
+                x[f"{primary}/rows"] <= 0 or x["mvcc_resolve_masked/rows"]
+                <= 0 or x[f"{other}/rows"] or any(
+                    x[f"{k}/windows"] for k in ("mvcc_resolve",
+                                                "mvcc_resolve_masked",
+                                                "mvcc_resolve_paged"))):
+            raise AssertionError(f"{what} mesh rank {r} launches {x}")
+        if x["held"] != (3 if paged else 1) or x["err"] != 0 or \
+                x["same"] != 1 or x["rank"] != r:
+            raise AssertionError(f"{what} mesh rank {r}: {primary} and "
+                                 f"mvcc_resolve_masked differ from their "
+                                 f"plain versions on its shard ({x})")
+        if kw.get("adaptive_k") and x["granted"] <= 0:
+            raise AssertionError(f"{what} mesh rank {r}: the adaptive-K "
+                                 f"policy granted its records no slots")
+        per.append(x)
+    return per
+
+
+def mesh_phase(device="cuda"):
+    """Phase 17: the mesh engine against the logical engine of the same
+    shards, byte for byte, on each of ``mesh_substrates``; returns the
+    launches of the mesh runs' paths, summed over their ranks (the held
+    comparisons' launches left out)."""
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    n = min(MESH_RANKS, cards) if cards >= 2 else MESH_RANKS
+    if cards >= 2:
+        from benchmarks_torch.common import spawn_ranks
+        substrate = f"{n} processes, one a card, over NCCL"
+    else:
+        substrate = f"{n} thread ranks over the threaded process group " \
+            f"on one card"
+    R = YCSB_HIGH_10RMW.num_records
+    path = collections.Counter()
+    for what, kw in mesh_substrates(n, R).items():
+        fn = functools.partial(mesh_stream, n=n, device=device, kw=kw)
+        ops.reset_launches()        # each rank also counts its own from 0
+        t0 = time.perf_counter()
+        got = (spawn_ranks(fn, n, device, timeout=MESH_TIMEOUT)[0]
+               if cards >= 2 else thread_ranks(fn, n)[0])
+        mesh_s = time.perf_counter() - t0
+        per = mesh_checks(got, kw, what)
+        t0 = time.perf_counter()
+        want = mesh_stream(None, n, device, kw=kw)
+        logical_s = time.perf_counter() - t0
+        _same_mesh_run(want, got, what)
+        for x in per:
+            for name in ("mvcc_resolve", "mvcc_resolve_masked",
+                         "mvcc_resolve_paged"):
+                path[name] += x[f"{name}/rows"]
+        st = got["stats"]
+        log(f"mesh path {what} ({kw or 'the dense defaults'}): substrate "
+            f"{substrate}; {R:,} records, {len(got['batch_ms'])} batches "
+            f"of {YCSB_HIGH_10RMW.batch_size}, a pinned read of "
+            f"{MESH_READS} (found {float(got['found'].mean()):.4f}), "
+            f"gc_sweep reclaimed {got['gc']}: reads, found, pinned values, "
+            f"k_by_record, storage / spill stats, engine counters and all "
+            f"{len(want['store'])} store arrays ({sorted(want['store'])}) "
+            f"byte-equal to the logical {n}-shard engine; storage "
+            f"{st['storage']}; counters {st['counters']}")
+        launched = [{k: v for k, v in x.items() if k in MESH_NAMES and v}
+                    for x in per]
+        log(f"mesh path {what}: per-rank launches {launched}"
+            f"; the primary's row and row 2 held against their plain "
+            f"versions on every rank's shard, max abs err "
+            f"{max(x['err'] for x in per)}; slots granted to each rank's "
+            f"records {[x['granted'] for x in per]}")
+        log(f"mesh path {what}: batch ms per rank "
+            f"{[[round(t, 3) for t in r] for r in got['rank_batch_ms']]}, "
+            f"logical {[round(x, 3) for x in want['batch_ms']]}; median "
+            f"batch mesh (rank 0) {statistics.median(got['batch_ms']):.3f} "
+            f"ms vs logical {statistics.median(want['batch_ms']):.3f} ms; "
+            f"mesh run {mesh_s:.1f} s, logical {logical_s:.1f} s; "
+            f"{nvidia_smi()}")
+        del got, want
+        torch.cuda.empty_cache()
+    log(f"mesh path: phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{nvidia_smi()}")
+    return dict(path)
 
 
 # ---------------------------------------------------------------------------
@@ -3909,9 +4150,19 @@ ELASTIC_TOL = GRAD_TOL
 #: sqrt(v^) <= 1.17 at b1 0.9, b2 0.95, and two runs may step opposite
 #: ways)
 ADAM_FLIPS, ADAM_REACH = 1e-5, 0.62
+#: step 1's gradient of each run (sharded and not, with and without the
+#: control's float64 lookup) against its float64 recomputation on the
+#: CPU (``embed_arbiter``): the worst leaf (measured <= 3.98e-6 on the
+#: H100) and the ``embed`` elements of another sign, at most ADAM_FLIPS
+#: of its nonzero ones (measured 1-2 of 1,106,880)
+ARBITER_TOL = 1e-5
 
 
-def elastic_cases(reduced=None):
+#: the control replay's case names: the float32 case's, then this
+CONTROL = "_f64embed"
+
+
+def elastic_cases(reduced=None, control=True):
     """Phase 18's configurations (see the module doc): smollm-360m whole
     in bf16 (B=8, S=2,048; its 15 / 5 heads do not divide ``model`` = 2,
     so the flash kernels run on batch shards), the same at 2 layers in
@@ -3919,8 +4170,11 @@ def elastic_cases(reduced=None):
     S=256; 4 / 2 heads, so they run on head shards too). ``reduced``
     replaces the configurations (a CPU rehearsal). Each: name, config,
     batch, sequence, seed of the weights and of the data, whether it is
-    held against an unsharded run (float32) and whether the restart
-    saves its last step."""
+    held against an unsharded run (float32), its starting parameters
+    (None: seeded) and whether its ``embed`` gradient is summed in
+    float64 (``f64_embed_grad``). With ``control`` each held case comes
+    again as the control replay (its name + CONTROL), its lookup's
+    gradient summed in float64 in the sharded and the unsharded run."""
     from repro_torch.configs import reduced_config
     full = get_config(TRAIN_ARCH)
     cases = reduced or [
@@ -3930,9 +4184,13 @@ def elastic_cases(reduced=None):
                                             dtype="float32"), 4, 512),
         ("f32_reduced", dataclasses.replace(reduced_config(TRAIN_ARCH),
                                             dtype="float32"), 4, 256)]
-    return [dict(name=n, cfg=c, batch=b, seq=s, seed=18, data_seed=3,
-                 held=c.dtype == "float32", params=None)
-            for n, c, b, s in cases]
+    out = [dict(name=n, cfg=c, batch=b, seq=s, seed=18, data_seed=3,
+                held=c.dtype == "float32", params=None, f64_embed=False)
+           for n, c, b, s in cases]
+    # the control replay: each float32 case again with the embed table's
+    # gradient summed in float64 in both runs (``f64_embed_grad``)
+    return out + [dict(c, name=c["name"] + CONTROL, f64_embed=True)
+                  for c in out if c["held"] and control]
 
 
 def _elastic_data(case, skip: int):
@@ -4089,7 +4347,9 @@ def elastic_world(mesh, cases, root: str, first: bool, device="cuda"):
     Returns this rank's record per case."""
     out = {}
     for case in cases:
-        out[case["name"]] = _elastic_case(mesh, case, root, first, device)
+        with f64_embed_grad(case["f64_embed"]):
+            out[case["name"]] = _elastic_case(mesh, case, root, first,
+                                              device)
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -4211,6 +4471,99 @@ def start_gradients(case, root: str, device):
     return out, gap
 
 
+@contextlib.contextmanager
+def float64_math():
+    """While open, ``Tensor.float()`` leaves a float64 tensor as it is
+    and new tensors default to float64: a model whose parameters are
+    float64 then keeps its norms' statistics, its products, its softmax
+    and its logits in float64, where the port computes them in float32
+    (rope's angles stay float32, the same in every run). For the
+    arbiter's recomputation only, on one thread: it patches the class."""
+    orig, dtype = torch.Tensor.float, torch.get_default_dtype()
+
+    def keep64(self, *args, **kw):
+        return self if self.dtype == torch.float64 else orig(self, *args,
+                                                             **kw)
+    torch.Tensor.float = keep64
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+        torch.set_default_dtype(dtype)
+
+
+#: ``embed_arbiter``'s runs
+RUNS = ("unsharded", "unsharded_f64", "sharded", "sharded_f64")
+
+
+def embed_arbiter(case, root: str, base: str, device) -> dict:
+    """Step 1's gradient of four runs against a float64 recomputation on
+    the CPU (``value_and_grad`` of the same model in float64 under
+    ``float64_math``, at the seeded parameters and the first batch):
+    the unsharded run on this process's device by default and with the
+    lookup's float64 sum (``f64_embed_grad``), and the first world's
+    saved start gradient of the default case (``base``) and of the
+    control. Each: the ``embed`` leaf's largest difference over the
+    recomputation's largest magnitude, its elements of another sign
+    than the recomputation's (of those where it is nonzero), and the
+    worst leaf of the whole gradient."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.training.train_loop import value_and_grad
+    cfg = case["cfg"]
+    data = _elastic_data(case, 0)
+    host = next(data)
+    data.close()
+    params = _elastic_params(case, device)
+    batch = {k: torch.as_tensor(v).to(device) for k, v in host.items()}
+    runs = {}
+    for key, on in (("unsharded", False), ("unsharded_f64", True)):
+        with f64_embed_grad(on):
+            runs[key] = {k: v.float().cpu().numpy() for k, v in flatten(
+                value_and_grad(params, batch, cfg)[1]).items()}
+    p64 = unflatten({k: v.detach().cpu().double()
+                     for k, v in flatten(params).items()})
+    del params, batch
+    for key, name in (("sharded", base), ("sharded_f64", case["name"])):
+        runs[key] = {k: v.float().numpy() for k, v in flatten(
+            CheckpointManager(str(Path(root) / f"{name}_grads")).restore(
+                0, device="cpu")[1]).items()}
+    with float64_math():
+        ref = {k: v.numpy() for k, v in flatten(value_and_grad(
+            p64, {k: torch.as_tensor(v) for k, v in host.items()},
+            dataclasses.replace(cfg, dtype="float64"))[1]).items()}
+    del p64
+    e = ref["embed"]
+    top = max(float(np.abs(e).max()), 1e-30)
+    nz = e != 0
+    out = {"nonzero": int(nz.sum())}
+    for key, g in runs.items():
+        d = np.abs(g["embed"].astype(np.float64) - e)
+        out[key] = {"rel": float(d.max()) / top,
+                    "sign": int((np.sign(g["embed"][nz]) != np.sign(e[nz])
+                                 ).sum()),
+                    "worst_leaf": worst_leaf(g, ref)}
+    return out
+
+
+def check_arbiter(name: str, a: dict) -> None:
+    """Raises unless every run of ``embed_arbiter``'s result sits within
+    float32 rounding of the float64 recomputation: its worst leaf within
+    ARBITER_TOL of each leaf's largest magnitude, and at most ADAM_FLIPS
+    of ``embed``'s nonzero elements of another sign. A run with a wrong
+    gradient (a sharded sum that drops or doubles a term) fails here,
+    whatever the other run does."""
+    for run in RUNS:
+        worst, leaf = a[run]["worst_leaf"]
+        if worst > ARBITER_TOL or a[run]["rel"] > ARBITER_TOL or \
+                a[run]["sign"] > ADAM_FLIPS * a["nonzero"]:
+            raise AssertionError(
+                f"{name}: the {run} run's step-1 gradient departs from its "
+                f"float64 recomputation: {a[run]} (worst leaf {leaf}; "
+                f"limits {ARBITER_TOL}, {ADAM_FLIPS} of {a['nonzero']} "
+                f"embed elements of another sign)")
+
+
 def saved_params(root: str, name: str, step: int) -> dict:
     """A case's saved parameters at ``step`` (numpy float32, by leaf)."""
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -4237,7 +4590,7 @@ def elastic_launcher(n: int, device="cuda"):
                      f"on one card")
 
 
-def elastic_restart(cases, device="cuda", timeout=None):
+def elastic_restart(cases, device="cuda", timeout=None, root=None):
     """Both worlds of phase 18 (the first on ELASTIC_MESH, the restart on
     ``plan_remesh``'s mesh for ELASTIC_SURVIVORS ranks), each launched by
     ``elastic_launcher``; each case's unsharded run on this process's
@@ -4245,7 +4598,8 @@ def elastic_restart(cases, device="cuda", timeout=None):
     rounds each order differently). Returns the plan, each world's
     substrate, ranks' records and peak GiB (the launching process's,
     where the ranks are its threads), the unsharded runs, each held
-    case's comparison and the seconds each part took."""
+    case's comparison and the seconds each part took. The checkpoints go
+    to a temporary directory, or to ``root`` where they stay."""
     from repro_torch.ft.monitor import plan_remesh
     timeout = timeout or ELASTIC_TIMEOUT
     on_card = torch.device(device).type == "cuda"
@@ -4256,11 +4610,13 @@ def elastic_restart(cases, device="cuda", timeout=None):
     secs, want, out = {}, {}, {"plan": plan}
     t0 = time.perf_counter()
     for case in cases:
-        want[case["name"]] = unsharded_steps(case, device)
+        with f64_embed_grad(case["f64_embed"]):
+            want[case["name"]] = unsharded_steps(case, device)
         if on_card:
             torch.cuda.empty_cache()
     secs["unsharded"] = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as root:
+    with (contextlib.nullcontext(root) if root
+          else tempfile.TemporaryDirectory()) as root:
         for name, n, mesh in worlds:
             launch, out[f"{name}_substrate"] = elastic_launcher(n, device)
             if on_card:
@@ -4282,7 +4638,8 @@ def elastic_restart(cases, device="cuda", timeout=None):
                 continue
             losses = out["first"][0][name]["losses"] + \
                 out["second"][0][name]["losses"]
-            grads, gap = start_gradients(case, root, device)
+            with f64_embed_grad(case["f64_embed"]):
+                grads, gap = start_gradients(case, root, device)
             held[name] = {
                 "losses": losses,
                 "loss_rel": max(abs(a - b) / abs(b) for a, b in
@@ -4292,6 +4649,11 @@ def elastic_restart(cases, device="cuda", timeout=None):
                                            w["params"][s], s,
                                            w["first_grads"], gap)
                            for s in sorted(w["params"])]}
+        for case in cases:
+            if case["f64_embed"]:
+                base = case["name"][:-len(CONTROL)]
+                held[case["name"]]["arbiter"] = embed_arbiter(
+                    case, root, base, device)
     out.update(want=want, held=held, seconds=secs)
     return out
 
@@ -4304,8 +4666,10 @@ def elastic_checks(cases, r, on_card=True):
     cores), on local shards of the expected shape (KV heads split where
     they divide ``model``); the restart restored every leaf bit-equal;
     the held cases' losses and saved parameters within ELASTIC_TOL of
-    the unsharded run. Returns the launches summed over every rank of
-    both worlds."""
+    the unsharded run (but for isolated AdamW sign flips), and every
+    run's step-1 gradient within float32 rounding of its float64
+    recomputation (``check_arbiter``). Returns the launches summed over
+    every rank of both worlds."""
     total = collections.Counter()
     for world, mesh in (("first", r["first_mesh"]),
                         ("second", r["second_mesh"])):
@@ -4346,6 +4710,8 @@ def elastic_checks(cases, r, on_card=True):
                                          f", expected {local}")
                 total.update(x["launches"])
     for name, h in r["held"].items():
+        if "arbiter" in h:
+            check_arbiter(name, h["arbiter"])
         grads = max(w for _, w in h["grads"])
         if h["loss_rel"] > ELASTIC_TOL or grads[0] > ELASTIC_TOL:
             raise AssertionError(f"{name}: sharded against unsharded loss "
@@ -4418,6 +4784,12 @@ def elastic_phase(device="cuda"):
             f"gradient at their first nonzero update lies below the "
             f"leaf's start-gradient gap and those of them past "
             f"{ELASTIC_TOL}; the worst leaf over the other elements)")
+        if "arbiter" in h:
+            log(f"elastic {name}: step 1's gradient against its float64 "
+                f"recomputation on the cpu: {h['arbiter']} (per run: the "
+                f"embed leaf's largest difference over its largest "
+                f"magnitude, its elements of another sign among the "
+                f"nonzero ones; the worst leaf)")
     log(f"elastic restart: launches over both worlds' ranks {total}; "
         f"seconds { {k: round(v, 1) for k, v in r['seconds'].items()} }; "
         f"phase {time.perf_counter() - t0:.1f} s; {smi}")
@@ -4502,6 +4874,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    #: (phase, its start on the host clock): each phase's seconds at the end
+    clock = [("1-2 environment, build", t_start)]
+
+    def phase(name):
+        clock.append((name, time.perf_counter()))
+
     smi = nvidia_smi()
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
@@ -4517,6 +4895,7 @@ def main() -> int:
         for line in ptxas_summary(nvcc_out):
             log(f"    ptxas: {line}")
 
+    phase("3 kernels")
     rows = kernel_phase()
     t0 = time.perf_counter()
     rows.update(attention_phase())
@@ -4525,6 +4904,7 @@ def main() -> int:
     rows.update(bwd_attention_phase())
     log(f"attention backward kernel: {time.perf_counter() - t0:.1f} s")
 
+    phase("4-5 main path, cpu replay")
     kmod.reset_launches()                  # counts start at 0 for the path
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4566,6 +4946,7 @@ def main() -> int:
         f"arrays ({time.perf_counter() - t0:.1f} s)")
 
     # -- the paged path, counted from zero ---------------------------------
+    phase("6 paged path")
     kmod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4609,6 +4990,7 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- the serving path, counted from zero ------------------------------
+    phase("7-8 serving, replay")
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     srv = drive_serving(get_config(SERVE_ARCH))
@@ -4670,6 +5052,7 @@ def main() -> int:
         f"byte-equal ({time.perf_counter() - t0:.1f} s)")
 
     # -- the service path, counted from zero ------------------------------
+    phase("9 service")
     t0 = time.perf_counter()
     runs, launches, replay_s = service_phase()
     smi_now = nvidia_smi()
@@ -4693,6 +5076,7 @@ def main() -> int:
     log(f"service path: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    phase("10 baselines")
     for name, stats, ms, rate in baselines_phase():
         log(f"baseline {name}: {stats}; {ms:.3f} ms a batch on the card "
             f"(warm) = {rate:.1f} committed txn/s; card == cpu "
@@ -4700,6 +5084,7 @@ def main() -> int:
     log(f"baselines: {time.perf_counter() - t0:.1f} s")
 
     # -- the protocol arena, counted from zero -----------------------------
+    phase("11 arena")
     t0 = time.perf_counter()
     grows, flagged = gauntlet_phase()
     log(f"arena gauntlet: {len(grows)} rows, all as expected; flagged "
@@ -4718,9 +5103,11 @@ def main() -> int:
     log(f"arena: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     # -- the audited store, counted from zero per path ---------------------
+    phase("12 audited store")
     audit_phase()
 
     # -- the paper's remaining suites, counted from zero --------------------
+    phase("13 paper suites")
     t0 = time.perf_counter()
     suites, launches = suites_phase()
     card = card_line()
@@ -4738,14 +5125,17 @@ def main() -> int:
     log(f"paper suites: {time.perf_counter() - t0:.1f} s; {card}")
 
     # -- the models path, counted from zero per configuration ---------------
+    phase("14 models")
     t0 = time.perf_counter()
     model_launches = models_phase()
     for name in ("decode_attention", "flash_attention_causal"):
         rows[name]["models_launches"] = model_launches.get(name, 0)
-    log(f"models path: bf16 launches over the six configurations "
+    log(f"models path: bf16 launches over the {len(MODEL_ARCHS)} "
+        f"configurations "
         f"{model_launches}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
     # -- the training path, counted from zero per step ----------------------
+    phase("15 training")
     train_launches, step_ms, mla_launches, f32_bwd = training_phase()
     rows["flash_attention_causal_bwd/tf32x3"]["launches"] = f32_bwd
     rows["flash_attention_causal_bwd"]["launches"] = \
@@ -4758,19 +5148,27 @@ def main() -> int:
         mla_launches["flash_attention_causal"]
 
     # -- the roofline of the training step and the sharded path -------------
+    phase("16 roofline")
     roofline_phase(step_ms)
 
     # -- the mesh= substrate, counted from zero -----------------------------
+    phase("17 mesh")
     mesh_launches = mesh_phase()
-    for name in ("mvcc_resolve", "mvcc_resolve_masked"):
+    for name in ("mvcc_resolve", "mvcc_resolve_masked",
+                 "mvcc_resolve_paged"):
         rows[name]["mesh_launches"] = mesh_launches[name]
 
     # -- the elastic restart, counted from zero per rank --------------------
+    phase("18 elastic restart")
     el = elastic_phase()
     for name in ("flash_attention_causal", "flash_attention_causal_bwd",
                  "flash_attention_causal_bwd/tf32x3"):
         rows[name]["elastic_launches"] = el.get(name, 0)
 
+    phase("end")
+    secs = {name: round(end - start, 1)
+            for (name, start), (_, end) in zip(clock, clock[1:])}
+    log(f"phase seconds {secs}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)

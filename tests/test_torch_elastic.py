@@ -132,7 +132,7 @@ def run(tmp_path_factory):
     params_np = jax.tree.map(np.asarray, jax.jit(
         ref_init_params, static_argnums=0)(ref_cfg, jax.random.PRNGKey(0)))
     cfg = dataclasses.replace(reduced_config(ARCH), dtype="float32")
-    cases = cs.elastic_cases([(CASE, cfg, BATCH, SEQ)])
+    cases = cs.elastic_cases([(CASE, cfg, BATCH, SEQ)], control=False)
     cases[0]["params"] = params_np
     data = PackedBatchIterator(SyntheticTokenSource(cfg.vocab_size,
                                                     seed=DATA_SEED),
