@@ -5,7 +5,8 @@
 Needs one NVIDIA GPU (H100, sm_90a) and ``nvcc``; imports neither JAX nor
 the JAX package. Phases, each of which must pass:
 
-1. environment: torch/CUDA versions and the card's name and power limit;
+1. environment: torch/CUDA versions, the card's name and power limit and
+   the host's available memory;
 2. build: the CUDA sources ``src/repro_torch/kernels/csrc/*.cu`` are
    compiled into ``build/repro_torch/`` (one nvcc each, all started
    together);
@@ -33,7 +34,8 @@ the JAX package. Phases, each of which must pass:
    path's shapes, odd shapes and every shape phase 14 gives the kernels
    (deepseek-v2-lite's MLA prefill at Dh = 192, also at its training
    length S = 2,048, G = 5 and 6, seamless's 4,096-frame
-   cross-attention), gives the same bits on a second call,
+   cross-attention) and phase 15's five family training shapes
+   (``TRAIN_FAMILY_SHAPES``), gives the same bits on a second call,
    ignores a poisoned cache tail (decode), and is timed beside its plain
    version, its bound (float32 operations at ``TF32X3_OPS_PER_S``, the
    card's float32-accurate tensor rate) and one
@@ -56,7 +58,8 @@ the JAX package. Phases, each of which must pass:
    against its plain version in
    float32 and bf16 at the reference tests' shapes, odd S, G = 1 and 3-7,
    Dh = 32-192 (36: the CUDA cores in float32 too), the training shapes
-   (8, 2,048, 5, 3, 64) and MLA's (2, 2,048, 16, 1, 192) and a case whose
+   (8, 2,048, 5, 3, 64), MLA's (2, 2,048, 16, 1, 192) and phase 15's
+   five family shapes (G = 1, 4, 6, 8; llava's S = 3,328) and a case whose
    tensors sit 4 bytes (bf16: 2) off 16-byte alignment (the CUDA cores):
    within 2e-5
    (float32) and 1e-2 (bf16) of the plain gradient's largest magnitude,
@@ -293,6 +296,44 @@ the JAX package. Phases, each of which must pass:
    errors beside the card's name and power limit (for deepseek-v2-lite:
    the median of steps 2-5, tokens/s, ``max_memory_allocated`` and the
    cuts).
+   Then the bf16 steps of five more families (``family_phase``), each at
+   its published widths, cut to the deepest stack whose 12 B a parameter
+   (bf16 weight and gradient, float32 AdamW moments) stay within 53 GiB
+   (``family_config``; each cut printed with its reckoning):
+   seamless-m4t-large-v2 whole (24 + 24 encoder layers), llava 20 of 32,
+   mistral-nemo-12b 12 of 40, nemotron-4-15b 4 of 32 (squared ReLU; its
+   256,000 x 6,144 embed and head), qwen3-32b 6 of 64 (qk-norm, G = 8).
+   ``Trainer``, remat "full", AdamW, B=2, 2,048 text tokens from
+   ``SyntheticTokenSource`` (llava 1,024 beside its 2,304 patches;
+   seamless 2,048 audio frames beside them, ``FrontendBatches``: seeded
+   numpy features in ``model_batch``'s layout), 4 steps, no save, each
+   model freed before the next: losses finite; every step launches row 5
+   twice and row 5b once a causal layer, all on wgmma, at the q shape
+   the config gives, and exactly seamless's encoder and cross-attention
+   calls (each forward and recompute) run blockwise
+   (``train_step_launches``); the last step's forward and backward
+   launch held against the plain versions. Prints each one's median step
+   ms (steps 2-4), text tokens/s, the bf16-peak share of 6 N positions /
+   step time, peak GiB and init seconds. The float32 replays above also
+   hold mamba2-370m (SSD's backward, no attention; its 256-step chunk
+   overflows to NaN in both packages), mistral-nemo-12b, nemotron-4-15b
+   and qwen3-32b, stopping where the host cannot hold the CPU side.
+   Then the trainer's options in process (``trainer_options``):
+   smollm-360m at full width and 2 layers in float32 (TF32 off), one
+   batch of 8 x 512: ``make_train_step`` with ``microbatch=2`` and
+   without give loss and grad norm within 1e-5 (relative), the two
+   halves' gradients summed in float32 and halved equal the whole
+   batch's within 1e-5 of each leaf's largest magnitude, and
+   ``compress_grads`` of the card's gradient is bit-equal to the same
+   call on its CPU copy. Last, both launchers as subprocesses with this
+   process's ``PYTHONPATH`` and build directory (``launchers_phase``):
+   ``python -m repro_torch.launch.train --arch smollm-360m --steps 4
+   --batch 8 --seq 2048 --microbatch 2 --compress-grads --log-every 1
+   --ckpt <tmp>``, then the same with ``--resume`` (prints ``resumed from
+   step 4``), every printed loss finite; ``python -m
+   repro_torch.launch.serve --arch smollm-360m --requests 8
+   --prompt-len 256 --max-new 16`` prints ``served 8 requests / 128
+   tokens``; the build directory unchanged. Their lines are forwarded.
 
 16. the roofline of phase 15's step: ``launch.dryrun.measure`` counts
    the same step (``launch.specs.make_train_step``: smollm-360m, B=8,
@@ -409,6 +450,7 @@ import importlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -498,6 +540,14 @@ PIN_EVERY, PINS_HELD, N_PROBE = 2, 3, 4096
 
 def log(*args):
     print(*args, flush=True)
+
+
+def host_free_gib() -> float:
+    """The host's available memory (``MemAvailable``), GiB."""
+    with open("/proc/meminfo") as f:
+        kib = next(int(line.split()[1]) for line in f
+                   if line.startswith("MemAvailable:"))
+    return kib / 2 ** 20
 
 
 def nvidia_smi() -> str:
@@ -1175,6 +1225,12 @@ def check_replay(gpu, cpu):
 # positions; prompts of 128-512), an odd one (T, S not multiples of a
 # tile or block) and every shape phase 14's bf16 runs give the kernels
 # (``models``; model_bf16 fails on a shape missing here)
+# rows 5 and 5b at phase 15's bf16 training batches of five families
+# (B=2; ``family_kernel_shape``): mistral-nemo, nemotron (G = 6), qwen3
+# (G = 8), seamless's decoder, llava's 2,304 patches + 1,024 tokens
+TRAIN_FAMILY_SHAPES = ((2, 2048, 8, 4, 128), (2, 2048, 8, 6, 128),
+                       (2, 2048, 8, 8, 128), (2, 2048, 16, 1, 64),
+                       (2, 3328, 8, 4, 128))
 DECODE_CASES = [((1, 1, 1, 64, 64), "tests"), ((3, 2, 4, 64, 257), "tests"),
                 ((2, 5, 3, 128, 1024), "tests"),
                 ((4, 8, 1, 128, 96), "tests"),
@@ -1210,7 +1266,8 @@ FLASH_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
                ((1, 2048, 16, 1, 192), "models"),
                ((2, 512, 8, 6, 128), "models"),          # grok, nemotron
                ((2, 512, 8, 4, 128), "models"),          # mistral-nemo
-               ((2, 512, 8, 8, 128), "models")]          # qwen3, G = 8
+               ((2, 512, 8, 8, 128), "models")] + \
+    [(c, "training") for c in TRAIN_FAMILY_SHAPES]
 # a flash case whose float32 views phase 3 also passes 4 bytes off
 # 16-byte alignment (the CUDA-core kernel takes them)
 UNALIGNED_CASE = (1, 512, 5, 3, 64)
@@ -1389,9 +1446,13 @@ def attention_phase(device="cuda"):
             tol = ATT_TOL[(name, dtype)]
             torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                        atol=tol)
+            # fewer timed calls at training length, as the backward's
+            timing = dict(rounds=5, reps=2) if label == "training" else \
+                dict(rounds=11, reps=10)
             f32_note = ""
             if name == "flash_attention_causal" and dtype == torch.float32:
-                f32_note = flash_f32_extra(args, out, ref, variant, tol)
+                f32_note = flash_f32_extra(args, out, ref, variant, tol,
+                                           timing)
             if name == "decode_attention":
                 q, k, v, kl = args
                 k2, v2 = k.clone(), v.clone()
@@ -1404,9 +1465,9 @@ def attention_phase(device="cuda"):
             lib = _sdpa(*sdpa)
             if not torch.isfinite(lib.float()).all():
                 raise AssertionError(f"sdpa {name} {shape}: not finite")
-            ms = _device_ms(kernel, args, rounds=11, reps=10)
-            plain_ms = _device_ms(plain, args, rounds=11, reps=10)
-            lib_ms = _device_ms(_sdpa, sdpa, rounds=11, reps=10)
+            ms = _device_ms(kernel, args, **timing)
+            plain_ms = _device_ms(plain, args, **timing)
+            lib_ms = _device_ms(_sdpa, sdpa, **timing)
             host_ms = _host_ms(kernel, args, reps=50)
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK[dtype]
@@ -1434,7 +1495,7 @@ def attention_phase(device="cuda"):
     return rows
 
 
-def flash_f32_extra(args, out, ref, variant, tol):
+def flash_f32_extra(args, out, ref, variant, tol, timing):
     """Phase 3's extra float32 flash checks: on the tf32x3 route, the
     CUDA-core kernel on the same inputs held against the plain version
     (same bits on a second call) and timed; every float32 output, and
@@ -1452,7 +1513,7 @@ def flash_f32_extra(args, out, ref, variant, tol):
             raise AssertionError("flash cuda_cores float32: two calls on "
                                  "the same inputs differ")
         e64["cuda_cores"] = (cc - exact).abs().max().item()
-        cc_ms = _device_ms(flash_cuda_cores_f32, args, rounds=11, reps=10)
+        cc_ms = _device_ms(flash_cuda_cores_f32, args, **timing)
         note = (f"; cuda_cores kernel on the same inputs: max_abs_err "
                 f"{(cc - ref).abs().max().item():.3g}, repeat bit-equal, "
                 f"{cc_ms * 1e3:.2f} us")
@@ -1506,7 +1567,8 @@ BWD_CASES = [((1, 128, 1, 1, 32), "tests"), ((2, 256, 2, 3, 64), "tests"),
              ((2, 512, 8, 8, 128), "models"),          # qwen3, G = 8
              ((2, 512, 16, 1, 192), "models"),         # MLA, Dh = 192
              ((8, 2048, 5, 3, 64), "training"),
-             ((2, 2048, 16, 1, 192), "training")]      # MLA's step
+             ((2, 2048, 16, 1, 192), "training")] + \
+    [(c, "training") for c in TRAIN_FAMILY_SHAPES]    # phase 15's families
 TRAIN_SHAPE = (8, 2048, 5, 3, 64)
 # relative to the plain backward's largest magnitude: float32 sums in
 # another order (measured <= 5e-6 on an H100); bf16 adds one rounding of
@@ -3132,8 +3194,35 @@ MLA_ARCH, MLA_LAYERS, MLA_BATCH, MLA_STEPS = ("deepseek-v2-lite-16b", 2, 2,
 # and 32 tokens (256, one SSD chunk, with SSM heads; llava 32 patches +
 # 32 tokens), MoE at a capacity that drops nothing
 GRAD_ARCHS = ("smollm-360m", "hymba-1.5b", "seamless-m4t-large-v2",
-              "llava-next-mistral-7b", "deepseek-v2-lite-16b")
+              "llava-next-mistral-7b", "deepseek-v2-lite-16b",
+              # SSD's backward with no attention; squared ReLU; qk-norm
+              "mamba2-370m", "mistral-nemo-12b", "nemotron-4-15b",
+              "qwen3-32b")
 GRAD_TOKENS, GRAD_TOL = 32, 1e-3
+# the bf16 steps of five more families: B=2, 2,048 text tokens (llava
+# 1,024 beside its 2,304 patches; seamless 2,048 audio frames beside its
+# 2,048 tokens), 4 steps, no save; each at its published widths, cut to
+# the deepest stack whose TRAIN_BYTES_PER_PARAM (bf16 weight and
+# gradient, float32 AdamW moments) stay within FAMILY_BUDGET_GIB, which
+# leaves the rest of the card's 79.2 GiB to the activations and the
+# update's float32 temporaries (grok-1-314b: one layer is 73 GiB)
+FAMILY_ARCHS = ("seamless-m4t-large-v2", "llava-next-mistral-7b",
+                "mistral-nemo-12b", "nemotron-4-15b", "qwen3-32b")
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS = 2, 2048, 4
+FAMILY_TEXT = {"patches": 1024}          # text tokens beside the patches
+TRAIN_BYTES_PER_PARAM, FAMILY_BUDGET_GIB = 12, 53
+# the trainer's options in process: smollm-360m at full width, 2 layers,
+# float32 with TF32 off, one batch of 8 x 512
+OPTIONS_ARCH, OPTIONS_LAYERS, OPTIONS_BATCH, OPTIONS_SEQ = ("smollm-360m",
+                                                            2, 8, 512)
+OPTIONS_TOL = 1e-5
+# the launchers as subprocesses (``python -m``), smollm-360m whole
+LAUNCH_TRAIN = ("--arch", "smollm-360m", "--steps", "4", "--batch", "8",
+                "--seq", "2048", "--microbatch", "2", "--compress-grads",
+                "--log-every", "1")
+LAUNCH_SERVE = ("--arch", "smollm-360m", "--requests", "8", "--prompt-len",
+                "256", "--max-new", "16")
+LAUNCH_TIMEOUT = 300
 
 
 #: the HeldTraining instance open on this thread (thread ranks each hold
@@ -3293,24 +3382,72 @@ def _same_state(a, b, what):
             raise AssertionError(f"{what}: {name} differs")
 
 
+class FrontendBatches:
+    """``SyntheticTokenSource``'s packed text batches with the config's
+    frontend features beside them: [B, n_extra, feat] image patches (vlm)
+    or audio frames (enc-dec) drawn from a seeded numpy generator, in the
+    config's dtype, as ``model_batch`` lays them out (the reference's loss
+    reads ``batch["patches"]`` / ``batch["frames"]``, which its token
+    pipeline does not yield)."""
+
+    def __init__(self, cfg, batch: int, seq: int, n_extra: int,
+                 seed: int = 0):
+        from repro_torch.data.pipeline import (PackedBatchIterator,
+                                               SyntheticTokenSource)
+        self.cfg, self.n_extra = cfg, n_extra
+        self.text = PackedBatchIterator(
+            SyntheticTokenSource(cfg.vocab_size, seed=seed), batch=batch,
+            seq_len=seq)
+        self.rng = np.random.default_rng(seed)
+        self.feat = {"patches": models_tf.VISION_EMBED_DIM,
+                     "frames": models_tf.AUDIO_FEAT_DIM}[cfg.frontend]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self.text)
+        x = self.rng.standard_normal(
+            (item["tokens"].shape[0], self.n_extra, self.feat)).astype(
+                np.float32)
+        item[self.cfg.frontend] = torch.from_numpy(x).to(
+            getattr(torch, self.cfg.dtype))
+        return item
+
+    def close(self):
+        self.text.close()
+
+
+def train_data(cfg, batch: int, seq: int, seed: int = 0):
+    """The training batches of ``cfg``: [batch, seq] text from
+    ``SyntheticTokenSource``; a vlm's ``cfg.num_patches`` patches or an
+    enc-dec's ``seq`` audio frames beside it (``FrontendBatches``)."""
+    from repro_torch.data.pipeline import (PackedBatchIterator,
+                                           SyntheticTokenSource)
+    if cfg.frontend == "patches":
+        return FrontendBatches(cfg, batch, seq, cfg.num_patches, seed)
+    if cfg.frontend == "frames":
+        return FrontendBatches(cfg, batch, seq, seq, seed)
+    return PackedBatchIterator(SyntheticTokenSource(cfg.vocab_size,
+                                                    seed=seed),
+                               batch=batch, seq_len=seq)
+
+
 def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
                 steps=TRAIN_STEPS, save_at=TRAIN_SAVE_AT):
-    """``Trainer`` (remat "full", AdamW) over ``SyntheticTokenSource``:
-    ``steps`` steps with the launches and blockwise calls of each step
-    counted from zero; at ``save_at`` (``None``: no save) a save through
+    """``Trainer`` (remat "full", AdamW) over ``train_data``: ``steps``
+    steps with the launches and blockwise calls of each step counted from
+    zero; at ``save_at`` (``None``: no save) a save through
     ``CheckpointManager``, a restore into a fresh ``Trainer`` (parameters
     and optimizer state bit-equal) and one step of both on one batch (the
     losses compared); the latest flash forward and backward launch held
     against the plain versions. Returns what phase 15 prints."""
-    from repro_torch.data.pipeline import (PackedBatchIterator,
-                                           SyntheticTokenSource)
     from repro_torch.training.train_loop import TrainConfig, Trainer
     cfg = cfg or get_config(TRAIN_ARCH)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    data = PackedBatchIterator(SyntheticTokenSource(cfg.vocab_size, seed=0),
-                               batch=batch, seq_len=seq)
+    data = train_data(cfg, batch, seq)
     per_step = []
 
     def count(entry):
@@ -3360,13 +3497,14 @@ def train_steps(device="cuda", cfg=None, batch=8, seq=2048,
             trainer.run(steps - save_at - 2)
         held.armed = True                   # the last step's launches
         trainer.run(1)
-        held_errs = held.check("training") if on_card else {}
+        held_errs = held.check(f"{cfg.name} training") if on_card else {}
     data.close()
     hist = trainer.history
     n_params = sum(x.numel() for x in flatten(trainer.params).values())
     return {"cfg": cfg, "hist": hist, "per_step": per_step,
             "losses_after_restore": losses, "init_s": init_s,
             "restore_s": restore_s, "held": held_errs, "n_params": n_params,
+            "shapes": dict(held.shapes),
             "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                          if on_card else 0.0)}
 
@@ -3378,28 +3516,49 @@ def mla_train_config():
                                dtype="bfloat16", remat="full")
 
 
-def check_train_launches(cfg, per_step, on_card=True):
-    """Per step: two forward launches a layer under remat (the
-    recompute) and one a prefix layer (the dense layers before the first
-    MoE one run outside remat, as the reference's), one backward call
-    (three kernels) a layer on the wgmma route, no blockwise call."""
-    n = cfg.num_layers
-    prefix = cfg.moe.first_moe_layer if cfg.moe else 0
-    fwd = prefix + 2 * (n - prefix)
+def flash_forwards(cfg, n):
+    """Forward calls of ``n`` attentions a layer in one loss and its
+    gradient: under remat two a layer (the forward and the recompute) but
+    one a dense prefix layer (the dense layers before the first MoE one
+    run outside remat, as the reference's)."""
+    if cfg.remat == "none":
+        return n
+    return 2 * n - (cfg.moe.first_moe_layer if cfg.moe else 0)
+
+
+def train_step_launches(cfg):
+    """(launches, blockwise flash calls) of one bf16 training step, from
+    the config: ``flash_forwards`` launches of row 5 on the wgmma route
+    for its causal unwindowed layers (``attention_layers``), one row 5b
+    call (three kernels) a causal layer on the wgmma route; the blockwise
+    calls those of its other attentions (seamless's encoder and
+    cross-attention, hymba's windowed layers), each forward and
+    recompute."""
+    n_flash, _, n_blockwise = attention_layers(cfg)
+    fwd = flash_forwards(cfg, n_flash)
     want = {"flash_attention_causal": fwd,
             "flash_attention_causal/wgmma": fwd,
-            "flash_attention_causal_bwd": n,
-            "flash_attention_causal_bwd/wgmma": n}
-    want.update({f"flash_attention_causal_bwd/{k}": n
+            "flash_attention_causal_bwd": n_flash,
+            "flash_attention_causal_bwd/wgmma": n_flash}
+    want.update({f"flash_attention_causal_bwd/{k}": n_flash
                  for k in flash_mod.BWD_KERNELS})
+    want = {k: v for k, v in want.items() if v}
+    return want, (n_blockwise if cfg.remat == "none" else 2 * n_blockwise)
+
+
+def check_train_launches(cfg, per_step, on_card=True):
+    """Each step's launches and blockwise flash calls equal to
+    ``train_step_launches(cfg)``."""
+    want, n_blockwise = train_step_launches(cfg)
     for i, (launches, blockwise) in enumerate(per_step):
         got = {k: v for k, v in launches.items() if v}
         if on_card and got != want:
-            raise AssertionError(f"training step {i + 1}: launches {got}, "
-                                 f"expected {want}")
-        if on_card and blockwise["flash"] != 0:
-            raise AssertionError(f"training step {i + 1}: blockwise calls "
-                                 f"{blockwise}")
+            raise AssertionError(f"{cfg.name} training step {i + 1}: "
+                                 f"launches {got}, expected {want}")
+        if on_card and blockwise["flash"] != n_blockwise:
+            raise AssertionError(f"{cfg.name} training step {i + 1}: "
+                                 f"blockwise calls {blockwise}, expected "
+                                 f"{n_blockwise}")
     return want
 
 
@@ -3418,14 +3577,9 @@ def f32_flash_bwd_routes(what, moved, exactly):
 
 
 def grad_flash_launches(cfg):
-    """Forward flash launches of one ``value_and_grad``: under remat
-    "full" (every GRAD_ARCHS config's) two a causal layer (the forward
-    and the recompute), one a dense prefix layer (outside remat, as
-    ``check_train_launches`` counts)."""
-    n = attention_layers(cfg)[0]
-    if cfg.remat == "none":
-        return n
-    return 2 * n - (cfg.moe.first_moe_layer if cfg.moe else 0)
+    """Forward flash launches of one ``value_and_grad`` (remat "full" in
+    every GRAD_ARCHS config)."""
+    return flash_forwards(cfg, attention_layers(cfg)[0])
 
 
 def grad_replay(name: str, device="cuda"):
@@ -3456,6 +3610,14 @@ def grad_replay(name: str, device="cuda"):
                                     else v.astype(np.int32)).to(dev)
                 for k, v in batch_np.items()}
 
+    # the CPU side holds the parameters and their gradients (and a
+    # float32 temporary of the largest leaf): stop where the host cannot
+    need = 4 * (2 * n_params(cfg) + max(
+        int(np.prod(d.shape)) for d in models_tf.param_defs(cfg).values()))
+    if device != "cpu" and need / 2 ** 30 > host_free_gib():
+        raise AssertionError(f"{name}: the host cannot hold the float32 "
+                             f"replay's {need / 2 ** 30:.1f} GiB "
+                             f"({host_free_gib():.1f} GiB available)")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(3),
                          device)
@@ -3515,7 +3677,7 @@ def grad_replay(name: str, device="cuda"):
         routes["backward"] = f32_flash_bwd_routes(
             f"{name} gradient replay", moved, attention_layers(cfg)[0])
     return {"launches": moved, "worst": worst, "loss": float(loss),
-            "routes": routes,
+            "routes": routes, "need_gib": need / 2 ** 30,
             "cpu_loss": float(cpu_loss), "tokens": n,
             "nonfinite": nonfinite, "leaves": n_leaves,
             "seconds": {"card": card_s, "copy": copy_s, "cpu": cpu_s,
@@ -3524,8 +3686,9 @@ def grad_replay(name: str, device="cuda"):
 
 def training_phase(device="cuda"):
     """Phase 15 (see the module doc). Returns the launches of the bf16
-    run's steps, its median step ms, the deepseek run's launches and the
-    float32 gradient replays' backward calls (all on tf32x3)."""
+    run's steps, its median step ms, the deepseek run's launches, the
+    float32 gradient replays' backward calls (all on tf32x3) and the
+    launches of the five families' bf16 steps."""
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -3566,10 +3729,17 @@ def training_phase(device="cuda"):
         f"original trainer's)")
     del r
     torch.cuda.empty_cache()
+    parts = {"smollm-360m": time.perf_counter() - t0}
+    t1 = time.perf_counter()
     mla = mla_training(device)
+    parts[MLA_ARCH] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    families = family_phase(device)
+    parts["families"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     f32_bwd = 0
     for name in GRAD_ARCHS:
-        t1 = time.perf_counter()
+        t2 = time.perf_counter()
         g = grad_replay(name, device)
         f32_bwd += g["launches"].get("flash_attention_causal_bwd/tf32x3", 0)
         log(f"training replay {name}: float32, 2 layers, B=1, "
@@ -3579,11 +3749,36 @@ def training_phase(device="cuda"):
             f"{GRAD_TOL}); leaves with NaN on both devices at the same "
             f"places {len(g['nonfinite'])} of {g['leaves']} "
             f"{g['nonfinite']}; flash routes {g['routes']}; launches "
-            f"{g['launches']} "
-            f"({time.perf_counter() - t1:.1f} s: "
+            f"{g['launches']}; host side {g['need_gib']:.1f} GiB "
+            f"({time.perf_counter() - t2:.1f} s: "
             f"{ {k: round(v, 2) for k, v in g['seconds'].items()} })")
-    log(f"training phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
-    return dict(total), med, mla, f32_bwd
+    parts["float32 replays"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    o = trainer_options(device)
+    log(f"training options {OPTIONS_ARCH}: full width, {OPTIONS_LAYERS} "
+        f"layers, float32 (TF32 off), one batch {OPTIONS_BATCH} x "
+        f"{OPTIONS_SEQ}: make_train_step microbatch=2 against 0: loss "
+        f"{o['metrics'][2]['loss']!r} / {o['metrics'][0]['loss']!r}, grad "
+        f"norm {o['metrics'][2]['grad_norm']!r} / "
+        f"{o['metrics'][0]['grad_norm']!r} (relative {o['rel']}; limit "
+        f"{OPTIONS_TOL}); the two halves' gradient summed in float32 and "
+        f"halved against the whole batch's: worst leaf {o['worst'][1]} at "
+        f"{o['worst'][0]:.3g} of its largest magnitude (limit "
+        f"{OPTIONS_TOL}); compress_grads(CompressionConfig()) of the card "
+        f"gradient bit-equal to the cpu copy's in all {o['leaves']} leaves "
+        f"({o['quantized']} quantized to int8)")
+    del o
+    torch.cuda.empty_cache()
+    parts["options"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    la = launchers_phase()
+    log(f"launchers: train {la['train_s']:.1f} s (both runs), serve "
+        f"{la['serve_s']:.1f} s; every printed loss finite; the build "
+        f"directory unchanged; {nvidia_smi()}")
+    parts["launchers"] = time.perf_counter() - t1
+    log(f"training phase: {time.perf_counter() - t0:.1f} s "
+        f"{ {k: round(v, 1) for k, v in parts.items()} }; {nvidia_smi()}")
+    return dict(total), med, mla, f32_bwd, families
 
 
 def mla_training(device="cuda"):
@@ -3621,6 +3816,254 @@ def mla_training(device="cuda"):
         f"the latest forward and backward launch against the plain versions "
         f"{r['held']} ({time.perf_counter() - t0:.1f} s); {nvidia_smi()}")
     return dict(total)
+
+
+def n_params(cfg) -> int:
+    """Parameters of ``cfg`` (its schema, ``param_defs``)."""
+    return sum(int(np.prod(d.shape))
+               for d in models_tf.param_defs(cfg).values())
+
+
+def family_config(name: str):
+    """(cfg, GiB): ``name`` at its published widths in bf16, cut to the
+    deepest stack whose TRAIN_BYTES_PER_PARAM bytes a parameter stay
+    within FAMILY_BUDGET_GIB (whole where the whole model fits), and
+    those GiB."""
+    full = get_config(name)
+    assert full.dtype == "bfloat16" and full.remat == "full", name
+    for depth in range(full.num_layers, 0, -1):
+        cfg = dataclasses.replace(full, num_layers=depth)
+        gib = TRAIN_BYTES_PER_PARAM * n_params(cfg) / 2 ** 30
+        if gib <= FAMILY_BUDGET_GIB:
+            return cfg, gib
+    raise AssertionError(f"{name}: one layer passes {FAMILY_BUDGET_GIB} GiB")
+
+
+def family_text(cfg) -> int:
+    """Text tokens a sequence of ``cfg``'s training batch."""
+    return FAMILY_TEXT.get(cfg.frontend, FAMILY_SEQ)
+
+
+def family_kernel_shape(cfg, batch=FAMILY_BATCH):
+    """q [B, S, KvH, G, Dh] of rows 5 and 5b in ``cfg``'s training batch
+    (llava's S: its patches and its text)."""
+    s = family_text(cfg) + (cfg.num_patches if cfg.frontend == "patches"
+                            else 0)
+    kvh = cfg.num_kv_heads
+    return (batch, s, kvh, cfg.num_heads // kvh, cfg.head_dim)
+
+
+def family_training(name: str, device="cuda"):
+    """One family's bf16 run (see the module doc): ``train_steps`` of
+    FAMILY_STEPS steps, no save, at B=FAMILY_BATCH on ``family_config``;
+    each step's launches held to the config's (``check_train_launches``),
+    every forward launch at ``family_kernel_shape``. Returns what phase
+    15 prints."""
+    full_layers = get_config(name).num_layers
+    cfg, gib = family_config(name)
+    on_card = torch.device(device).type == "cuda"
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30 if on_card else 0.0
+    r = train_steps(device, cfg=cfg, batch=FAMILY_BATCH,
+                    seq=family_text(cfg), steps=FAMILY_STEPS, save_at=None)
+    hist = r["hist"]
+    want = check_train_launches(cfg, r["per_step"], on_card)
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} training losses {losses}")
+    shape = family_kernel_shape(cfg)
+    if on_card and set(r["shapes"]) != {shape}:
+        raise AssertionError(f"{name}: row 5 shapes {r['shapes']}, from "
+                             f"the config {shape}")
+    ms = [h["step_time_s"] * 1e3 for h in hist]
+    med = statistics.median(ms[1:])
+    positions = FAMILY_BATCH * shape[1]
+    return {**r, "name": name, "want": want, "losses": losses, "ms": ms,
+            "median_ms": med, "gib_12": gib, "full_layers": full_layers,
+            "shape": shape, "tokens": hist[0]["tokens"],
+            "positions": positions, "held_before_gib": held_gib,
+            "blockwise": train_step_launches(cfg)[1]}
+
+
+def log_family(f, smi):
+    """Phase 15's lines of one family's run."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    cfg = f["cfg"]
+    cut = (f"whole ({cfg.num_layers} layers"
+           + (f" + {cfg.encoder_layers} encoder" if cfg.enc_dec else "")
+           + ")" if cfg.num_layers == f["full_layers"] else
+           f"cut to {cfg.num_layers} of {f['full_layers']} layers")
+    extra = {"patches": f", {cfg.num_patches} patches beside the text",
+             "frames": f", {family_text(cfg)} audio frames beside the "
+                       "text"}.get(cfg.frontend, "")
+    rate = f["tokens"] / f["median_ms"] * 1e3
+    prate = f["positions"] / f["median_ms"] * 1e3
+    share = 6 * f["n_params"] * prate / PEAK_FLOPS_BF16
+    log(f"training {f['name']}: published widths, {cut}: "
+        f"{f['n_params']:,} parameters, {TRAIN_BYTES_PER_PARAM} B each "
+        f"= {f['gib_12']:.2f} GiB (bound {FAMILY_BUDGET_GIB}: the deepest "
+        f"stack within it); bf16, remat {cfg.remat}, AdamW, init "
+        f"{f['init_s']:.2f} s; B={FAMILY_BATCH}, {family_text(cfg)} text "
+        f"tokens a sequence on SyntheticTokenSource{extra}, "
+        f"{len(f['hist'])} steps, no save; losses "
+        f"{[round(x, 4) for x in f['losses']]}; grad norms "
+        f"{[round(h['grad_norm'], 3) for h in f['hist']]}")
+    log(f"training {f['name']}: step ms {[round(x, 1) for x in f['ms']]}; "
+        f"median (steps 2-{len(f['ms'])}) {f['median_ms']:.3f} ms = "
+        f"{rate:.1f} text tokens/s, {prate:.1f} positions/s = "
+        f"{100 * share:.2f} % of the bf16 peak (6 N positions / step "
+        f"time); peak device memory {f['peak_gib']:.3f} GiB "
+        f"({f['held_before_gib']:.3f} GiB held before the run); {smi}")
+    log(f"training {f['name']}: launches per step {f['want']} in each of "
+        f"the {len(f['per_step'])} counted steps (row 5 at "
+        f"{list(f['shape'])}), {f['blockwise']} blockwise flash calls a "
+        f"step; the latest forward and backward launch against the plain "
+        f"versions {f['held']}")
+
+
+def family_phase(device="cuda"):
+    """Phase 15's bf16 runs of FAMILY_ARCHS, one at a time, each freed
+    before the next. Returns their launches over the counted steps."""
+    smi = nvidia_smi()
+    total = collections.Counter()
+    for name in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        f = family_training(name, device)
+        for launches, _ in f["per_step"]:
+            total.update({k: v for k, v in launches.items() if v})
+        log_family(f, smi)
+        del f
+        torch.cuda.empty_cache()
+        log(f"training {name}: {time.perf_counter() - t0:.1f} s")
+    return dict(total)
+
+
+def trainer_options(device="cuda", cfg=None, batch=OPTIONS_BATCH,
+                    seq=OPTIONS_SEQ):
+    """The trainer's options on one batch (see the module doc): one
+    ``make_train_step`` with ``microbatch=2`` and one without, loss and
+    grad norm within OPTIONS_TOL (relative); the two halves'
+    ``value_and_grad`` summed in float32 and halved (as the step sums
+    them) against the whole batch's, each leaf within OPTIONS_TOL of its
+    largest magnitude; ``compress_grads`` of the whole batch's gradient
+    bit-equal to the same call on its CPU copy. Float32 with TF32 off.
+    Returns what phase 15 prints."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.compression import (CompressionConfig,
+                                                  compress_grads)
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 make_train_step,
+                                                 value_and_grad)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or dataclasses.replace(get_config(OPTIONS_ARCH),
+                                     num_layers=OPTIONS_LAYERS,
+                                     dtype="float32")
+    data = train_data(cfg, batch, seq, seed=5)
+    one = {k: torch.as_tensor(v).to(device) for k, v in next(data).items()}
+    data.close()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(5),
+                         device)
+    metrics = {}
+    for mb in (2, 0):
+        step = make_train_step(cfg, TrainConfig(microbatch=mb))
+        _, _, m = step(params, opt.init_opt_state(params), one)
+        metrics[mb] = {k: float(v) for k, v in m.items()}
+    rel = {k: abs(metrics[2][k] - metrics[0][k]) / abs(metrics[0][k])
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > OPTIONS_TOL:
+        raise AssertionError(f"microbatch=2 against the whole batch: "
+                             f"{metrics} ({rel})")
+    _, whole = value_and_grad(params, one, cfg)
+    whole = flatten(whole)
+    half = batch // 2
+    summed = {k: torch.zeros_like(v, dtype=torch.float32)
+              for k, v in whole.items()}
+    for i in range(2):
+        part = {k: v[i * half:(i + 1) * half] for k, v in one.items()}
+        for k, g in flatten(value_and_grad(params, part, cfg)[1]).items():
+            summed[k] += g.float()
+    worst = (0.0, "")
+    for k, g in whole.items():
+        err = float((summed[k] / 2 - g.float()).abs().max()
+                    / g.float().abs().max().clamp(min=1e-30))
+        worst = max(worst, (err, k))
+    if worst[0] > OPTIONS_TOL:
+        raise AssertionError(f"the microbatched gradient {worst[1]} differs "
+                             f"from the whole batch's by {worst[0]:.3g}")
+    ccfg = CompressionConfig()
+    got = flatten(compress_grads(unflatten(whole), ccfg))
+    want = flatten(compress_grads(unflatten(
+        {k: v.cpu() for k, v in whole.items()}), ccfg))
+    quantized = sum(v.numel() >= ccfg.min_size for v in whole.values())
+    _same_state({k: v.cpu() for k, v in got.items()}, want,
+                "compressed gradient, card against cpu")
+    return {"cfg": cfg, "metrics": metrics, "rel": rel, "worst": worst,
+            "leaves": len(whole), "quantized": quantized}
+
+
+def run_launcher(module: str, args, timeout=LAUNCH_TIMEOUT) -> str:
+    """``python -m module args`` from the repo's root with this
+    process's ``PYTHONPATH`` in front of the repo's ``src`` (so it loads
+    the kernels this process built, from the same build directory);
+    raises unless it exits 0. Returns its standard output."""
+    root = Path(__file__).resolve().parent
+    path = [str(root / "src"), str(root)]
+    if os.environ.get("PYTHONPATH"):
+        path.append(os.environ["PYTHONPATH"])
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                         env=dict(os.environ,
+                                  PYTHONPATH=os.pathsep.join(path)),
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout
+
+
+def step_losses(text: str, what: str):
+    """The losses of a launcher's step lines, each finite."""
+    losses = [float(x) for x in re.findall(r"^step \d+: loss=(\S+)", text,
+                                           re.M)]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: step losses {losses}")
+    return losses
+
+
+def launchers_phase():
+    """Both launchers as subprocesses on the card (see the module doc):
+    train, then resume from its checkpoint; serve. Forwards their step
+    and served lines; the build directory must hold the same libraries
+    after them (they built nothing)."""
+    built = sorted(p.name for p in _build.BUILD_ROOT.iterdir())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        first = run_launcher("repro_torch.launch.train",
+                             LAUNCH_TRAIN + ("--ckpt", ckpt))
+        second = run_launcher("repro_torch.launch.train",
+                              LAUNCH_TRAIN + ("--ckpt", ckpt, "--resume"))
+    train_s = time.perf_counter() - t0
+    for what, text in (("train", first), ("train --resume", second)):
+        for line in text.splitlines():
+            log(f"launcher {what}: {line}")
+    a, b = (step_losses(x, "train launcher") for x in (first, second))
+    steps = int(LAUNCH_TRAIN[LAUNCH_TRAIN.index("--steps") + 1])
+    if f"resumed from step {steps}" not in second.splitlines() or \
+            len(a) != steps or len(b) != steps:
+        raise AssertionError(f"train launcher: {len(a)} then {len(b)} "
+                             f"steps; the second run did not resume from "
+                             f"step {steps}")
+    t0 = time.perf_counter()
+    served = run_launcher("repro_torch.launch.serve", LAUNCH_SERVE)
+    serve_s = time.perf_counter() - t0
+    line = next((x for x in served.splitlines()
+                 if x.startswith("served ")), "")
+    log(f"launcher serve: {line}")
+    if not line.startswith("served 8 requests / 128 tokens"):
+        raise AssertionError(f"serve launcher printed {served!r}")
+    after = sorted(p.name for p in _build.BUILD_ROOT.iterdir())
+    if after != built:
+        raise AssertionError(f"the launchers built {set(after) - set(built)}")
+    return {"train_s": train_s, "serve_s": serve_s, "losses": a + b}
 
 
 # ---------------------------------------------------------------------------
@@ -4883,7 +5326,9 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
-        f"count {torch.cuda.device_count()}; nvidia-smi: {smi}")
+        f"count {torch.cuda.device_count()}; nvidia-smi: {smi}; host "
+        f"memory available {host_free_gib():.1f} GiB, {os.cpu_count()} "
+        f"cores")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
@@ -5136,8 +5581,11 @@ def main() -> int:
 
     # -- the training path, counted from zero per step ----------------------
     phase("15 training")
-    train_launches, step_ms, mla_launches, f32_bwd = training_phase()
+    train_launches, step_ms, mla_launches, f32_bwd, families = \
+        training_phase()
     rows["flash_attention_causal_bwd/tf32x3"]["launches"] = f32_bwd
+    for name in ("flash_attention_causal", "flash_attention_causal_bwd"):
+        rows[name]["family_training_launches"] = families[name]
     rows["flash_attention_causal_bwd"]["launches"] = \
         train_launches["flash_attention_causal_bwd"]
     rows["flash_attention_causal_bwd"]["mla_training_launches"] = \

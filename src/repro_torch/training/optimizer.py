@@ -3,7 +3,8 @@ global-norm clip: the port of ``repro.training.optimizer``.
 
 Functions of nested dicts of tensors, as the reference's are of pytrees:
 ``adamw_update`` returns new parameter and state trees and leaves its
-inputs as they are. It runs under ``torch.no_grad``. Arithmetic follows
+inputs as they are (or, donated, writes the new values over them). It
+runs under ``torch.no_grad``. Arithmetic follows
 the reference's op for op in float32 (the bias corrections as float32
 powers of the step), so the same inputs give the same bits up to the
 backend's rounding of ``sqrt`` and ``pow``.
@@ -77,12 +78,45 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+#: elements of a leaf that a donated update takes at once (each float32
+#: temporary of a slice is 256 MiB): a 1.6 G-element embedding would
+#: otherwise hold several 6.3 GB temporaries at once
+DONATE_CHUNK = 1 << 26
+
+
+def _in_place(upd, p, g, m, v):
+    """``upd`` over DONATE_CHUNK-element slices of one leaf, each slice's
+    new parameter and moments written over its old ones: the same
+    elementwise arithmetic, so the same bits, with no second copy of the
+    leaf. Returns the leaf's (parameter, m, v), updated."""
+    if getattr(p, "device_mesh", None) is not None:
+        raise TypeError("a donated update takes plain tensors")
+    if not all(x.is_contiguous() for x in (p, m, v)):
+        raise ValueError("a donated update writes contiguous leaves")
+    flat = [x.view(-1) for x in (p, m, v)]
+    grad = g.reshape(-1)
+    for lo in range(0, p.numel(), DONATE_CHUNK):
+        part = slice(lo, lo + DONATE_CHUNK)
+        new = upd(flat[0][part], grad[part], flat[1][part], flat[2][part],
+                  p.dim() >= 2)
+        for dst, src in zip(flat, new):
+            dst[part].copy_(src)
+    return p, m, v
+
+
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig()
+def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig(),
+                 donate: bool = False
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: gradients clipped to ``cfg.clip_norm`` by their
     global norm, decoupled weight decay on leaves of two or more dims.
-    Returns (new params, new state, {"grad_norm": norm})."""
+    Returns (new params, new state, {"grad_norm": norm}).
+
+    ``donate`` (the reference's jitted step donates its parameters and
+    state): the new parameters and moments are written over the old
+    ones, a slice of a leaf at a time, so the step never holds a second
+    copy of either tree (plain contiguous tensors only); the returned
+    trees hold the same tensors. The same bits either way."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -91,18 +125,23 @@ def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig()
     b1c = 1.0 - torch.pow(cfg.b1, stepf)       # float32, on the device
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, decay):
         g = g.float() * scale
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         mh, vh = m / b1c, v / b2c
         delta = mh / (torch.sqrt(vh) + cfg.eps)
-        if p.dim() >= 2:
+        if decay:
             delta = delta + cfg.weight_decay * p.float()
         new_p = (p.float() - cfg.lr * delta).to(p.dtype)
         return new_p, m, v
 
-    out = _map(upd, params, grads, state["m"], state["v"])
+    if donate:
+        out = _map(lambda *leaves: _in_place(upd, *leaves), params, grads,
+                   state["m"], state["v"])
+    else:
+        out = _map(lambda p, g, m, v: upd(p, g, m, v, p.dim() >= 2),
+                   params, grads, state["m"], state["v"])
 
     def pick(node, i):
         if isinstance(node, dict):

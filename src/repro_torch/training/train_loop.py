@@ -6,11 +6,13 @@ port of ``repro.training.train_loop``.
 jitted step is: the loss and its gradient by autograd (fresh leaves each
 step, so no ``.grad`` carries over), microbatches summed into float32
 gradients as the reference's ``scan`` sums them, optional int8
-compression, then ``adamw_update``, which returns new trees. ``Trainer``
-adds checkpoint/restart (bitwise resumable given the same data order),
-heartbeat and straggler monitoring and a history. It runs on the card
-unless the caller passes ``device="cpu"``; a step's time brackets a
-synchronisation of its loss, as the reference's ``block_until_ready``.
+compression, then ``adamw_update``, which returns new trees (in
+``Trainer``'s step it writes them over the old ones, as the reference's
+step donates them). ``Trainer`` adds checkpoint/restart (bitwise
+resumable given the same data order), heartbeat and straggler monitoring
+and a history. It runs on the card unless the caller passes
+``device="cpu"``; a step's time brackets a synchronisation of its loss,
+as the reference's ``block_until_ready``.
 
 The step takes ``DTensor``s as well: parameters, AdamW state and batch
 placed by ``parallel.sharding``'s ``param_shardings``,
@@ -63,7 +65,12 @@ def value_and_grad(params, batch, cfg: ModelConfig):
         for (k, v), g in zip(flat.items(), grads)})
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    donate: bool = False) -> Callable:
+    """``donate``: the step writes its new parameters and AdamW state
+    over the ``params`` and ``opt_state`` it is given
+    (``adamw_update(donate=True)``), as the reference's ``jax.jit(...,
+    donate_argnums=(0, 1))`` reuses their buffers."""
     def train_step(params, opt_state, batch):
         if tcfg.microbatch and tcfg.microbatch > 1:
             mb = tcfg.microbatch
@@ -87,7 +94,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         if tcfg.compression is not None:
             grads = compress_grads(grads, tcfg.compression)
         params, opt_state, metrics = opt_mod.adamw_update(
-            params, grads, opt_state, tcfg.adamw)
+            params, grads, opt_state, tcfg.adamw, donate=donate)
         return params, opt_state, {"loss": loss, **metrics}
     return train_step
 
@@ -99,7 +106,9 @@ class Trainer:
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
         self.data = data
-        self.step_fn = make_train_step(cfg, tcfg)
+        # the step updates the trees the Trainer holds in place (params
+        # given by the caller included)
+        self.step_fn = make_train_step(cfg, tcfg, donate=True)
         self.params = params if params is not None else tf.init_params(
             cfg, torch.Generator(device=self.device).manual_seed(seed),
             self.device)

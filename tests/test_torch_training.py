@@ -133,6 +133,77 @@ def test_adamw_update_matches_reference(dtype, steps):
     assert s_port["step"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("chunk", [1 << 26, 100, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_donated_update_is_the_same_bits(monkeypatch, dtype, chunk):
+    """``adamw_update(donate=True)``: the same parameters, moments, step
+    and grad norm bit for bit as the undonated update, a leaf larger than
+    ``DONATE_CHUNK`` taken in slices (100 and 7 elements cut every leaf
+    here), each written over its input tensor."""
+    tdt = getattr(torch, dtype)
+    base = _random_tree(0, dtype)
+    g = _random_tree(10, dtype)
+    want = opt.adamw_update(_to_port(base, tdt), _to_port(g, tdt),
+                            opt.init_opt_state(_to_port(base, tdt)))
+    monkeypatch.setattr(opt, "DONATE_CHUNK", chunk)
+    params, grads = _to_port(base, tdt), _to_port(g, tdt)
+    state = opt.init_opt_state(params)
+    got = opt.adamw_update(params, grads, state, donate=True)
+    for a, b in zip(got[:2], want[:2]):
+        fa, fb = _flat(a), _flat(b)
+        assert fa.keys() == fb.keys()
+        for name in fa:
+            assert fa[name].dtype == fb[name].dtype
+            assert torch.equal(fa[name], fb[name]), name
+    assert torch.equal(got[2]["grad_norm"], want[2]["grad_norm"])
+    for new, old in ((got[0], params), (got[1]["m"], state["m"]),
+                     (got[1]["v"], state["v"])):
+        assert all(a is b for a, b in zip(_flat(new).values(),
+                                          _flat(old).values()))
+
+
+def test_trainer_step_donates_its_trees():
+    """``Trainer``'s step writes its new parameters and moments over the
+    tensors it holds, as the reference's step reuses the buffers it
+    donates (``jax.jit(..., donate_argnums=(0, 1))``), so a step never
+    holds two whole copies of the parameters and AdamW moments; the
+    parameters equal an undonated step's bit for bit (on one thread: the
+    CPU sums the ``embed`` gradient's rows in a thread-dependent
+    order)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _donated_trainer_step()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _donated_trainer_step():
+    cfg, _ = _cfgs()
+    data = _data(cfg.vocab_size)
+    batch = next(data)
+    data.close()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(2),
+                                     "cpu")
+    copy = {k: v.clone() for k, v in layers.flatten(params).items()}
+    trainer = Trainer(cfg, TrainConfig(steps=1, log_every=100),
+                      iter([batch]), params=params, device="cpu")
+    held = [layers.flatten(t) for t in (params, trainer.opt_state["m"],
+                                         trainer.opt_state["v"])]
+    trainer.run(1)
+    for old, new in zip(held, (trainer.params, trainer.opt_state["m"],
+                               trainer.opt_state["v"])):
+        new = layers.flatten(new)
+        assert old.keys() == new.keys()
+        assert all(old[k] is new[k] for k in old)
+    copy = layers.unflatten(copy)
+    want, _, _ = make_train_step(cfg, TrainConfig())(
+        copy, opt.init_opt_state(copy),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    for name, p in layers.flatten(want).items():
+        assert torch.equal(layers.flatten(trainer.params)[name], p), name
+
+
 def test_global_norm_and_abstract_state():
     tree = _random_tree(3, "float32")
     np.testing.assert_allclose(np_(opt.global_norm(_to_port(tree))),
