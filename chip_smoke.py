@@ -350,9 +350,19 @@ the JAX package. Phases, each of which must pass:
    gradient with parameters and batch as DTensors placed by
    ``parallel.sharding``, under the activation hints, give the plain
    tensors' bits and the same launches through the kernels' operators.
-   Last, ``python -m repro_torch.launch.dryrun --mesh local`` for
+   Then ``python -m repro_torch.launch.dryrun --mesh local`` for
    smollm-360m's three supported shapes (each cell ``ok``) and their
-   roofline rows, beside the card's name and power limit.
+   roofline rows, beside the card's name and power limit. Last, two
+   production-mesh cells at published widths (``dryrun_production``):
+   mistral-nemo-12b's ``decode_32k`` and ``prefill_32k`` on the (16, 16)
+   (data, model) mesh, each in a process of its own, both started with
+   the phase and held at its end (they are host work beside its steps). Its
+   32 query heads shard over ``model`` and its 8 KV heads do not, so the
+   kernels' group split gathers the heads first; each cell must be
+   ``ok``, reach its kernel's operator once a layer, and hold its
+   ``memory.argument_bytes`` equal to rank 0's bytes of parameters,
+   batch and cache reckoned from the config and the sharding specs
+   (``launch.specs.argument_bytes``).
 
 17. the ``mesh=`` substrate: ``BohmEngine(mesh=)`` on a 4-rank ``cc``
    mesh (``launch.mesh.cc_mesh``) at the paper's scale —
@@ -392,14 +402,20 @@ the JAX package. Phases, each of which must pass:
    writes); then a new world of ``plan_remesh(2, model_parallel=2)``'s 2
    ranks on (1, 2) restores with ``shardings=`` (each rank reading its
    own shards of the files), holds the restored state, gathered, to the
-   files bit for bit, and takes 2 steps. Three configurations in each
-   world: smollm-360m whole (32 layers, d_model 960, 15 / 5 heads, Dh
-   64, vocab 49,152) in bf16, remat "full", B=8 x S=2,048 (its 5 KV heads
+   files bit for bit, and takes 2 steps. Four configurations in each
+   world: smollm-360m at 8 of its 32 layers (d_model 960, 15 / 5
+   heads, Dh 64, vocab 49,152; cut to keep the smoke inside its time
+   limit) in bf16, remat "full", B=8 x S=2,048 (its 5 KV heads
    do not divide ``model``, so rows 5 and 5b run on batch shards, on
    the ``wgmma`` routes); the same at 2 layers in float32, B=4 x S=512;
    reduced smollm-360m in float32, B=4 x S=256, whose 2 KV heads shard
    over ``model`` (rows 5 and 5b on head shards, on the ``tf32x3``
-   routes). The two float32 runs must match the same 5 steps run
+   routes); and the GQA-split case, the same reduced model in float32
+   with 6 query and 3 KV heads (B=4 x S=256): ``model`` = 2 shards the
+   query heads but not the KV heads, so the group split
+   (``layers.split_groups``) gathers the query heads over ``model``
+   first and rows 5 and 5b run on batch shards holding all 3 KV heads.
+   The three float32 runs must match the same 5 steps run
    unsharded on one card: each loss, and the gradient at each world's
    start (the same parameters and batch), within 1e-3 (phase 15's
    float32 limit, worst leaf); the saved parameters after each world
@@ -410,7 +426,7 @@ the JAX package. Phases, each of which must pass:
    cannot resolve where a gradient sits at the runs' difference); the
    elements whose gradient at their first nonzero update lies below the
    sharded-unsharded start-gradient gap are counted and printed beside.
-   The two float32 cases run again as the control replay
+   The three float32 cases run again as the control replay
    (``f64_embed_grad``): the ``embed`` lookup's gradient summed in
    float64 over the whole batch in the sharded and the unsharded run
    alike, held as the default replay is. Step 1's gradient of the four
@@ -472,6 +488,7 @@ from benchmarks_torch import snapshot as snapshot_suite  # noqa: E402
 from benchmarks_torch.arena import check_headline, markdown_pivot  # noqa: E402
 from benchmarks_torch.common import (card_line, round_table,  # noqa: E402
                                      row_mismatches)
+from benchmarks_torch.dryrun_sweep import MESHES  # noqa: E402
 from repro_torch.arena import (PROTOCOL_NAMES, ArenaCell,  # noqa: E402
                                default_scenarios, make_protocols, run_cell,
                                run_gauntlet)
@@ -4197,11 +4214,106 @@ def dryrun_local(arch=TRAIN_ARCH, timeout=300):
     return records, rows, run.stdout
 
 
+#: phase 16's production-mesh cells: (arch, shapes, mesh), each shape in a
+#: process of its own, both at once
+PRODUCTION_CELLS = ("mistral-nemo-12b", ("decode_32k", "prefill_32k"),
+                    "single")
+PRODUCTION_KERNEL = {"decode_32k": "repro_torch::decode_attention",
+                     "prefill_32k": "repro_torch::flash_attention_causal"}
+
+
+def dryrun_production(arch=PRODUCTION_CELLS[0], shapes=PRODUCTION_CELLS[1],
+                      mesh=PRODUCTION_CELLS[2], timeout=600):
+    """``python -m repro_torch.launch.dryrun --arch <arch> --shape <s>
+    --mesh <mesh>`` for each shape, at published widths on fake tensors
+    on the card, each in a process of its own, all started together.
+    Each cell must be ``ok``, its ``memory.argument_bytes`` must equal
+    rank 0's bytes reckoned from the config and the sharding specs
+    (``launch.specs.argument_bytes``, no step run) and its attention must
+    reach the kernel's operator (``PRODUCTION_KERNEL``, counted by
+    formula), once a layer. Returns {shape: (record, reckoned bytes,
+    seconds)}."""
+    from repro_torch.launch import specs
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               REPRO_SEQUENCE_PARALLEL="0")
+    cfg = get_config(arch)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for shape in shapes:
+            path = Path(tmp) / f"{shape}.json"
+            procs[shape] = (path, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", str(path)], env=env, cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            for shape, (path, t0, proc) in procs.items():
+                _, err = proc.communicate(timeout=timeout)
+                secs = time.perf_counter() - t0
+                if proc.returncode != 0 or not path.exists():
+                    raise AssertionError(f"dry run {arch} {shape} {mesh} "
+                                         f"exited {proc.returncode}: "
+                                         f"{err[-2000:]}")
+                out[shape] = (json.loads(path.read_text())[
+                    f"{arch}|{shape}|{mesh}"], secs)
+        finally:
+            for _, _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for shape, (rec, secs) in out.items():
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: {rec}")
+        want = specs.argument_bytes(cfg, shape, MESHES[mesh])
+        if rec["memory"]["argument_bytes"] != want["total"]:
+            raise AssertionError(
+                f"dry run {arch} {shape} {mesh}: argument bytes "
+                f"{rec['memory']['argument_bytes']} != reckoned {want}")
+        op = PRODUCTION_KERNEL[shape]
+        if rec["kernels"].get(op) != cfg.num_layers:
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: kernel "
+                                 f"calls {rec['kernels']}, want {op} "
+                                 f"x {cfg.num_layers}")
+        out[shape] = (rec, want, secs)
+    return out
+
+
 def roofline_phase(step_ms: float, device="cuda"):
     """Phase 16 (see the module doc)."""
     from repro_torch.launch import roofline
     smi = nvidia_smi()
     t0 = time.perf_counter()
+    # the production cells' processes (host work, fake tensors) run beside
+    # the phase's own steps; their results are held at the phase's end
+    pool = ThreadPoolExecutor(1)
+    production = pool.submit(dryrun_production)
+    try:
+        _roofline_checks(step_ms, device, roofline, smi)
+        cells = production.result()
+    finally:
+        pool.shutdown(wait=True)
+    arch, _, mesh = PRODUCTION_CELLS
+    for shape, (rec, want, secs) in cells.items():
+        mem = rec["memory"]
+        row = roofline.analyze_cell(f"{arch}|{shape}|{mesh}", rec)
+        log(f"dry run {arch}|{shape}|{mesh} ({rec['devices']} cards, "
+            f"published widths, fake tensors on the card): ok in "
+            f"{secs:.1f} s (run {rec['compile_s']} s); argument bytes "
+            f"{mem['argument_bytes']} == reckoned {want}; peak per device "
+            f"{mem['peak_bytes_per_device'] / 2 ** 30:.3f} GiB; kernels "
+            f"{rec['kernels']}; dot flops {rec['jaxpr']['dot_flops']:.6g};"
+            f" collective bytes {rec['collectives']['total_bytes']:.6g}; "
+            f"roofline row: {roofline.fmt_row(row)}")
+    log(f"production-mesh cells: {len(cells)} run together beside the "
+        f"phase's other work; {smi}")
+    log(f"roofline phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
+
+
+def _roofline_checks(step_ms, device, roofline, smi):
+    """Phase 16's step counts, one-rank DTensor step and local dry run
+    (``roofline_phase``)."""
     cfg = get_config(TRAIN_ARCH)
     fake_run, live, peak_gib, fake_s, live_s = train_step_counts(device)
     costs = fake_run["jaxpr"]
@@ -4260,7 +4372,6 @@ def roofline_phase(step_ms: float, device="cuda"):
             for k, r in records.items() if r["status"] == "ok"))
     for r in rows:
         log(f"roofline row: {roofline.fmt_row(r)}; {smi}")
-    log(f"roofline phase: {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
 
 
 # ---------------------------------------------------------------------------
@@ -4603,14 +4714,31 @@ ARBITER_TOL = 1e-5
 
 #: the control replay's case names: the float32 case's, then this
 CONTROL = "_f64embed"
+#: the bf16 case's depth: 8 of smollm-360m's 32 layers, which keeps the
+#: whole smoke inside its time limit with the GQA-split case
+ELASTIC_BF16_LAYERS = 8
+
+
+def gqa_split_config():
+    """Phase 18's GQA-split case: reduced smollm-360m (2 layers, d_model
+    64, Dh 16) in float32 with 6 query and 3 KV heads, so ``model`` = 2
+    shards the query heads but not the KV heads and the flash kernels'
+    group split (``layers.split_groups``) gathers the heads first."""
+    from repro_torch.configs import reduced_config
+    return dataclasses.replace(reduced_config(TRAIN_ARCH), dtype="float32",
+                               num_heads=6, num_kv_heads=3)
 
 
 def elastic_cases(reduced=None, control=True):
-    """Phase 18's configurations (see the module doc): smollm-360m whole
-    in bf16 (B=8, S=2,048; its 15 / 5 heads do not divide ``model`` = 2,
-    so the flash kernels run on batch shards), the same at 2 layers in
-    float32 (B=4, S=512) and reduced smollm-360m in float32 (B=4,
-    S=256; 4 / 2 heads, so they run on head shards too). ``reduced``
+    """Phase 18's configurations (see the module doc): smollm-360m at
+    ELASTIC_BF16_LAYERS of its 32 layers in bf16 (B=8, S=2,048; its 15 /
+    5 heads do not divide ``model`` = 2, so the flash kernels run on
+    batch shards), the same at 2 layers in
+    float32 (B=4, S=512), reduced smollm-360m in float32 (B=4, S=256; 4
+    / 2 heads, so they run on head shards too) and the GQA-split case
+    (``gqa_split_config``: 6 / 3 heads, B=4, S=256; the query heads
+    shard over ``model`` and are gathered before the group split, so the
+    kernels run on batch shards with every KV head). ``reduced``
     replaces the configurations (a CPU rehearsal). Each: name, config,
     batch, sequence, seed of the weights and of the data, whether it is
     held against an unsharded run (float32), its starting parameters
@@ -4621,12 +4749,13 @@ def elastic_cases(reduced=None, control=True):
     from repro_torch.configs import reduced_config
     full = get_config(TRAIN_ARCH)
     cases = reduced or [
-        ("bf16", dataclasses.replace(full, dtype="bfloat16", remat="full"),
-         8, 2048),
+        ("bf16", dataclasses.replace(full, dtype="bfloat16", remat="full",
+                                     num_layers=ELASTIC_BF16_LAYERS), 8, 2048),
         ("f32_2layers", dataclasses.replace(full, num_layers=2,
                                             dtype="float32"), 4, 512),
         ("f32_reduced", dataclasses.replace(reduced_config(TRAIN_ARCH),
-                                            dtype="float32"), 4, 256)]
+                                            dtype="float32"), 4, 256),
+        ("f32_gqa_split", gqa_split_config(), 4, 256)]
     out = [dict(name=n, cfg=c, batch=b, seq=s, seed=18, data_seed=3,
                 held=c.dtype == "float32", params=None, f64_embed=False)
            for n, c, b, s in cases]

@@ -34,13 +34,20 @@ every storage an op makes on this rank, freed when its last tensor dies)
 — ``argument_bytes`` the inputs', ``output_bytes`` the results',
 ``alias_bytes`` the results' that are inputs' storages (a decode step
 writes its cache in place), ``peak_bytes_per_device`` the peak and
-``temp_bytes`` the rest; ``cost`` repeats the dispatch walk's flops and
+``temp_bytes`` the rest (DTensor's own runs of an op at global shapes,
+which derive its output's metadata, are not counted:
+``meta_runs_excluded`` says whether this torch let the tracker see
+them apart); ``cost`` repeats the dispatch walk's flops and
 bytes (the port has no compiler cost analysis); ``jaxpr`` is
 ``counting.dispatch_costs`` (name kept for the roofline);
 ``collectives`` is ``counting.collective_costs`` of what DTensor issued.
 A cell that fails — DTensor has no strategy for an op, say — is
 recorded as ``{"status": "error", "error", "op", "trace"}``, never
-patched over.
+patched over. DTensor's redistribution plans are cached over the counted
+run (``_transform_plans_cached``). DTensor keeps state between cells of
+one process, so a cell's record can depend on the cells run before it
+in the same process; ``benchmarks_torch/dryrun_sweep.py`` runs each cell
+in a process of its own, in parallel, and checks every record.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ import functools
 import json
 import os
 import re
+import threading
 import time
 import traceback
 import weakref
@@ -90,11 +98,54 @@ def _storage_key(t: torch.Tensor):
     return st._cdata, st.nbytes()
 
 
+#: depth of DTensor's output-metadata propagation on this thread (see
+#: ``_meta_propagation_marked``)
+_PROPAGATING = threading.local()
+
+
+def _propagating() -> bool:
+    return getattr(_PROPAGATING, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _meta_propagation_marked():
+    """DTensor derives an op's output shape by running the op on fake
+    tensors of the GLOBAL shapes (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, uncached under a fake mode); the
+    first time a fake mode meets an op those calls reach the modes below
+    it, so ``PeakTracker`` counted whole-tensor storages that no rank
+    holds (a first cell of a process read up to 8x the peak of the same
+    cell run again). While it runs, this marks the thread, and the
+    tracker holds nothing. Yields whether the method was found (a torch
+    without it runs as it is)."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    name = "_propagate_tensor_meta_non_cached"
+    orig = ShardingPropagator.__dict__.get(name)
+    if orig is None:
+        yield False
+        return
+
+    @functools.wraps(orig)
+    def marked(self, *args, **kwargs):
+        _PROPAGATING.depth = getattr(_PROPAGATING, "depth", 0) + 1
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            _PROPAGATING.depth -= 1
+
+    setattr(ShardingPropagator, name, marked)
+    try:
+        yield True
+    finally:
+        setattr(ShardingPropagator, name, orig)
+
+
 class PeakTracker(TorchDispatchMode):
     """Live bytes of this rank's tensors: each storage an op returns
     counts from its first tensor until its last is collected. Enter it
     BELOW a ``DTensor``-aware mode (before it), so it sees the local
-    shards."""
+    shards; inside ``_meta_propagation_marked`` it skips DTensor's
+    global-shape metadata runs."""
 
     def __init__(self):
         super().__init__()
@@ -124,6 +175,8 @@ class PeakTracker(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if _propagating():
+            return out
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self.hold(t)
@@ -176,6 +229,29 @@ def _strided_offsets_unfaked():
         _StridedShard.local_shard_size_and_offset = orig
 
 
+@contextlib.contextmanager
+def _transform_plans_cached():
+    """torch's DTensor prices each candidate strategy of each op by
+    planning its redistributions, and under a ``FakeTensorMode`` it
+    plans with ``_gen_transform_infos_non_cached`` (a traced shape may
+    be symbolic), where it takes a cached planner otherwise. The dry
+    run's fake tensors have concrete shapes, so the plans are cached here
+    by their (hashable) source and target specs: on a (2, 16, 16) mesh
+    the uncached graph search was most of a cell's time (a reduced GQA
+    train cell on a CPU: 224 s uncached, 50 s cached). Restored
+    on exit; a torch without the function runs as it is."""
+    from torch.distributed.tensor import _redistribute as red
+    orig = getattr(red, "_gen_transform_infos_non_cached", None)
+    if orig is None:
+        yield
+        return
+    red._gen_transform_infos_non_cached = functools.lru_cache(None)(orig)
+    try:
+        yield
+    finally:
+        red._gen_transform_infos_non_cached = orig
+
+
 def make_mesh(mesh_kind: str, device=None):
     if mesh_kind == "local":
         return make_local_mesh(device)
@@ -208,8 +284,13 @@ def measure(fn, args, fake_mode, mesh=None,
         holder["out"] = fn(*a)
         return holder["out"]
 
+    # the backward on this thread: autograd runs a CUDA backward (remat's
+    # recompute included) on a device thread, which sees none of the
+    # activation hints' context variables
     with fake_mode, tracker, implicit_replication(), \
-            _strided_offsets_unfaked(), hints, counter:
+            _strided_offsets_unfaked(), _transform_plans_cached(), \
+            _meta_propagation_marked() as marked, hints, counter, \
+            torch.autograd.set_multithreading_enabled(False):
         jc = dispatch_costs(step, *args)
     out = holder.pop("out")
     out_bytes = _bytes(out)
@@ -220,6 +301,7 @@ def measure(fn, args, fake_mode, mesh=None,
     kernels = jc.pop("kernels")
     return {
         "compile_s": round(time.time() - t0, 1),
+        "meta_runs_excluded": marked,
         "memory": {
             "argument_bytes": int(arg_bytes),
             "output_bytes": int(out_bytes),
@@ -263,6 +345,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, device=None,
         "collectives": m["collectives"],
         "model": {"params": int(cfg.num_params()),
                   "active_params": int(cfg.num_active_params())},
+        "meta_runs_excluded": m["meta_runs_excluded"],
     }
 
 
@@ -302,9 +385,12 @@ def main(argv=None):
                     res = run_cell(arch, shape, mesh_kind,
                                    device=args.device, reduced=args.reduced)
                 except Exception as e:  # noqa: BLE001 — record and continue
+                    tb = traceback.format_exc()
+                    port = "".join(line for line in tb.splitlines(True)
+                                   if "/repro_torch/" in line)
                     res = {"status": "error", "error": repr(e)[:2000],
                            "op": _failed_op(repr(e)),
-                           "trace": traceback.format_exc()[-2000:]}
+                           "trace": port[-2000:] + tb[-2000:]}
                 results[key] = res
                 out_path.write_text(json.dumps(results, indent=1))
                 status = res["status"]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -81,41 +82,45 @@ def _bsh(mesh, shape):
 # ---------------------------------------------------------------------------
 # Abstract inputs
 # ---------------------------------------------------------------------------
-def train_batch_specs(cfg: ModelConfig, mesh, seq: int, batch: int,
-                      device, fake_mode) -> Dict[str, Any]:
-    def sds(shape, dtype):
-        return abstract(shape, dtype, _bsh(mesh, shape), mesh, device,
-                        fake_mode)
-
+def batch_shapes(cfg: ModelConfig, seq: int, batch: int, kind: str
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The batch of a train or prefill cell: {name: (shape, dtype)}."""
     i32, bf16 = torch.int32, torch.bfloat16
+    train = kind == "train"
     if cfg.frontend == "patches":
         n_txt = seq - cfg.num_patches
-        return {"tokens": sds((batch, n_txt), i32),
-                "labels": sds((batch, n_txt), i32),
-                "patches": sds((batch, cfg.num_patches, VISION_EMBED_DIM),
-                               bf16)}
-    out = {"tokens": sds((batch, seq), i32), "labels": sds((batch, seq), i32)}
-    if cfg.enc_dec:
-        out["frames"] = sds((batch, seq, AUDIO_FEAT_DIM), bf16)
+        out = {"tokens": ((batch, n_txt), i32)}
+        if train:
+            out["labels"] = ((batch, n_txt), i32)
+        out["patches"] = ((batch, cfg.num_patches, VISION_EMBED_DIM), bf16)
+        return out
+    if cfg.enc_dec and not train:
+        return {"frames": ((batch, seq, AUDIO_FEAT_DIM), bf16),
+                "tokens": ((batch, 1024), i32)}
+    out = {"tokens": ((batch, seq), i32)}
+    if train:
+        out["labels"] = ((batch, seq), i32)
+        if cfg.enc_dec:
+            out["frames"] = ((batch, seq, AUDIO_FEAT_DIM), bf16)
     return out
+
+
+def _batch_specs(cfg, mesh, seq, batch, kind, device, fake_mode):
+    return {k: abstract(shape, dtype, _bsh(mesh, shape), mesh, device,
+                        fake_mode)
+            for k, (shape, dtype) in batch_shapes(cfg, seq, batch,
+                                                  kind).items()}
+
+
+def train_batch_specs(cfg: ModelConfig, mesh, seq: int, batch: int,
+                      device, fake_mode) -> Dict[str, Any]:
+    return _batch_specs(cfg, mesh, seq, batch, "train", device, fake_mode)
 
 
 def prefill_batch_specs(cfg: ModelConfig, mesh, seq: int, batch: int,
                         device, fake_mode) -> Dict[str, Any]:
-    def sds(shape, dtype):
-        return abstract(shape, dtype, _bsh(mesh, shape), mesh, device,
+    return _batch_specs(cfg, mesh, seq, batch, "prefill", device,
                         fake_mode)
-
-    i32, bf16 = torch.int32, torch.bfloat16
-    if cfg.frontend == "patches":
-        n_txt = seq - cfg.num_patches
-        return {"tokens": sds((batch, n_txt), i32),
-                "patches": sds((batch, cfg.num_patches, VISION_EMBED_DIM),
-                               bf16)}
-    if cfg.enc_dec:
-        return {"frames": sds((batch, seq, AUDIO_FEAT_DIM), bf16),
-                "tokens": sds((batch, 1024), i32)}
-    return {"tokens": sds((batch, seq), i32)}
 
 
 def cache_specs(cfg: ModelConfig, mesh, seq: int, batch: int, device,
@@ -182,6 +187,66 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     def serve_step(params, cache, tokens):
         return tf.decode_step(params, cache, tokens, cfg)
     return serve_step
+
+
+def rank0_bytes(shape, dtype: torch.dtype, spec, mesh) -> int:
+    """Bytes of rank 0's shard of a ``shape`` tensor placed by ``spec``
+    (``parallel.sharding``'s form) on ``mesh`` (a ``DeviceMesh`` or
+    {axis: size}; None: whole): each dim split over its mesh axes in
+    turn, rank 0 taking the first chunk, ceil(n / size), as DTensor's
+    ``Shard`` gives it."""
+    local = list(shape)
+    sizes = shd.mesh_shape(mesh) if mesh is not None else {}
+    for d, entry in enumerate(spec or ()):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None:
+                local[d] = -(-local[d] // sizes[axis])
+    return int(np.prod(local, dtype=np.int64)) * dtype.itemsize
+
+
+def argument_bytes(cfg: ModelConfig, shape_name: str, mesh,
+                   shape: Optional[Dict[str, Any]] = None) -> Dict[str, int]:
+    """Rank 0's bytes of a cell's arguments, reckoned from the config's
+    shapes and ``parallel.sharding``'s specs (no step runs; the cache's
+    shapes come from ``init_cache`` on fake tensors): ``params``,
+    ``opt`` (train: AdamW's float32 m and v placed as their parameters,
+    the int32 step), ``batch`` (train / prefill: ``batch_shapes``; decode:
+    the [B, 1] tokens), ``cache`` (decode) and their ``total``: what
+    ``launch.dryrun``'s ``memory.argument_bytes`` must equal. ``mesh``:
+    a ``DeviceMesh`` or {axis: size}; ``shape`` replaces
+    ``SHAPES[shape_name]`` as in ``build_cell``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    info = shape if shape is not None else SHAPES[shape_name]
+    seq, batch, kind = info["seq"], info["batch"], info["kind"]
+    defs = tf.param_defs(cfg)
+
+    def param_bytes(mode, dtype=None):
+        sh = layers.flatten(shd.param_shardings(cfg, mesh, mode)) \
+            if mesh is not None else {}
+        return sum(rank0_bytes(d.shape, dtype or tf._dtype(d, cfg),
+                               sh.get(k), mesh) for k, d in defs.items())
+
+    def spec(shape_):
+        return _bsh(mesh, shape_)
+
+    out = {"params": param_bytes("train" if kind == "train" else "serve")}
+    if kind == "train":
+        out["opt"] = 2 * param_bytes("train", torch.float32) + 4
+    if kind in ("train", "prefill"):
+        out["batch"] = sum(rank0_bytes(s, dt, spec(s), mesh) for s, dt in
+                           batch_shapes(cfg, seq, batch, kind).values())
+    else:
+        out["batch"] = rank0_bytes((batch, 1), torch.int32,
+                                   spec((batch, 1)), mesh)
+        with FakeTensorMode():
+            cache = tf.init_cache(cfg, batch, seq, torch.bfloat16, "cpu")
+        specs = layers.flatten(shd.cache_shardings(cfg, mesh, cache)) \
+            if mesh is not None else {}
+        out["cache"] = sum(rank0_bytes(tuple(t.shape), t.dtype,
+                                       specs.get(k), mesh)
+                           for k, t in layers.flatten(cache).items())
+    out["total"] = sum(out.values())
+    return out
 
 
 def build_cell(arch: str, shape_name: str, mesh, *,

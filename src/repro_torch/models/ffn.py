@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import ParamDef, squared_relu
-from repro_torch.parallel.constraints import constrain_batch
+from repro_torch.parallel.constraints import constrain_batch, one_axis_batch
 
 
 def dense_defs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamDef]:
@@ -128,7 +128,10 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     rank = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     rank = rank.gather(1, flat_e[:, None])[:, 0]              # rank BEFORE self
     keep = rank < c
-    slot = torch.where(keep, flat_e * c + rank, e * c)        # drop -> sentinel
+    # the slots sharded over one mesh dim at most: torch's DTensor has no
+    # index_select strategy (the combine, and the dispatch's backward) for
+    # indices sharded over two
+    slot = one_axis_batch(torch.where(keep, flat_e * c + rank, e * c))
     xr = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
     buf = xt.new_zeros((e * c + 1, d)).index_add_(
         0, slot, torch.where(keep[:, None], xr, 0))

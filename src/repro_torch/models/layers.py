@@ -19,6 +19,12 @@ code, which no Pallas kernel of the reference computes either.
 ``BLOCKWISE`` counts the calls that ran the torch code; the kernels'
 launches are counted by ``kernels.ops.LAUNCHES``.
 
+Every split of the query heads into (KvH, G) goes through
+``split_groups`` and every merge back through ``merge_groups``: on a
+DTensor whose heads shard over a mesh dim that divides H but not KvH
+(``model`` = 16 against 8 KV heads) they gather the heads first; on a
+plain tensor they are the reshapes they replace.
+
 The blockwise code pins q, k and v with the reference's
 ``constrain_batch`` hints (``repro_torch.parallel.constraints``: the
 identity without an active mesh or on a plain tensor). Left out: the
@@ -181,11 +187,58 @@ def squared_relu(x: torch.Tensor) -> torch.Tensor:
 # Blockwise (flash-style) attention: the reference's jnp functions, and the
 # routes to the kernels on CUDA tensors.
 # ---------------------------------------------------------------------------
+#: ``_f32_dot``'s gradient pin on DTensors: torch before 2.13 only
+_PIN_PRODUCT_GRADS = torch.torch_version.TorchVersion(
+    torch.__version__) < (2, 13)
+
+
+def grad_as_forward(t: torch.Tensor) -> torch.Tensor:
+    """``t``, and on a DTensor that takes a gradient, ``t`` through a
+    ``redistribute`` to its own placements: nothing moves forward, and
+    the backward brings the gradient to ``t``'s placements before the
+    op that made ``t`` runs its backward (whose reshapes torch 2.11's
+    DTensor cannot run on every placement a gradient may arrive in)."""
+    if t.requires_grad and getattr(t, "placements", None):
+        return t.redistribute(t.device_mesh, t.placements)
+    return t
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity forward; backward, the gradient copied into the
+    contiguous layout, so that the op before it reshapes a gradient
+    whose local layout is the one its global strides describe (a
+    DTensor gradient built by elementwise ops on a permuted product can
+    hold a local layout its global strides do not describe, and
+    DTensor then views where it must copy)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clone(memory_format=torch.contiguous_format)
+
+
 def _f32_dot(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``einsum`` of operands in their storage dtype with float32
     accumulation, as the reference's ``preferred_element_type=float32``:
-    a bf16 operand widens exactly, so every product is exact in float32."""
-    return torch.einsum(spec, a.float(), b.float())
+    a bf16 operand widens exactly, so every product is exact in float32.
+    On DTensors the product's gradient is made contiguous before the
+    einsum's backward reshapes it (``_ContiguousGrad``), and under torch
+    2.11 (``_PIN_PRODUCT_GRADS``) it comes back in the product's own
+    placements (``grad_as_forward``):
+    that DTensor cannot run the einsum's backward reshapes on every
+    placement a gradient may arrive in. torch 2.13's can, and there the
+    same pin breaks a real sharded backward (its redistributed gradient
+    of a permuted product holds a local layout that its global strides
+    do not describe), so it is left out."""
+    out = torch.einsum(spec, a.float(), b.float())
+    if not getattr(out, "placements", None):
+        return out
+    if out.requires_grad:
+        out = _ContiguousGrad.apply(out)
+    return grad_as_forward(out) if _PIN_PRODUCT_GRADS else out
 
 
 def _softmax_block(s, mask, vb, m, l, acc, spec: str):
@@ -203,6 +256,57 @@ def _softmax_block(s, mask, vb, m, l, acc, spec: str):
     l_new = l * corr + p.sum(dim=-1)
     acc_new = acc * corr[..., None] + _f32_dot(spec, p.to(vb.dtype), vb)
     return m_new, l_new, acc_new
+
+
+def split_groups(t: torch.Tensor, kvh: int) -> torch.Tensor:
+    """``t`` [..., H, Dh] as [..., KvH, G, Dh], G = H // KvH (head
+    h = kvh * G + g), the grouped-query split the kernels and the
+    blockwise code take. A DTensor whose H dim is sharded over a mesh dim
+    that does not divide KvH is first replicated on that mesh dim:
+    DTensor's view cannot reshard (XLA's reshape does), and the query
+    heads shard over ``model`` wherever it divides H, which need not
+    divide KvH (``models.attention._split_heads`` does the same for the
+    projections). A plain tensor is only reshaped (a view where its
+    strides allow), so its bits and launches do not change."""
+    *lead, h, dh = t.shape
+    placements = tuple(getattr(t, "placements", ()))
+    if placements:
+        from torch.distributed.tensor import Replicate
+        sizes, hdim = tuple(t.device_mesh.shape), t.dim() - 2
+        want = tuple(Replicate() if p.is_shard(hdim) and kvh % sizes[i]
+                     else p for i, p in enumerate(placements))
+        if want != placements:
+            t = t.redistribute(t.device_mesh, want)
+    return t.reshape(*lead, kvh, h // kvh, dh)
+
+
+def merge_groups(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t`` [..., KvH, G, Dh] reshaped to ``shape`` [..., H, Dh], the
+    inverse of ``split_groups``. A DTensor on a mesh with a dim that does
+    not divide KvH takes its gradient back in its own placements
+    (``grad_as_forward``) before the reverse split: a gradient sharded
+    on H over such a dim cannot be split by a view. A plain tensor is
+    only reshaped."""
+    out = t.reshape(shape)
+    if getattr(out, "placements", None) and any(
+            t.shape[-3] % n for n in tuple(out.device_mesh.shape)):
+        return grad_as_forward(out)
+    return out
+
+
+def heads_whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [B, S, heads, Dh] with its heads dim whole, for the blockwise
+    code: its einsums batch over (B, KvH), and torch 2.11's DTensor
+    flattens two batch dims into one only while at most the leading one
+    is sharded. A DTensor whose heads dim is sharded (16 KV heads on
+    ``model`` = 16) is gathered on those mesh dims; anything else is
+    returned as it is."""
+    placements = tuple(getattr(t, "placements", ()))
+    if not any(p.is_shard(2) for p in placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_shard(2) else p for p in placements))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -223,10 +327,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (q.is_cuda and causal and window == 0 and q_offset == 0
             and sq == sk):
         out = ops.flash_attention_causal(
-            q.reshape(b, sq, kvh, h // kvh, dh).contiguous(),
+            split_groups(q, kvh).contiguous(),
             k.contiguous(), v.contiguous())
-        return out.reshape(b, sq, h, dh)
+        return merge_groups(out, b, sq, h, dh)
     BLOCKWISE["flash"] += 1
+    q, k, v = heads_whole(q), heads_whole(k), heads_whole(v)
     if causal and q_offset == 0 and sq == sk and sq % chunk == 0 and \
             sq // chunk > 1:
         return _flash_causal_blocks(q, k, v, chunk=chunk, window=window)
@@ -242,8 +347,8 @@ def _flash_scan_all(q, k, v, *, causal: bool, chunk: int, window: int = 0,
     sk, kvh = k.shape[1], k.shape[2]
     groups = h // kvh
     dev = q.device
-    qf = constrain_batch((q.float() * dh ** -0.5).to(q.dtype).reshape(
-        b, sq, kvh, groups, dh))
+    qf = constrain_batch(split_groups(
+        (q.float() * dh ** -0.5).to(q.dtype), kvh))
     nchunks = max(1, (sk + chunk - 1) // chunk)
     pad = nchunks * chunk - sk
     if pad:
@@ -269,7 +374,7 @@ def _flash_scan_all(q, k, v, *, causal: bool, chunk: int, window: int = 0,
         m, l, acc = _softmax_block(s, mask[None, :, None, None, :], vb, m,
                                    l, acc, "bqkgc,bckd->bqkgd")
     out = acc / l.clamp(min=1e-30)[..., None]
-    return out.reshape(b, sq, h, dh).to(q.dtype)
+    return merge_groups(out, b, sq, h, dh).to(q.dtype)
 
 
 def _flash_causal_blocks(q, k, v, *, chunk: int, window: int = 0
@@ -282,8 +387,9 @@ def _flash_causal_blocks(q, k, v, *, chunk: int, window: int = 0
     groups = h // kvh
     nq = sq // chunk
     dev = q.device
-    qb = constrain_batch((q.float() * dh ** -0.5).to(q.dtype).reshape(
-        b, nq, chunk, kvh, groups, dh))
+    qb = constrain_batch(split_groups(
+        (q.float() * dh ** -0.5).to(q.dtype), kvh).reshape(
+            b, nq, chunk, kvh, groups, dh))
     kc = constrain_batch(k.reshape(b, nq, chunk, kvh, dh))
     vc = constrain_batch(v.reshape(b, nq, chunk, kvh, dh))
     wchunks = (window + chunk - 1) // chunk if window else nq
@@ -313,7 +419,7 @@ def _flash_causal_blocks(q, k, v, *, chunk: int, window: int = 0
         m, l, acc = _softmax_block(s, None, vc[:, i], m, l, acc, spec_o)
         outs.append(acc / l.clamp(min=1e-30)[..., None])
     out = torch.stack(outs, dim=1)                 # [B, NQ, C, KvH, G, Dh]
-    return out.reshape(b, sq, h, dh).to(q.dtype)
+    return merge_groups(out, b, sq, h, dh).to(q.dtype)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -333,12 +439,15 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                             device=q.device)
     if q.is_cuda and window == 0:
         out = ops.decode_attention(
-            q.reshape(b, kvh, groups, dh).to(k_cache.dtype),
+            split_groups(q, kvh).reshape(b, kvh, groups, dh).to(
+                k_cache.dtype),
             k_cache.contiguous(), v_cache.contiguous(), kv_len)
-        return out.reshape(b, 1, h, dh).to(q.dtype)
+        return merge_groups(out, b, 1, h, dh).to(q.dtype)
     BLOCKWISE["decode"] += 1
-    qf = (q.float() * dh ** -0.5).to(k_cache.dtype).reshape(b, kvh, groups,
-                                                            dh)
+    q, k_cache, v_cache = (heads_whole(q), heads_whole(k_cache),
+                           heads_whole(v_cache))
+    qf = split_groups((q.float() * dh ** -0.5).to(k_cache.dtype),
+                      kvh).reshape(b, kvh, groups, dh)
     s = _f32_dot("bkgd,btkd->bkgt", qf, k_cache)          # [B,KvH,G,T]
     pos = torch.arange(t, device=q.device)
     kv_len_b = kv_len.expand(b) if kv_len.dim() == 0 else kv_len
@@ -348,4 +457,4 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(mask[:, None, None, :], s, -torch.inf)
     p = torch.softmax(s, dim=-1)
     out = _f32_dot("bkgt,btkd->bkgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(b, 1, h, dh).to(q.dtype)
+    return merge_groups(out, b, 1, h, dh).to(q.dtype)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.models.layers import ParamDef, grad_as_forward, rms_norm
 from repro_torch.parallel.constraints import constrain_batch
 
 
@@ -62,7 +62,10 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv1d, summed in float32. xBC: [B, S, C]; w: [K, C]."""
     k, s = w.shape[0], xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, k - 1, 0))
+    # leading zeros by a concatenation, not F.pad: torch 2.11's DTensor
+    # gives constant_pad_nd's output a malformed spec on a mesh
+    pad = torch.cat([xBC.new_zeros((xBC.shape[0], k - 1) + xBC.shape[2:]),
+                     xBC], dim=1)
     out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
     for i in range(k):
         out = out + pad[:, i:i + s, :].float() * w[i].float()
@@ -134,7 +137,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssm_fwd(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full Mamba-2 block forward (train / prefill). x: [B, S, D]."""
     s_cfg = cfg.ssm
-    z, xBC, dt, di, nh, gs = _split_proj(cfg, x @ p["in_proj"])
+    # the projection's gradient comes back in its own placements: torch
+    # 2.11's DTensor may pick a sequence-sharded one for it, and the
+    # product's backward cannot flatten [B, S] while S is sharded
+    z, xBC, dt, di, nh, gs = _split_proj(cfg, grad_as_forward(
+        x @ p["in_proj"]))
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs, B, C = xBC.split([di, gs, gs], dim=-1)
     bsz, slen = xs.shape[0], xs.shape[1]

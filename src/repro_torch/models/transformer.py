@@ -67,8 +67,9 @@ from repro_torch.models.layers import (_DTYPES, ParamDef, Params, flatten,
                                        init_from_defs, rms_norm, unflatten)
 from repro_torch.parallel.constraints import (constrain_batch,
                                               constrain_residual,
-                                              gather_params, one_axis_batch,
-                                              row_gather)
+                                              gather_params, gather_sequence,
+                                              one_axis_batch, row_gather,
+                                              scatter_sequence)
 
 VISION_EMBED_DIM = 1152     # stubbed vision tower output (SigLIP-like)
 AUDIO_FEAT_DIM = 160        # stubbed fbank features (80 mel x 2 stacking)
@@ -290,9 +291,9 @@ def _mixer(p, x, cfg: ModelConfig, *, window: int):
     ``_decoder_layer`` pins it first; every decoder layer starts here)."""
     x = constrain_residual(x)
     if cfg.family == "ssm":
-        h_in = rms_norm(x, p["ssm_norm_in"], cfg.norm_eps)
-        return x + ssm_mod.ssm_fwd(p["ssm"], h_in, cfg)
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        h_in = gather_sequence(rms_norm(x, p["ssm_norm_in"], cfg.norm_eps))
+        return x + scatter_sequence(ssm_mod.ssm_fwd(p["ssm"], h_in, cfg))
+    h = gather_sequence(rms_norm(x, p["attn_norm"], cfg.norm_eps))
     if cfg.attention == "mla":
         out, _ = attn_mod.mla_fwd(p["attn"], h, cfg)
     else:
@@ -302,18 +303,18 @@ def _mixer(p, x, cfg: ModelConfig, *, window: int):
         s_out = ssm_mod.ssm_fwd(p["ssm"], h, cfg)
         out = 0.5 * (rms_norm(out, p["attn_out_norm"], cfg.norm_eps)
                      + rms_norm(s_out, p["ssm_out_norm"], cfg.norm_eps))
-    return x + out
+    return x + scatter_sequence(out)
 
 
 def _ffn_block(p, x, cfg: ModelConfig):
     """(x + FFN, aux loss); the aux loss is None for a dense FFN."""
     if cfg.family == "ssm":
         return x, None
-    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    h = gather_sequence(rms_norm(x, p["ffn_norm"], cfg.norm_eps))
     if "moe" in p:
         out, aux = ffn_mod.moe_fwd(p["moe"], h, cfg)
-        return x + out, aux
-    return x + ffn_mod.dense_fwd(p["ffn"], h, cfg), None
+        return x + scatter_sequence(out), aux
+    return x + scatter_sequence(ffn_mod.dense_fwd(p["ffn"], h, cfg)), None
 
 
 def _layer_tail(p, x, cfg: ModelConfig, enc=None):
@@ -324,10 +325,10 @@ def _layer_tail(p, x, cfg: ModelConfig, enc=None):
         shape = (enc.shape[0], enc.shape[1], cfg.num_kv_heads, cfg.head_dim)
         enc_kv = ((enc @ p["cross"]["wk"]).reshape(shape),
                   (enc @ p["cross"]["wv"]).reshape(shape))
-        h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        h = gather_sequence(rms_norm(x, p["cross_norm"], cfg.norm_eps))
         out, _ = attn_mod.gqa_fwd(p["cross"], h, cfg, kv_override=enc_kv,
                                   rope=False)
-        x = x + out
+        x = x + scatter_sequence(out)
     return _ffn_block(p, x, cfg)
 
 

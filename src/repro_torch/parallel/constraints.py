@@ -13,7 +13,14 @@ does the port). ``axis_spec``, ``batch_spec`` and ``residual_spec``
 return that spec (``None`` where nothing is pinned), in
 ``parallel.sharding``'s spec form.
 
-``gather_params`` is the port's one hint the reference has no call for:
+``gather_sequence`` and ``scatter_sequence`` (sequence parallelism
+only) gather a block's input over the sequence before its products and
+pin its output back to the residual stream's sequence sharding, which
+XLA does by itself and torch 2.11's DTensor cannot (it refuses to
+flatten [B, S] for a product while S is sharded).
+
+``gather_params`` is the port's one FSDP hint the reference has no call
+for:
 XLA inserts FSDP's per-layer all-gather of the weights by itself, while
 DTensor picks each product's sharding by cost and may split a product's
 output over ``model`` where the reference keeps it whole (and then
@@ -195,6 +202,33 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return table[idx]
     return torch.index_select(table, 0, idx.reshape(-1)).reshape(
         *idx.shape, table.shape[-1])
+
+
+def gather_sequence(x: torch.Tensor) -> torch.Tensor:
+    """A sequence-parallel block's input gathered over the sequence: with
+    sequence parallelism on, a DTensor [B, S, ...] whose S dim is sharded
+    (``constrain_residual``'s pin) is all-gathered on that dim before the
+    block's products (Megatron-SP's gather; XLA inserts it by itself),
+    and its gradient scatters back. torch 2.11's DTensor cannot flatten
+    [B, S] for a product while S is sharded. Identity without sequence
+    parallelism, without a mesh and on a plain tensor."""
+    placements = tuple(getattr(x, "placements", ()))
+    if not _SEQ_PARALLEL.get() or _MESH.get() is None or \
+            not any(p.is_shard(1) for p in placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_shard(1) else p for p in placements))
+
+
+def scatter_sequence(x: torch.Tensor) -> torch.Tensor:
+    """A sequence-parallel block's output pinned to the residual stream's
+    spec (``constrain_residual``: S over ``model``; Megatron-SP's
+    reduce-scatter), so that its gradient, sharded on S like the
+    stream's, is brought back to the product's own placements before
+    the product's backward flattens [B, S] (see ``gather_sequence``).
+    Identity without sequence parallelism."""
+    return constrain_residual(x) if _SEQ_PARALLEL.get() else x
 
 
 def constrain_residual(x: torch.Tensor) -> torch.Tensor:

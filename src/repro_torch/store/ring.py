@@ -107,6 +107,14 @@ class VersionRing:
     payload: torch.Tensor   # [R, K, D]
     head: torch.Tensor      # [R] i32
 
+    @property
+    def num_slots(self) -> int:
+        return self.begin.shape[-1]
+
+    @property
+    def num_records(self) -> int:
+        return self.begin.shape[-2]
+
 
 def init_ring(base: torch.Tensor, base_ts, num_slots: int = 4
               ) -> VersionRing:

@@ -98,3 +98,29 @@ def to_port(tree):
         return torch.from_numpy(np.array(v))
     return {k: to_port(v) if isinstance(v, dict) else leaf(v)
             for k, v in tree.items()}
+
+
+def sharded_loss_and_grads(mesh, cfg, params: dict, batch: dict):
+    """One ``value_and_grad`` of ``cfg`` on this rank of ``mesh``: the
+    parameters (numpy by leaf name) placed by ``param_shardings``, the
+    batch by ``batch_sharding``, under ``activation_mesh`` and
+    ``implicit_replication``, as phase 18's step runs. Returns the loss
+    and the gradients gathered (numpy by leaf name)."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.layers import flatten, unflatten
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.constraints import activation_mesh
+    from repro_torch.training.train_loop import value_and_grad
+    specs = flatten(shd.param_shardings(cfg, mesh))
+    p = unflatten({k: distribute_tensor(
+        torch.from_numpy(v), mesh, shd.placements(specs[k], mesh),
+        src_data_rank=None) for k, v in params.items()})
+    b = {k: distribute_tensor(torch.from_numpy(v), mesh, shd.placements(
+        shd.batch_sharding(mesh, v.shape), mesh), src_data_rank=None)
+        for k, v in batch.items()}
+    with activation_mesh(mesh), implicit_replication():
+        loss, grads = value_and_grad(p, b, cfg)
+    return float(loss.full_tensor()), {
+        k: v.full_tensor().numpy() for k, v in flatten(grads).items()}

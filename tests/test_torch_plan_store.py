@@ -99,6 +99,8 @@ def test_commit_spill_gc_byte_equal_with_pins(seed, pool):
     ring0 = (r.begin[0], r.end[0], r.payload[0], r.head[0])
     ref_ring = RefRing(*ring0)
     port_ring = VersionRing(*(_t(x) for x in ring0))
+    assert (port_ring.num_slots, port_ring.num_records) == \
+        (ref_ring.num_slots, ref_ring.num_records) == (2, R)
     rng = np.random.default_rng(seed + 10)
     k_eff = rng.integers(1, 3, R).astype(np.int32)        # K = 2 physical
     pins = eng.pin_array()
