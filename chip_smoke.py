@@ -403,7 +403,7 @@ the JAX package. Phases, each of which must pass:
    ranks on (1, 2) restores with ``shardings=`` (each rank reading its
    own shards of the files), holds the restored state, gathered, to the
    files bit for bit, and takes 2 steps. Four configurations in each
-   world: smollm-360m at 8 of its 32 layers (d_model 960, 15 / 5
+   world: smollm-360m at 4 of its 32 layers (d_model 960, 15 / 5
    heads, Dh 64, vocab 49,152; cut to keep the smoke inside its time
    limit) in bf16, remat "full", B=8 x S=2,048 (its 5 KV heads
    do not divide ``model``, so rows 5 and 5b run on batch shards, on
@@ -449,6 +449,41 @@ the JAX package. Phases, each of which must pass:
    peak GiB and launches per rank, kernel and route beside the card's
    name and power limit.
 
+19. the sharded families (``sharded_phase``): the training step of the
+   nine other families sharded as the reference shards them
+   (``param_shardings``, ``batch_sharding``, under ``activation_mesh``
+   and ``implicit_replication``), float32 with TF32 off, each held
+   against the same step unsharded on the card. Reduced width
+   (``configs.reduced_config``, B=4 x S=64, two AdamW steps): every
+   family on (2, 2) ("data", "model") with sequence parallelism off and
+   on, the two MoE families also on (2, 2, 1) ("pod", "data", "model"),
+   the batch over two mesh dims, and reduced grok-1 with 3 experts
+   (``expert_tp_config``: ``model`` = 2 does not divide them, so their
+   d_ff shards over it) off and on; each step is held at equal inputs
+   (the second from the sharded run's own state, ``equal_input_step``):
+   loss and gradient within 1e-3 (GRAD_TOL, worst leaf), the parameters
+   after within 1e-3 but for isolated AdamW sign flips (phase 18's
+   rule), and the two-step trajectory is printed beside. Published
+   width on (1, 2), off and on: each family but grok-1 (WIDE_SKIP) at 2
+   layers, B=1, 32 tokens (256 with SSM heads; llava 32 patches
+   beside), the step-1 gradient held shard by shard against the
+   unsharded one (``local_agreement``): non-finite exactly where it is
+   (SSD's overflow, in the reference too) and within 1e-3 elsewhere.
+   The MoE router's expert sets must agree but at near-ties (a token
+   whose set differs sits below 1e-6 in both runs); its smallest top-k
+   margin is printed. Every rank launches rows 5 and 5b as its causal
+   layers and steps need, on the tf32x3 routes only, on local shards of
+   the expected shape, the last launch of each held against the plain
+   versions. The ranks are ``elastic_launcher``'s (threads on one card,
+   NCCL processes on enough cards). The phase runs in six processes
+   of its own (SHARDED_PARTS: the reduced cases by mesh, SP and half of
+   the families, then the published widths), started after phase 15's
+   timed and held parts, beside its launchers and phases 16-18, and
+   joined after phase 18. One line a case: family, mesh, SP, width and depth, worst error
+   per quantity, flips, routing margin, step ms, peak GiB (the step's,
+   the process's allocator) and launches by route, beside the card's
+   name and power limit.
+
 The line before the last is a JSON object with every kernel's launches,
 error and times (rows 1-3 in the in-place form the read path launches,
 the windows form's and the two call sites' times beside them), then the
@@ -465,6 +500,7 @@ import functools
 import importlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -3259,10 +3295,20 @@ def _held_fwd(fwd, q, k, v):
     return out
 
 
+def _all_finite(tensors) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in tensors
+               if x.is_floating_point())
+
+
 def _held_bwd(bwd, *args):
     grads = bwd(*args)
     held = getattr(_HELD, "held", None)
-    if held is not None and held.armed and args[0].is_cuda:
+    # the latest launch whose inputs are finite, else the first: where
+    # SSD's overflow reaches a layer's upstream gradient, the plain
+    # version spreads its NaN over the causal mask's zeros, which the
+    # kernel skips, so only a finite launch can be held element by element
+    if held is not None and held.armed and args[0].is_cuda and (
+            held.bwd is None or _all_finite(args)):
         held.bwd = ([x.detach().clone() for x in args],
                     [x.detach().clone() for x in grads])
     return grads
@@ -3270,11 +3316,13 @@ def _held_bwd(bwd, *args):
 
 class HeldTraining:
     """While open, keeps (detached copies of) the inputs and output of the
-    latest flash forward and backward launch of ``kernels.
-    flash_attention`` while ``armed`` (its operators' implementations,
+    latest flash forward and backward launch (the latest backward whose
+    inputs are finite, ``_held_bwd``) of ``kernels.flash_attention``
+    while ``armed`` (its operators' implementations,
     so a DTensor's local shards as the kernels see them), and counts the
     q shapes of every forward launch; ``check`` holds the kept launches
-    against the plain versions on the same card tensors. Adds no launch.
+    against the plain versions on the same card tensors. Adds no launch
+    but one backward where ``check`` must replace non-finite inputs.
     Records the launches of the thread that opened it, so the backward
     must run on that thread (``torch.autograd.
     set_multithreading_enabled(False)``). The first instance wraps the
@@ -3301,7 +3349,13 @@ class HeldTraining:
 
     def check(self, what: str):
         """{"forward": err, "dq": ..., "dk": ..., "dv": ...}: the kept
-        launches against the plain versions (phase 3's tolerances)."""
+        launches against the plain versions (phase 3's tolerances). Where
+        every kept backward launch had non-finite inputs (SSD's overflow
+        reaches each layer's upstream gradient at hymba's published
+        width), the backward runs once more on the same shards with
+        those elements drawn from a seeded normal (``"bwd_replaced"``:
+        how many), held against the plain version on the same inputs; a
+        caller counts its launches before this."""
         (q, k, v), out = self.fwd
         ref = ops.flash_attention_causal_plain(q, k, v)
         tol = ATT_TOL[("flash_attention_causal", q.dtype)]
@@ -3309,11 +3363,20 @@ class HeldTraining:
                                    atol=tol, msg=lambda m: f"{what}: {m}")
         errs = {"forward": float((out.float() - ref.float()).abs().max())}
         args, grads = self.bwd
+        if not _all_finite(args):
+            self.armed = False
+            gen = torch.Generator(device=args[0].device).manual_seed(0)
+            errs["bwd_replaced"] = sum(int((~torch.isfinite(x)).sum())
+                                       for x in args)
+            args = [torch.where(torch.isfinite(x), x, torch.randn(
+                x.shape, generator=gen, device=x.device).to(x.dtype))
+                for x in args]
+            grads = flash_mod._backward(*args)
         for name, a, r in zip(("dq", "dk", "dv"), grads,
                               ops.flash_attention_causal_bwd_plain(*args)):
             rel = float((a.float() - r.float()).abs().max()
                         / r.float().abs().max().clamp(min=1e-30))
-            if rel > BWD_TOL[args[0].dtype]:
+            if not rel <= BWD_TOL[args[0].dtype]:     # NaN fails too
                 raise AssertionError(f"{what}: held backward {name} differs "
                                      f"by {rel:.3g} of its largest magnitude")
             errs[name] = rel
@@ -3701,11 +3764,13 @@ def grad_replay(name: str, device="cuda"):
                         "compare": compare_s}}
 
 
-def training_phase(device="cuda"):
+def training_phase(device="cuda", before_launchers=None):
     """Phase 15 (see the module doc). Returns the launches of the bf16
     run's steps, its median step ms, the deepseek run's launches, the
     float32 gradient replays' backward calls (all on tf32x3) and the
-    launches of the five families' bf16 steps."""
+    launches of the five families' bf16 steps. ``before_launchers`` is
+    called after the timed and held parts, before the launchers'
+    subprocesses (the smoke starts phase 19 there)."""
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -3787,6 +3852,8 @@ def training_phase(device="cuda"):
     del o
     torch.cuda.empty_cache()
     parts["options"] = time.perf_counter() - t1
+    if before_launchers is not None:
+        before_launchers()
     t1 = time.perf_counter()
     la = launchers_phase()
     log(f"launchers: train {la['train_s']:.1f} s (both runs), serve "
@@ -4714,9 +4781,10 @@ ARBITER_TOL = 1e-5
 
 #: the control replay's case names: the float32 case's, then this
 CONTROL = "_f64embed"
-#: the bf16 case's depth: 8 of smollm-360m's 32 layers, which keeps the
-#: whole smoke inside its time limit with the GQA-split case
-ELASTIC_BF16_LAYERS = 8
+#: the bf16 case's depth: 4 of smollm-360m's 32 layers, which keeps the
+#: whole smoke inside its time limit with the GQA-split case and phase
+#: 19 beside phases 16-18
+ELASTIC_BF16_LAYERS = 4
 
 
 def gqa_split_config():
@@ -5426,6 +5494,844 @@ def flash_on_shards(mesh, device="cuda", dtype=torch.float32):
     return out_errs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sharded families
+# ---------------------------------------------------------------------------
+#: the nine families beside phase 18's smollm-360m
+SHARDED_ARCHS = ("deepseek-v2-lite-16b", "grok-1-314b", "hymba-1.5b",
+                 "llava-next-mistral-7b", "mamba2-370m", "mistral-nemo-12b",
+                 "nemotron-4-15b", "qwen3-32b", "seamless-m4t-large-v2")
+SHARDED_MOE = ("deepseek-v2-lite-16b", "grok-1-314b")
+#: the worlds: (2, 2) with sequence parallelism off and on, (2, 2, 1) for
+#: the MoE families (the batch over two mesh dims), (1, 2) at published
+#: widths
+SHARDED_MESHES = {"2x2": ((2, 2), ("data", "model")),
+                  "2x2x1": ((2, 2, 1), ("pod", "data", "model")),
+                  "1x2": ((1, 2), ("data", "model"))}
+#: reduced width: B x S (S even for sequence parallelism; llava's 16
+#: patches within it, seamless's frames as long) and the AdamW steps
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 64, 2
+#: published width: B=1, GRAD_TOKENS tokens (SSD_PROMPT with SSM heads;
+#: llava GRAD_TOKENS patches beside them), 2 layers; the step-1 gradient
+#: only
+WIDE_LAYERS = 2
+#: families held at reduced width only: one grok-1 layer and its
+#: gradient are 48.7 GiB at 8 B a parameter before the unsharded run
+WIDE_SKIP = ("grok-1-314b",)
+#: two router probabilities closer than this may order differently
+#: under another summation order (a routing flip)
+ROUTING_TIE = 1e-6
+SHARDED_TIMEOUT = 900
+#: the expert-internal-TP case's name
+EXPERT_TP = "expert-tp"
+
+
+def expert_tp_config():
+    """Reduced grok-1-314b in float32 with 3 experts: ``model`` = 2 does
+    not divide them, so ``param_shardings`` takes the experts' d_ff over
+    ``model`` (expert-internal TP, grok's route on 16 cards) where 4 or
+    8 experts would shard over it (EP)."""
+    from repro_torch.configs import reduced_config
+    cfg = reduced_config("grok-1-314b")
+    return dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, num_experts=3))
+
+
+def sharded_cases(width="reduced", archs=SHARDED_ARCHS, expert_tp=True):
+    """Phase 19's cases: at reduced width (``configs.reduced_config`` in
+    float32, B=4 x S=64, 2 AdamW steps) each family on (2, 2) with
+    sequence parallelism off and on, the MoE families also on (2, 2, 1),
+    and the expert-internal-TP case (``expert_tp_config``) on (2, 2) off
+    and on; at published width each family but WIDE_SKIP at 2 layers
+    (the encoder cut alike, WIDE_LAYERS) on (1, 2) off and on, the
+    step-1 gradient only; each leaf seeded on the device
+    (``case_leaves``). Each case: name, arch, config, mesh key, SP flag,
+    batch, sequence, patches, AdamW steps, seeds, width."""
+    from repro_torch.configs import reduced_config
+    out = []
+
+    def add(arch, cfg, meshes, **kw):
+        for mesh, sp in meshes:
+            name = f"{arch} {mesh}{' sp' if sp else ''}"
+            out.append(dict(name=name, arch=arch, cfg=cfg, mesh=mesh, sp=sp,
+                            seed=19, data_seed=5, **kw))
+
+    for arch in archs:
+        if width == "reduced":
+            cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+            meshes = [("2x2", False), ("2x2", True)]
+            if arch in SHARDED_MOE:
+                meshes.append(("2x2x1", False))
+            add(arch, cfg, meshes, batch=SHARDED_BATCH, seq=SHARDED_SEQ,
+                patches=cfg.num_patches if cfg.frontend == "patches" else 0,
+                steps=SHARDED_STEPS, width="reduced")
+        elif arch not in WIDE_SKIP:
+            cfg = dataclasses.replace(get_config(arch),
+                                      num_layers=WIDE_LAYERS,
+                                      dtype="float32")
+            if cfg.enc_dec:
+                cfg = dataclasses.replace(cfg, encoder_layers=WIDE_LAYERS)
+            seq = SSD_PROMPT if cfg.ssm is not None else GRAD_TOKENS
+            patches = GRAD_TOKENS if cfg.frontend == "patches" else 0
+            add(arch, cfg, [("1x2", False), ("1x2", True)], batch=1,
+                seq=seq + patches, patches=patches, steps=0,
+                width="published")
+    if width == "reduced" and expert_tp:
+        cfg = expert_tp_config()
+        add(EXPERT_TP, cfg, [("2x2", False), ("2x2", True)],
+            batch=SHARDED_BATCH, seq=SHARDED_SEQ, patches=0,
+            steps=SHARDED_STEPS, width="reduced")
+    return out
+
+
+def sharded_batches(case) -> list:
+    """The case's batches (``steps``, at least one), numpy, the same on
+    every rank: tokens and labels in [1, vocab), patches and frames
+    normal and rounded to bf16 (the reference's batch dtype)."""
+    cfg, b, s, np_ = case["cfg"], case["batch"], case["seq"], case["patches"]
+    rng = np.random.default_rng(case["data_seed"])
+    out = []
+    for _ in range(max(1, case["steps"])):
+        x = {k: rng.integers(1, cfg.vocab_size, (b, s - np_)).astype(
+            np.int32) for k in ("tokens", "labels")}
+        feat = {"patches": (np_, models_tf.VISION_EMBED_DIM),
+                "frames": (s, models_tf.AUDIO_FEAT_DIM)}.get(cfg.frontend)
+        if cfg.enc_dec or cfg.frontend == "patches":
+            f = torch.from_numpy(rng.standard_normal(
+                (b,) + feat).astype(np.float32))
+            x[cfg.frontend] = f.to(torch.bfloat16).float().numpy()
+        out.append(x)
+    return out
+
+
+def batch_tensor(name: str, v: np.ndarray, device) -> torch.Tensor:
+    """One batch leaf as the model takes it: the frontend's features in
+    bf16 (exact: they are bf16 values), token ids as int32."""
+    t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return t.to(torch.bfloat16) if name in ("patches", "frames") else t
+
+
+def case_leaves(case, device):
+    """The case's parameters one leaf at a time (name, tensor on
+    ``device``), in sorted order, each drawn as ``init_params`` draws it
+    from a generator of its own (seeded by the case and the leaf's
+    index), so that any rank and the unsharded run make the same leaf
+    without holding the others."""
+    defs = models_tf.param_defs(case["cfg"])
+    for i, name in enumerate(sorted(defs)):
+        gen = torch.Generator(device=device).manual_seed(
+            case["seed"] * 100_003 + i)
+        yield name, flatten(model_layers.init_from_defs(
+            {name: defs[name]}, gen, model_layers._DTYPES[case["cfg"].dtype],
+            device))[name]
+
+
+#: the RoutingWatch open on this thread
+_ROUTING = threading.local()
+_ROUTING_LOCK = threading.Lock()
+
+
+def _watched_top_k(top_k, probs, k):
+    w, i = top_k(probs, k)
+    watch = getattr(_ROUTING, "watch", None)
+    # the forward's calls only: a backward's recomputation (remat) may
+    # stop before the router on one run and not on another
+    if watch is not None and torch._C._current_graph_task_id() == -1:
+        def whole(x):
+            x = x.detach()
+            return (x.full_tensor() if hasattr(x, "full_tensor") else x
+                    ).cpu().numpy()
+        watch.calls.append((whole(probs).astype(np.float64), whole(i)))
+    return w, i
+
+
+class RoutingWatch:
+    """While open on a thread, records each MoE router call of that
+    thread's forward passes (``ffn.top_k``; not a backward's
+    recomputation): the router probabilities and the experts picked,
+    gathered whole on a DTensor (a collective every rank makes, at the
+    same calls). Wraps ``ffn.top_k`` for good on first use; the
+    wrapper does nothing on a thread with no watch open."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self.calls = []
+        with _ROUTING_LOCK:
+            if getattr(ffn.top_k, "func", None) is not _watched_top_k:
+                ffn.top_k = functools.partial(_watched_top_k, ffn.top_k)
+        _ROUTING.watch = self
+        return self
+
+    def __exit__(self, *exc):
+        _ROUTING.watch = None
+        return False
+
+
+def routing_flips(got: list, want: list, k: int) -> dict:
+    """Two runs' router calls, call by call: the smallest top-k margin of
+    each (the k-th largest probability less the next), the tokens whose
+    expert set differs, and the largest margin of any such token in
+    either run (a flip is a near-tie only if it sits below
+    ROUTING_TIE in both)."""
+    if len(got) != len(want):
+        raise AssertionError(f"router calls {len(got)} != {len(want)}")
+    out = {"calls": len(got), "tokens": 0, "margin": float("inf"),
+           "flipped": 0, "flip_margin": 0.0}
+
+    def margins(p):
+        s = -np.sort(-p, axis=-1)
+        return s[:, k - 1] - s[:, k] if s.shape[1] > k else \
+            np.full(len(s), np.inf)
+
+    for (pg, ig), (pw, iw) in zip(got, want):
+        mg, mw = margins(pg), margins(pw)
+        differ = (np.sort(ig, -1) != np.sort(iw, -1)).any(-1)
+        out["tokens"] += len(ig)
+        out["margin"] = min(out["margin"], float(mg.min()), float(mw.min()))
+        if differ.any():
+            out["flipped"] += int(differ.sum())
+            out["flip_margin"] = max(out["flip_margin"], float(
+                mg[differ].max()), float(mw[differ].max()))
+    return out
+
+
+def _whole(x) -> np.ndarray:
+    """A tensor or DTensor (gathered: a collective) as float32 numpy."""
+    x = x.detach()
+    if hasattr(x, "full_tensor"):
+        x = x.full_tensor()
+    return x.float().cpu().numpy()
+
+
+def state_numpy(params, opt) -> dict:
+    """A training state (parameters and AdamW state; DTensors gathered)
+    as numpy by leaf name."""
+    return {"params": {k: _whole(v) for k, v in flatten(params).items()},
+            "m": {k: _whole(v) for k, v in flatten(opt["m"]).items()},
+            "v": {k: _whole(v) for k, v in flatten(opt["v"]).items()},
+            "step": int(_whole(opt["step"]))}
+
+
+def state_tensors(state: dict, device):
+    """``state_numpy``'s state as plain tensors on ``device``: (params,
+    AdamW state)."""
+    def tree(flat):
+        return unflatten({k: torch.from_numpy(np.array(v)).to(device)
+                          for k, v in flat.items()})
+    return tree(state["params"]), {
+        "m": tree(state["m"]), "v": tree(state["v"]),
+        "step": torch.tensor(state["step"], dtype=torch.int32,
+                             device=device)}
+
+
+def family_steps(params, batches, cfg, steps: int, held=None, opt=None,
+                 keep=False, watch=None) -> dict:
+    """``make_train_step``'s step, unrolled so that its gradient is kept:
+    per batch ``value_and_grad`` and, with ``steps``, ``adamw_update``
+    (AdamW's defaults; from ``opt``, else a fresh state). Works on plain
+    tensors and on DTensors (under the caller's activation hints).
+    Returns the parameters after, the losses, each batch's gradient tree,
+    each step's ms (host clock around a synchronisation), with ``keep``
+    the state before each step after the first (``state_numpy``, by the
+    step's index), and with ``watch`` (an
+    open ``RoutingWatch``) each step's router calls. ``held`` (a
+    ``HeldTraining``) is armed for the last batch."""
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.train_loop import value_and_grad
+    device = next(iter(flatten(params).values())).device
+    if steps and opt is None:
+        opt = init_opt_state(params)
+    out = {"losses": [], "grads": [], "step_ms": [], "states": {},
+           "routing": []}
+    for i, batch in enumerate(batches):
+        if held is not None:
+            held.armed = i == len(batches) - 1
+        if keep and i:
+            out["states"][i] = state_numpy(params, opt)
+        calls = len(watch.calls) if watch is not None else 0
+        _sync(device)
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(params, batch, cfg)
+        if steps:
+            params, opt, _ = adamw_update(params, g, opt, AdamWConfig())
+        loss = float(_whole(loss))
+        _sync(device)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss)
+        out["grads"].append(g)
+        if watch is not None:
+            out["routing"].append(watch.calls[calls:])
+    out["params"] = params
+    return out
+
+
+def _numpy_run(run: dict) -> dict:
+    """``family_steps``' result with its trees gathered to numpy (reduced
+    width: small)."""
+    return dict(run, grads=[{k: _whole(v) for k, v in flatten(g).items()}
+                            for g in run["grads"]],
+                params={k: _whole(v) for k, v in
+                        flatten(run["params"]).items()})
+
+
+def unsharded_family(case, device):
+    """The case's steps on plain tensors on one device from its starting
+    parameters: losses, step ms, router calls per step, and at reduced
+    width each step's gradient, the state before each step and the
+    parameters after (numpy by leaf name). At published width the
+    gradient goes to the host as CPU tensors (``want``) for the ranks to
+    compare their shards with, each leaf's scale (``finite_scale``,
+    taken on the device) beside it (``scale``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = unflatten(dict(case_leaves(case, device)))
+    batches = [{k: batch_tensor(k, v, device) for k, v in b.items()}
+               for b in sharded_batches(case)]
+    with RoutingWatch() as watch:
+        run = family_steps(params, batches, case["cfg"], case["steps"],
+                           keep=case["width"] == "reduced", watch=watch)
+    if case["width"] == "published":
+        grads = flatten(run["grads"][0])
+        return dict(run, params=None, grads=None, scale={
+            k: finite_scale(v) for k, v in grads.items()}, want={
+            k: v.detach().cpu() for k, v in grads.items()})
+    return _numpy_run(run)
+
+
+#: elements a device-side pass over a large leaf takes at a time (its
+#: temporaries stay ~256 MiB however large the leaf)
+CHUNK_ELEMENTS = 1 << 26
+
+
+def finite_scale(x: torch.Tensor) -> tuple:
+    """(largest finite |element|, whether any element is non-finite) of a
+    tensor, on its device, a chunk at a time."""
+    flat = x.detach().reshape(-1)
+    top, bad = 0.0, False
+    for i in range(0, flat.numel(), CHUNK_ELEMENTS):
+        c = flat[i:i + CHUNK_ELEMENTS]
+        fin = torch.isfinite(c)
+        bad = bad or not bool(fin.all())
+        top = max(top, float(c.abs().masked_fill_(~fin, 0).max()))
+    return top, bad
+
+
+def equal_input_step(case, state: dict, index: int, device) -> dict:
+    """One AdamW step on plain tensors from a sharded run's own state
+    before its step ``index`` (0-based; ``state_numpy``'s) on that step's
+    batch: the unsharded step at equal inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, opt = state_tensors(state, device)
+    batch = {k: batch_tensor(k, v, device)
+             for k, v in sharded_batches(case)[index].items()}
+    with RoutingWatch() as watch:
+        run = family_steps(params, [batch], case["cfg"], 1, opt=opt,
+                           watch=watch)
+    return _numpy_run(run)
+
+
+def local_agreement(grads, want: dict, device) -> dict:
+    """Each gradient leaf's local shard against the same slice of the
+    unsharded gradient (``want``: CPU tensors by leaf name), a block of
+    rows at a time on the device (CHUNK_ELEMENTS each; only the block
+    goes to the device): per leaf whether the non-finite elements agree
+    and the largest |difference| over the finite ones. No leaf is
+    gathered."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    out = {}
+    for k, g in flatten(grads).items():
+        if any(p.is_partial() for p in g.placements):
+            g = g.redistribute(g.device_mesh, [
+                Replicate() if p.is_partial() else p for p in g.placements])
+        shape, offset = compute_local_shape_and_global_offset(
+            g.shape, g.device_mesh, g.placements)
+        x = g.to_local()
+        if x.dim() == 0:
+            x, shape, offset = x.reshape(1), (1,), (0,)
+            w_host = want[k].reshape(1)
+        else:
+            w_host = want[k]
+        rest = tuple(slice(o, o + n) for o, n in zip(offset[1:], shape[1:]))
+        rows = max(1, CHUNK_ELEMENTS // max(1, math.prod(shape[1:])))
+        same, diff = True, 0.0
+        for a in range(0, shape[0], rows):
+            b = min(a + rows, shape[0])
+            w = w_host[(slice(offset[0] + a, offset[0] + b),) + rest].to(
+                device)
+            xa = x[a:b]
+            fin = torch.isfinite(w)
+            same = same and bool(torch.equal(fin, torch.isfinite(xa)))
+            if fin.any():
+                diff = max(diff, float((xa - w).abs_().masked_fill_(
+                    ~fin, 0).max()))
+        out[k] = (same, diff)
+    return out
+
+
+def own_shard(x):
+    """A DTensor whose local shard holds its own storage: where
+    ``distribute_tensor`` kept a view of the whole leaf (a shard on dim
+    0), the shard is copied so that the whole leaf can be freed."""
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    if local.untyped_storage().nbytes() <= local.numel() * \
+            local.element_size():
+        return x
+    return DTensor.from_local(local.clone(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _sharded_case(mesh, case, device):
+    """One case of ``sharded_world`` on this rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.constraints import activation_mesh
+    cfg, on_card = case["cfg"], torch.device(device).type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dist.barrier()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    specs = flatten(shd.param_shardings(cfg, mesh))
+    params = unflatten({k: own_shard(distribute_tensor(
+        v, mesh, shd.placements(specs[k], mesh), src_data_rank=None))
+        for k, v in case_leaves(case, device)})
+    batches = [{k: distribute_tensor(
+        batch_tensor(k, v, device), mesh, shd.placements(
+            shd.batch_sharding(mesh, v.shape), mesh), src_data_rank=None)
+        for k, v in b.items()} for b in sharded_batches(case)]
+    before = dict(_build.thread_launches())
+    reduced = case["width"] == "reduced"
+    # the backward on this rank's thread: its launches are this thread's
+    with activation_mesh(mesh, sequence_parallel=case["sp"]), \
+            implicit_replication(), \
+            torch.autograd.set_multithreading_enabled(False), \
+            RoutingWatch() as watch, HeldTraining() as held:
+        run = family_steps(params, batches, cfg, case["steps"],
+                           held if on_card else None, keep=reduced,
+                           watch=watch)
+        # the step's peak and launches, before the checks below allocate
+        # (and may launch)
+        _sync(device)
+        dist.barrier()
+        rec = {"rank": rank, "peak_gib": torch.cuda.max_memory_allocated()
+               / 2 ** 30 if on_card else 0.0, "launches": {
+                   k: v - before.get(k, 0)
+                   for k, v in _build.thread_launches().items()
+                   if v != before.get(k, 0)}}
+        rec.update(held=held.check(f"{case['name']} rank {rank}")
+                   if on_card and held.fwd else {}, shapes=dict(held.shapes))
+    del params, batches
+    if reduced:
+        rec.update(_numpy_run(run))
+    else:
+        run["params"] = None
+        rec.update(run, grads=None,
+                   local=local_agreement(run["grads"][0], case["want"],
+                                         device))
+    del run
+    _sync(device)
+    dist.barrier()
+    return rec
+
+
+def sharded_world(mesh, cases, device="cuda"):
+    """Phase 19 on each rank of ``mesh``, case by case (a case of another
+    mesh of as many ranks on a ``DeviceMesh`` of its own): each case's
+    parameters placed by ``param_shardings`` (every rank makes each leaf
+    and keeps its shard; none is sent) and its batches by
+    ``batch_sharding``, then its steps (``family_steps``) under
+    ``activation_mesh(mesh, sequence_parallel=)`` and
+    ``implicit_replication``, the MoE router calls recorded and, on the
+    card, the last step's flash forward and backward launches held
+    against the plain versions. Returns this rank's record per case:
+    losses, step ms, launches, local q shapes, peak GiB and at reduced
+    width the step-1 gradient and the parameters after, gathered; at
+    published width each gradient leaf held shard by shard against the
+    case's ``want``."""
+    from repro_torch.launch.mesh import device_mesh
+    out, meshes = {}, {}
+    for case in cases:
+        shape, axes = SHARDED_MESHES[case["mesh"]]
+        if tuple(mesh.shape) == shape and mesh.mesh_dim_names == axes:
+            here = mesh
+        else:       # another mesh over the same ranks
+            here = meshes.setdefault(case["mesh"], device_mesh(
+                shape, axes, device))
+        out[case["name"]] = _sharded_case(here, case, device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sharded_local_shape(case):
+    """The q shape rows 5 and 5b see on a rank of the case's mesh: the
+    batch split over (pod, data) where it divides, the whole sequence
+    (gathered under sequence parallelism), the KV heads split over
+    ``model`` where it divides them (MLA: its heads, one a group)."""
+    cfg = case["cfg"]
+    sizes = dict(zip(SHARDED_MESHES[case["mesh"]][1],
+                     SHARDED_MESHES[case["mesh"]][0]))
+    dp = sizes.get("pod", 1) * sizes["data"]
+    tp = sizes["model"]
+    if cfg.attention == "mla":
+        kvh, dh = cfg.num_heads, cfg.mla.qk_nope_head_dim + \
+            cfg.mla.qk_rope_head_dim
+    else:
+        kvh, dh = cfg.num_kv_heads, cfg.head_dim
+    b = case["batch"] // dp if case["batch"] % dp == 0 else case["batch"]
+    return (b, case["seq"], kvh // tp if kvh % tp == 0 else kvh,
+            cfg.num_heads // kvh, dh)
+
+
+def _step_agreement(got: dict, want: dict, k: int, tol: float,
+                    moe) -> dict:
+    """Step ``k`` of a sharded run against the unsharded step at equal
+    inputs (``want``: its loss, gradient, parameters after and router
+    calls, numpy): the loss and the gradient's worst leaf, held within
+    ``tol``; the parameters after, held as phase 18 holds them
+    (``param_agreement`` with this step's unsharded gradient as each
+    element's and the gradients' gap, ELASTIC_TOL but for isolated AdamW
+    sign flips); the router's expert sets (``routing_flips``)."""
+    g = got["grads"][k]
+    w = want["grads"][-1]
+    params = got["states"][k + 1]["params"] if k + 1 in got["states"] \
+        else got["params"]
+    gap = {n: float(np.abs(g[n].astype(np.float64) - x).max())
+           for n, x in w.items()}
+    out = {"loss": abs(got["losses"][k] - want["losses"][-1]) /
+           abs(want["losses"][-1]),
+           "grads": worst_leaf(g, w),
+           "params": param_agreement(params, want["params"], 1, w, gap)}
+    if moe is not None:
+        out["routing"] = routing_flips(got["routing"][k],
+                                       want["routing"][-1], moe.top_k)
+    return out
+
+
+def sharded_checks(case, want: dict, recs: list, tol: float,
+                   on_card=True) -> dict:
+    """Holds one case's ranks against the unsharded steps: every rank the
+    same finite losses. At reduced width each AdamW step against the
+    unsharded step at equal inputs (step 1: the same start; a later
+    step: the sharded run's own state before it, ``want["replays"]``;
+    ``_step_agreement``): its loss and gradient within ``tol``, its
+    parameters within ELASTIC_TOL but for isolated sign flips
+    (ADAM_FLIPS / ADAM_REACH); the whole trajectory against the
+    unsharded one is returned beside, not held (sign-sized first updates
+    part the runs where a gradient sits at their difference, and each
+    later step starts from the parted state). At published width the
+    loss within ``tol`` and each gradient leaf, shard by shard,
+    non-finite exactly where the unsharded one is and within ``tol``
+    elsewhere. The MoE router's expert sets at equal inputs must be
+    equal but at near-ties: a token whose set differs must sit below
+    ROUTING_TIE in both runs. On the card rows 5 and 5b launched as the
+    case's layers and steps need, on the tf32x3 routes only, on the
+    expected local shards. Returns the summary the phase prints; raises
+    on any miss."""
+    name, cfg = case["name"], case["cfg"]
+    if len({tuple(r["losses"]) for r in recs}) != 1 or \
+            not all(np.isfinite(recs[0]["losses"])):
+        raise AssertionError(f"{name}: losses {[r['losses'] for r in recs]}")
+    x = recs[0]
+    out = {}
+    if case["width"] == "published":
+        out["loss"] = abs(x["losses"][0] - want["losses"][0]) / \
+            abs(want["losses"][0])
+        leaves = {}
+        for r in recs:
+            for k, (same, diff) in r["local"].items():
+                s, d = leaves.get(k, (True, 0.0))
+                leaves[k] = (s and same, max(d, diff))
+        scale = want["scale"]
+        floor = 1e-6 * max(t for t, _ in scale.values())
+        bad = [k for k, (s, _) in leaves.items() if not s]
+        if bad:
+            raise AssertionError(f"{name}: gradient leaves {bad} non-finite "
+                                 f"where the unsharded run's are not, or "
+                                 f"the reverse")
+        out["grads"] = max((d / max(scale[k][0], floor, 1e-30), k)
+                           for k, (_, d) in leaves.items())
+        out["nonfinite"] = sorted(k for k, (_, bad) in scale.items() if bad)
+        if cfg.moe is not None:
+            out["routing"] = routing_flips(x["routing"][0],
+                                           want["routing"][0], cfg.moe.top_k)
+    else:
+        steps = []
+        for k in range(case["steps"]):
+            ref = want["replays"][k] if k else {
+                "losses": want["losses"][:1], "grads": want["grads"][:1],
+                "routing": want["routing"][:1],
+                "params": want["states"][1]["params"]
+                if 1 in want["states"] else want["params"]}
+            steps.append(_step_agreement(x, ref, k, tol, cfg.moe))
+        out["loss"] = max(s["loss"] for s in steps)
+        out["grads"] = max(s["grads"] for s in steps)
+        out["params"] = max(s["params"]["worst"] for s in steps)
+        out["flips"] = [s["params"]["beyond"] for s in steps]
+        out["reach"] = max(s["params"]["reach"] for s in steps)
+        for s in steps:
+            p = s["params"]
+            if not all(n <= ADAM_FLIPS * size for n, size in
+                       p["beyond"].values()) or p["reach"] > ADAM_REACH:
+                raise AssertionError(f"{name}: parameters {p}: past "
+                                     f"{ELASTIC_TOL} beyond isolated AdamW "
+                                     f"sign flips at equal inputs")
+        if cfg.moe is not None:
+            r = [s["routing"] for s in steps]
+            out["routing"] = {
+                "calls": sum(z["calls"] for z in r),
+                "tokens": sum(z["tokens"] for z in r),
+                "margin": min(z["margin"] for z in r),
+                "flipped": sum(z["flipped"] for z in r),
+                "flip_margin": max(z["flip_margin"] for z in r)}
+        trajectory = param_agreement(
+            x["params"], want["params"], case["steps"], want["grads"][0], {
+                k: 0.0 for k in want["params"]})
+        out["trajectory"] = {
+            "loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(x["losses"], want["losses"])),
+            "params": trajectory["worst"], "beyond": trajectory["beyond"],
+            "reach": trajectory["reach"]}
+    if out["loss"] > tol or out["grads"][0] > tol:
+        raise AssertionError(f"{name}: sharded against unsharded loss "
+                             f"{out['loss']:.3g}, gradient {out['grads']}; "
+                             f"limit {tol}")
+    if "routing" in out and out["routing"]["flipped"] and \
+            out["routing"]["flip_margin"] >= ROUTING_TIE:
+        raise AssertionError(f"{name}: routing flips away from a near-tie: "
+                             f"{out['routing']}")
+    if on_card:
+        n = max(1, case["steps"])
+        layers = attention_layers(cfg)[0]
+        expect = {"flash_attention_causal": n * grad_flash_launches(cfg),
+                  "flash_attention_causal_bwd": n * layers}
+        for op in list(expect):
+            expect[f"{op}/tf32x3"] = expect[op]
+        expect.update({f"flash_attention_causal_bwd/{k}": n * layers
+                       for k in flash_mod.BWD_KERNELS})
+        expect = {k: v for k, v in expect.items() if v}
+        local = sharded_local_shape(case) if layers else None
+        for r in recs:
+            if r["launches"] != expect:
+                raise AssertionError(f"{name} rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {expect}")
+            if layers and set(r["shapes"]) != {local}:
+                raise AssertionError(f"{name} rank {r['rank']}: local q "
+                                     f"shapes {r['shapes']}, expected "
+                                     f"{local}")
+    return out
+
+
+def with_replays(case, want: dict, got: dict, device) -> dict:
+    """``want`` (the unsharded run) with, at reduced width, each later
+    step again from the sharded run's (``got``'s) own state before it
+    (``equal_input_step``), by step index."""
+    if case["width"] != "reduced" or "states" not in got:
+        return want
+    return dict(want, replays={
+        k: equal_input_step(case, got["states"][k], k, device)
+        for k in range(1, case["steps"])})
+
+
+def sharded_run(cases, mesh_key: str, device="cuda"):
+    """The cases of one mesh: each config's unsharded run on this
+    process's device first (once for the cases that share it), then one
+    world of the mesh's ranks (``elastic_launcher``) over all of them,
+    then at reduced width each later step again unsharded from the
+    sharded run's own state before it (``equal_input_step``,
+    ``replays`` by step). Returns (substrate, ranks' records, the
+    unsharded runs by case name, the world's seconds)."""
+    unsharded, wants = {}, {}
+    for case in cases:
+        key = (case["arch"], case["width"])
+        if key not in unsharded:
+            unsharded[key] = unsharded_family(case, device)
+        wants[case["name"]] = unsharded[key]
+        if "want" in unsharded[key]:
+            case["want"] = unsharded[key]["want"]
+    shape, axes = SHARDED_MESHES[mesh_key]
+    n = int(np.prod(shape))
+    launch, substrate = elastic_launcher(n, device)
+    t0 = time.perf_counter()
+    recs = launch(functools.partial(sharded_world, cases=cases,
+                                    device=device), n, device,
+                  timeout=SHARDED_TIMEOUT, mesh=(shape, axes))
+    secs = time.perf_counter() - t0
+    for case in cases:
+        wants[case["name"]] = with_replays(case, wants[case["name"]],
+                                           recs[0][case["name"]], device)
+    return substrate, recs, wants, secs
+
+
+def _case_line(case, out: dict, recs: list, want: dict, substrate: str,
+               smi: str) -> str:
+    """Phase 19's line for one case."""
+    cfg = case["cfg"]
+    shape, axes = SHARDED_MESHES[case["mesh"]]
+    x = recs[0]
+    held = ("; at equal inputs per step (step 1 from the seeded start, "
+            "step 2 from the sharded run's own state): parameters worst "
+            f"{out['params']}, AdamW elements past {ELASTIC_TOL} per step "
+            f"{out['flips']} (reach {out['reach']:.3g} lr); the 2-step "
+            f"trajectory against the unsharded one, not held: "
+            f"{out['trajectory']}") if case["width"] == "reduced" else (
+        f"; non-finite leaves (the same in both runs) {out['nonfinite']}")
+    return (f"sharded {case['name']} ({case['width']} width: "
+            f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} / {cfg.num_kv_heads} heads, float32, B="
+            f"{case['batch']} S={case['seq']}, {max(1, case['steps'])} "
+            f"step(s)) on {shape} {axes}, sequence parallelism "
+            f"{'on' if case['sp'] else 'off'}, {substrate}: loss worst "
+            f"{out['loss']:.3g}, gradient worst {out['grads']}" + held +
+            f"; routing {out.get('routing', 'no MoE')}; step ms per rank "
+            f"{[[round(t, 1) for t in r['step_ms']] for r in recs]} "
+            f"(unsharded {[round(t, 1) for t in want['step_ms']]}); peak "
+            f"GiB {x['peak_gib']:.3f}; launches per rank {x['launches']}; "
+            f"local q shapes {x['shapes']}; held launches (rank 0) "
+            f"{x['held']}; {smi}")
+
+
+#: phase 19's parts: the reduced cases by mesh, sequence parallelism and
+#: half of the families (SHARDED_HALVES), then the published widths. The
+#: smoke runs each in a process of its own: a world's thread ranks share
+#: one interpreter, so DTensor's planning runs one rank at a time, and
+#: five reduced worlds plan on five cores
+SHARDED_PARTS = ("reduced 2x2 a", "reduced 2x2 b", "reduced 2x2 sp a",
+                 "reduced 2x2 sp b", "reduced 2x2x1", "published")
+#: the reduced families in two halves of about equal time on the card
+#: (the MoE, expert-internal-TP and hybrid cases plan the most ops)
+SHARDED_HALVES = {"a": SHARDED_MOE + ("hymba-1.5b", EXPERT_TP)}
+SHARDED_HALVES["b"] = tuple(a for a in SHARDED_ARCHS
+                            if a not in SHARDED_HALVES["a"])
+
+
+def sharded_plan(parts=SHARDED_PARTS) -> list:
+    """[(label, mesh key, cases)] for ``parts``: a reduced part's cases
+    (``reduced <mesh> [sp] [half]``) in one world of its mesh, each
+    published family's two cases in a world of (1, 2) ranks."""
+    plan = []
+    reduced = sharded_cases("reduced") if any(
+        p.startswith("reduced") for p in parts) else []
+    for part in parts:
+        if part == "published":
+            wide = sharded_cases("published")
+            for arch in dict.fromkeys(c["arch"] for c in wide):
+                plan.append((f"1x2 {arch}", "1x2",
+                             [c for c in wide if c["arch"] == arch]))
+            continue
+        _, key, *rest = part.split()
+        archs = SHARDED_HALVES.get(rest[-1]) if rest else None
+        plan.append((part, key, [
+            c for c in reduced if c["mesh"] == key and c["sp"] == (
+                "sp" in rest) and (archs is None or c["arch"] in archs)]))
+    return plan
+
+
+def sharded_phase(device="cuda", parts=SHARDED_PARTS):
+    """Phase 19 (see the module doc), ``sharded_plan``'s worlds one after
+    another; each case held by ``sharded_checks`` (GRAD_TOL) and
+    printed. Returns rows 5 and 5b's launches summed over every rank of
+    every world."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    smi = nvidia_smi()
+    total = collections.Counter()
+    secs = {}
+    for label, key, cases in sharded_plan(parts):
+        substrate, recs, wants, secs[label] = sharded_run(cases, key, device)
+        for case in cases:
+            rr = [r[case["name"]] for r in recs]
+            out = sharded_checks(case, wants[case["name"]], rr, GRAD_TOL,
+                                 on_card)
+            log(_case_line(case, out, rr, wants[case["name"]], substrate,
+                           smi))
+            for r in rr:
+                total.update(r["launches"])
+            case.pop("want", None)
+        del recs, wants
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"sharded families {list(parts)}: launches over every rank "
+        f"{dict(total)}; world seconds "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }; published widths "
+        f"skip {WIDE_SKIP} (one grok-1 layer and its gradient are 48.7 "
+        f"GiB at 8 B a parameter); {time.perf_counter() - t0:.1f} s; {smi}")
+    return dict(total)
+
+
+def sharded_child(part: str, out: str) -> None:
+    """A child process's phase 19 part (``start_sharded``): its lines to
+    stdout, the launches summed over its ranks to ``out`` (JSON); an
+    exception ends the process with a nonzero code. Two threads for its
+    CPU ops: the parts run beside each other and the smoke."""
+    torch.set_num_threads(2)
+    total = sharded_phase(parts=(part,))
+    Path(out).write_text(json.dumps(total))
+
+
+def start_sharded(tmp: str, parts=SHARDED_PARTS) -> list:
+    """Phase 19's parts, each in a process of its own (``python -c``
+    ``sharded_child``), started together: they run beside what the
+    smoke does next (host work on other cores; the card has room), each
+    writing its output to a file in ``tmp``. Returns [(part, process,
+    output file, launches file)]."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = []
+    for part in parts:
+        stem = part.replace(" ", "_")
+        log_path, js = Path(tmp) / f"{stem}.log", Path(tmp) / f"{stem}.json"
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+                 f"sharded_child({part!r}, {str(js)!r})"], cwd=root,
+                env=env, stdout=f, stderr=subprocess.STDOUT, text=True)
+        out.append((part, proc, log_path, js))
+    return out
+
+
+def finish_sharded(children) -> dict:
+    """Waits for ``start_sharded``'s processes, prints each one's phase 19
+    lines and raises if any failed. Returns the launches summed over
+    every rank of every world."""
+    total = collections.Counter()
+    failed = []
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    for part, proc, log_path, js in children:
+        try:
+            proc.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        text = log_path.read_text()
+        for line in text.splitlines():
+            if line.startswith("sharded ") or proc.returncode:
+                log(line)
+        if proc.returncode or not js.exists():
+            failed.append((part, proc.returncode))
+            continue
+        total.update(json.loads(js.read_text()))
+    if failed:
+        raise AssertionError(f"phase 19: {failed} (part, exit code) failed")
+    return dict(total)
+
+
+def stop_children(children) -> None:
+    """Kills ``start_sharded``'s processes that still run."""
+    for _, proc, _, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def ptxas_summary(nvcc_out: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v``: its mangled
     name (namespace prefix cut), spills and registers."""
@@ -5445,6 +6351,12 @@ def main() -> int:
               " is False); this script runs only on an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    # the processes and files a phase leaves open are closed on the way out
+    with contextlib.ExitStack() as stack:
+        return _main(stack)
+
+
+def _main(stack) -> int:
     t_start = time.perf_counter()
     #: (phase, its start on the host clock): each phase's seconds at the end
     clock = [("1-2 environment, build", t_start)]
@@ -5710,8 +6622,19 @@ def main() -> int:
 
     # -- the training path, counted from zero per step ----------------------
     phase("15 training")
+    tmp19 = stack.enter_context(tempfile.TemporaryDirectory())
+    children = []
+    stack.callback(stop_children, children)
+
+    def start_phase_19():
+        # phase 19's processes start before phase 15's launchers and run
+        # beside them and phases 16-18: the timed parts are done
+        torch.cuda.empty_cache()
+        children.extend(start_sharded(tmp19))
+        clock.append(("15 training (the launchers)", time.perf_counter()))
+
     train_launches, step_ms, mla_launches, f32_bwd, families = \
-        training_phase()
+        training_phase(before_launchers=start_phase_19)
     rows["flash_attention_causal_bwd/tf32x3"]["launches"] = f32_bwd
     for name in ("flash_attention_causal", "flash_attention_causal_bwd"):
         rows[name]["family_training_launches"] = families[name]
@@ -5741,6 +6664,18 @@ def main() -> int:
     for name in ("flash_attention_causal", "flash_attention_causal_bwd",
                  "flash_attention_causal_bwd/tf32x3"):
         rows[name]["elastic_launches"] = el.get(name, 0)
+
+    # -- the sharded families, started in phase 15, counted per rank -------
+    phase("19 sharded families (the rest)")
+    sh = finish_sharded(children)
+    for name in ("flash_attention_causal", "flash_attention_causal_bwd",
+                 "flash_attention_causal_bwd/tf32x3"):
+        rows[name]["sharded_launches"] = sh.get(name, 0)
+    started = dict(clock)["15 training (the launchers)"]
+    log(f"sharded families: launches over every rank of every part {sh}; "
+        f"{len(children)} processes started {started - t_start:.1f} s into "
+        f"the smoke, beside phase 15's launchers and phases 16-18, joined "
+        f"{time.perf_counter() - started:.1f} s later; {nvidia_smi()}")
 
     phase("end")
     secs = {name: round(end - start, 1)

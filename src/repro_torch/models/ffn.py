@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import ParamDef, squared_relu
+from repro_torch.models.layers import ParamDef, grad_as_forward, squared_relu
 from repro_torch.parallel.constraints import constrain_batch, one_axis_batch
 
 
@@ -135,7 +135,11 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig
     xr = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
     buf = xt.new_zeros((e * c + 1, d)).index_add_(
         0, slot, torch.where(keep[:, None], xr, 0))
-    buf = buf[:-1].reshape(e, c, d)
+    # the gradient back in the buffer's own placements before the view's
+    # backward: under expert-internal TP (experts not sharded, their d_ff
+    # over ``model``) DTensor returns it sharded on the expert dim, which
+    # the [E * C, D] view cannot take where ``data`` does not divide E
+    buf = grad_as_forward(buf[:-1].reshape(e, c, d))
 
     # --- expert compute (batched matmul) ------------------------------------
     h = torch.bmm(buf, p["w1"])

@@ -352,8 +352,11 @@ def _flash_scan_all(q, k, v, *, causal: bool, chunk: int, window: int = 0,
     nchunks = max(1, (sk + chunk - 1) // chunk)
     pad = nchunks * chunk - sk
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        # trailing zeros by a concatenation, not F.pad: torch 2.11's
+        # DTensor gives constant_pad_nd's output a malformed spec on a
+        # mesh (a later view of it fails)
+        k = torch.cat([k, k.new_zeros((b, pad) + k.shape[2:])], dim=1)
+        v = torch.cat([v, v.new_zeros((b, pad) + v.shape[2:])], dim=1)
     k, v = constrain_batch(k), constrain_batch(v)
     q_pos = q_offset + torch.arange(sq, device=dev)
     m = torch.full((b, sq, kvh, groups), -torch.inf, device=dev)

@@ -104,6 +104,28 @@ def _in_place(upd, p, g, m, v):
     return p, m, v
 
 
+def _on_shards(upd, p, g, m, v):
+    """``upd`` of one leaf (its decay by its dims). On a ``DTensor`` leaf
+    it runs on the rank's local shards (the gradient first brought to
+    the parameter's placements; the moments are placed as the parameter,
+    ``init_opt_state``; the 0-d scalars it closes over are replicated)
+    and the results are wrapped back in the parameter's placements:
+    DTensor runs each elementwise op on the local shards alike, so the
+    bits are the same, without planning each op of each leaf."""
+    mesh = getattr(p, "device_mesh", None)
+    if mesh is None or any(tuple(x.placements) != tuple(p.placements)
+                           for x in (m, v)):
+        return upd(p, g, m, v, p.dim() >= 2)
+    from torch.distributed.tensor import DTensor
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(mesh, p.placements)
+    out = upd(p.to_local(), g.to_local(), m.to_local(), v.to_local(),
+              p.dim() >= 2)
+    return tuple(DTensor.from_local(x, mesh, p.placements, run_check=False,
+                                    shape=p.shape, stride=p.stride())
+                 for x in out)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig(),
                  donate: bool = False
@@ -124,6 +146,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig(),
     stepf = step.float()
     b1c = 1.0 - torch.pow(cfg.b1, stepf)       # float32, on the device
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
+    if getattr(scale, "device_mesh", None) is not None:
+        # replicated 0-d values: each rank's local value is the whole one
+        scale, b1c, b2c = (x.full_tensor() for x in (scale, b1c, b2c))
 
     def upd(p, g, m, v, decay):
         g = g.float() * scale
@@ -140,7 +165,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig(),
         out = _map(lambda *leaves: _in_place(upd, *leaves), params, grads,
                    state["m"], state["v"])
     else:
-        out = _map(lambda p, g, m, v: upd(p, g, m, v, p.dim() >= 2),
+        out = _map(lambda p, g, m, v: _on_shards(upd, p, g, m, v),
                    params, grads, state["m"], state["v"])
 
     def pick(node, i):

@@ -2,7 +2,8 @@
 every rank of a mesh spawned by ``benchmarks_torch.common.spawn_ranks``
 over gloo. They import nothing of the reference; the training worlds
 are ``chip_smoke.elastic_world`` (phase 18's, on the CPU) with the
-checkpoint and flash checks of the same world beside them.
+checkpoint and flash checks of the same world beside them, and
+``chip_smoke.sharded_world`` (phase 19's) for the sharded families.
 """
 from __future__ import annotations
 
@@ -124,3 +125,12 @@ def sharded_loss_and_grads(mesh, cfg, params: dict, batch: dict):
         loss, grads = value_and_grad(p, b, cfg)
     return float(loss.full_tensor()), {
         k: v.full_tensor().numpy() for k, v in flatten(grads).items()}
+
+
+def families_world(mesh, cases):
+    """``chip_smoke.sharded_world`` (phase 19's world) on this CPU rank,
+    one thread a rank: the ranks are bound by DTensor's planning in
+    Python, and several worlds run at once."""
+    import chip_smoke as cs
+    torch.set_num_threads(1)
+    return cs.sharded_world(mesh, cases, "cpu")

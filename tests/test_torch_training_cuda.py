@@ -9,7 +9,16 @@ CPU copy (as the CPU's equal the reference's): CUDA divides a tensor by a
 Python number as a product with the number's rounded reciprocal, which
 for ~5 % of maxima puts the int8 scale one ulp off the quotient and so
 changes every element of the leaf.
+
+The blockwise attention (non-causal, windowed) pads its keys and values
+to a whole chunk. torch 2.11's DTensor gave ``F.pad``'s output a spec
+with fewer placements than the mesh has dims, so a later view raised on
+any mesh; reduced seamless-m4t-large-v2 (cross-attention) and hymba-1.5b
+(windowed layers) take that path, and their sharded step on two thread
+ranks must hold to the unsharded step.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -59,3 +68,18 @@ def test_compress_grads_card_equals_cpu(cuda, dtype):
             q = np.clip(np.round(g.float().numpy() / scale), -127, 127)
             np.testing.assert_array_equal(
                 want[name].numpy(), q.astype(np.float32) * scale)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "hymba-1.5b"])
+def test_blockwise_attention_pads_on_a_mesh(cuda, arch):
+    import chip_smoke as cs
+    case = cs.sharded_cases("reduced", archs=(arch,), expert_tp=False)[0]
+    case = dict(case, name=f"{arch} 1x2", mesh="1x2", steps=1)
+    assert case["seq"] % case["cfg"].attn_chunk
+    want = cs.unsharded_family(case, "cuda")
+    recs = cs.thread_ranks(
+        functools.partial(cs.sharded_world, cases=[case], device="cuda"),
+        2, device="cuda", mesh=cs.SHARDED_MESHES["1x2"])
+    out = cs.sharded_checks(case, want, [r[case["name"]] for r in recs],
+                            cs.GRAD_TOL)
+    assert out["loss"] <= cs.GRAD_TOL and out["grads"][0] <= cs.GRAD_TOL
